@@ -1,0 +1,13 @@
+"""stereo_match_tpu_torch — the PyTorch + CUDA port of ``stereo_match_tpu``.
+
+The JAX package beside this one is the reference every function here is
+held against. Public functions keep its ``(D, H, W)`` planes layout. Plain
+tensor code is PyTorch; the four kernels of the census + 8-path SGM main
+path are CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` at first use
+and bound with ``ctypes`` (``ops/cuda_kernels.py``).
+
+Dispatch follows the device of the input tensor: a CPU tensor runs the
+kernels' plain PyTorch versions, a CUDA tensor runs the kernels.
+"""
+
+__version__ = "0.1.0"
