@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's census + 8-path SGM main path on one H100.
+"""Drive the PyTorch port's stereo paths on one H100.
 
 Run from the repository root, with no arguments:
 
@@ -8,21 +8,39 @@ Run from the repository root, with no arguments:
 Phases, each of which raises (exit code 1, no result lines) on failure:
 
 1. device: the card must be a Hopper (sm_90); prints its name and power limit.
-2. build: compiles the four CUDA kernels from ``stereo_match_tpu_torch/csrc``
+2. build: compiles the seven CUDA kernels from ``stereo_match_tpu_torch/csrc``
    with nvcc and prints the ``-Xptxas -v`` report.
 3. kernel parity at KITTI shape (1242x375, D=128, slanted random-dot scene,
    seed 1): each kernel against its plain PyTorch version on the same CUDA
    tensors. K1, K2 and the K3 totals must be bit-equal; K4 must give the
    same NaN mask and values within 1e-6.
+3b. post-stack kernel parity at full size: K5 + K6 on the KITTI disparity
+   map with injected 2x2 and 4x4 speckles (T=100, range 2) must give the
+   plain filter's labels, unconverged flag and output bit for bit, and
+   keep everything on a serpentine capped at one sweep; K7 must equal the
+   plain solve bit for bit on a row and a column solve (C=2) at KITTI and
+   720p.
 4. main path: ``StereoMatcher`` with the headline config, launch counts
    reset just before the run and read just after; the result against the
    plain path on the card (same NaN mask, values within 1e-6) and against
    the scene's ground truth (bad-3px < 0.05, density > 0.8). Then the same
    comparison at 1280x720, D=160.
+4b. post-stack paths through ``StereoMatcher``, each with its launch
+   counts: ``DisparityConfig()`` at 720p (D=160, WLS lambda 80000 sigma
+   1.2, 3 iterations: settings.ini); KITTI D=128 with speckle 100 range 2
+   and WLS; the same with ``wls_lr_confidence``. Raw must match the plain
+   path (same NaN mask, 1e-6), filtered must be finite and equal the plain
+   path's within 1e-6 relative, and its bad-3px over the raw map's valid
+   pixels must be < 0.05.
+4c. the flagship flow: ``run_pipeline`` at 720p with the default config, a
+   pure lateral baseline and one K; the PLY must round-trip through
+   ``read_ply`` and the reprojected depth of the slanted plane must match
+   f*B/d of the scene.
 5. timing with CUDA events after a warm-up: frames/s of the main path with
    the kernels and with the plain versions at KITTI shape, and with the
    kernels at 720p; each kernel's time beside its plain version's; the
-   peak device memory of one KITTI frame.
+   peak device memory of one KITTI frame; the frame time of the three
+   post-stack paths and the speckle sweeps per frame.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit from nvidia-smi, and the result line.
@@ -31,16 +49,22 @@ limit from nvidia-smi, and the result line.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 KITTI = dict(H=375, W=1242, D=128, d_min=5.0, d_max=90.0, seed=1)
 ARKIT_720P = dict(H=720, W=1280, D=160, d_min=5.0, d_max=110.0, seed=3)
 K4_TOL = 1e-6
+K7_REL_TOL = 1e-6
+SPECKLE = dict(T=100, range=2)
 PALLAS = "stereo_match_tpu/ops/pallas_kernels.py"
+MAIN_PATH = ("census_words", "census_volume", "sgm_path_scan", "wta_lr")
 KERNELS = {   # name -> (source, the TPU kernel(s) it replaces)
     "census_words": ("stereo_match_tpu_torch/csrc/census.cu",
                      f"{PALLAS}:750"),
@@ -50,6 +74,13 @@ KERNELS = {   # name -> (source, the TPU kernel(s) it replaces)
                       f"{PALLAS}:530; {PALLAS}:1953; {PALLAS}:464"),
     "wta_lr": ("stereo_match_tpu_torch/csrc/wta.cu",
                f"{PALLAS}:825; {PALLAS}:464"),
+    "speckle_sweep": ("stereo_match_tpu_torch/csrc/speckle.cu",
+                      "stereo_match_tpu/ops/pallas_speckle.py:276"),
+    "speckle_count_keep": ("stereo_match_tpu_torch/csrc/speckle.cu",
+                           "stereo_match_tpu/ops/pallas_speckle.py:276"),
+    "fgs_solve": ("stereo_match_tpu_torch/csrc/wls.cu",
+                  "stereo_match_tpu/ops/pallas_wls.py:93; "
+                  "stereo_match_tpu/ops/pallas_wls.py:169"),
 }
 
 
@@ -87,13 +118,18 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from stereo_match_tpu_torch.config import DisparityConfig
+    from stereo_match_tpu_torch.data.ply import read_ply
     from stereo_match_tpu_torch.data.synthetic import (random_dot_pair,
                                                        slanted_scene)
     from stereo_match_tpu_torch.eval.metrics import bad_pixel_rate, density
     from stereo_match_tpu_torch.ops import cuda_kernels as K
+    from stereo_match_tpu_torch.ops import wls
     from stereo_match_tpu_torch.ops.sgm import PATH_DIRECTIONS_8
+    from stereo_match_tpu_torch.ops.speckle import (connectivity,
+                                                    speckle_filter)
     from stereo_match_tpu_torch.pipeline.stereo import (StereoMatcher,
-                                                        _match_core)
+                                                        _match_core,
+                                                        run_pipeline)
     from stereo_match_tpu_torch.utils.backend import require_hopper
 
     # 1. device
@@ -124,15 +160,42 @@ def main() -> int:
     def aggregate(scan, vol, cfg):
         return K.aggregate_paths(vol, cfg.P1, cfg.P2, cfg.num_paths, scan)
 
-    def plain_path(left, right, cfg):
+    def plain_path(left, right, cfg, both_views=False):
         """The main path with every kernel replaced by its plain version."""
         words = K.census_words_plain(torch.stack([left, right]),
                                      cfg.census_window)
         vol = K.census_volume_plain(words[0], words[1], cfg.num_disparities,
                                     cfg.min_disparity)
         total = aggregate(K.sgm_path_scan_plain, vol, cfg)
-        return K.wta_lr_plain(total, cfg.min_disparity, cfg.uniqueness_ratio,
-                              cfg.disp12_max_diff, cfg.subpixel)[0]
+        del vol
+        out = K.wta_lr_plain(total, cfg.min_disparity, cfg.uniqueness_ratio,
+                             cfg.disp12_max_diff, cfg.subpixel)
+        return out if both_views else out[0]
+
+    def plain_speckle(d, cfg, max_iters=64):
+        return speckle_filter(d, cfg.speckle_window_size, cfg.speckle_range,
+                              max_iters, sweep=K.speckle_sweep_plain,
+                              count_keep=K.speckle_count_keep_plain)
+
+    def plain_post_path(left, right, cfg):
+        """_match_core with the post stack, every kernel plain."""
+        disp, disp_right = plain_path(left, right, cfg, both_views=True)
+        disp = plain_speckle(disp, cfg)
+        conf = wls.wls_confidence_cv2(disp, disp_right) \
+            if cfg.wls_lr_confidence else None
+        return disp, wls.wls_filter_disparity(
+            disp, left, cfg.lmbda, cfg.sigma, cfg.wls_iters, confidence=conf,
+            solve=K.fgs_solve_plain)
+
+    def bit_equal(a, b, what):
+        check(torch.equal(torch.isnan(a), torch.isnan(b)),
+              f"{what}: NaN masks differ")
+        check(torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)),
+              f"{what}: values differ")
+        return float((a - b).abs().nan_to_num(0.0).max())
+
+    def rel_err(a, b):
+        return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
 
     def same_disparity(a, b, what):
         nan_a, nan_b = torch.isnan(a), torch.isnan(b)
@@ -172,6 +235,86 @@ def main() -> int:
     for name, e in err.items():
         print(f"[parity] {name}: max_abs_err={e} ({label(KITTI)})")
 
+    # 3b. post-stack kernel parity at full size
+    speckled = disp.clone()
+    rng = torch.Generator(device="cpu").manual_seed(5)
+    H, W = speckled.shape
+    for k in range(600):                     # 2x2 and 4x4 outlier blobs
+        size = 2 if k % 2 else 4
+        y = int(torch.randint(0, H - size, (1,), generator=rng))
+        x = int(torch.randint(0, W - size, (1,), generator=rng))
+        speckled[y:y + size, x:x + size] = \
+            float(torch.rand(1, generator=rng)) * 120
+    conn = connectivity(speckled, SPECKLE["range"])
+    lin = torch.arange(H * W, dtype=torch.int32, device=dev).view(H, W)
+    init = torch.where(torch.isfinite(speckled), lin, H * W + 1).to(
+        torch.int32)
+
+    def sweep_loop(sweep, max_iters=64):
+        labels, changed, n = init.clone(), True, 0
+        while changed and n < max_iters:
+            changed = bool(sweep(labels, conn))
+            n += 1
+        return labels, changed, n
+
+    labels, unconv, n_sweeps = sweep_loop(K.speckle_sweep)
+    labels_ref, unconv_ref, n_ref = sweep_loop(K.speckle_sweep_plain)
+    err["speckle_sweep"] = int((labels - labels_ref).abs().max())
+    check(torch.equal(labels, labels_ref) and unconv == unconv_ref
+          and n_sweeps == n_ref, "K5 speckle_sweep labels, flag and sweeps")
+    kept = K.speckle_count_keep(speckled, labels, SPECKLE["T"], unconv)
+    kept_ref = K.speckle_count_keep_plain(speckled, labels, SPECKLE["T"],
+                                          unconv)
+    err["speckle_count_keep"] = bit_equal(kept, kept_ref,
+                                          "K6 speckle_count_keep")
+    spk_cfg = headline(KITTI["D"]).replace(
+        speckle_window_size=SPECKLE["T"], speckle_range=SPECKLE["range"])
+    out = speckle_filter(speckled, SPECKLE["T"], SPECKLE["range"])
+    bit_equal(out, plain_speckle(speckled, spk_cfg), "K5+K6 speckle_filter")
+    removed = int((torch.isfinite(speckled) & torch.isnan(out)).sum())
+    print(f"[parity] speckle_sweep: labels equal, unconverged={unconv}, "
+          f"{n_sweeps} sweeps; speckle_count_keep bit-equal; "
+          f"{removed} of {int(torch.isfinite(speckled).sum())} valid pixels "
+          f"removed ({label(KITTI)}, T={SPECKLE['T']}, "
+          f"range={SPECKLE['range']}; {card})")
+    serp = torch.full((16, 33), float("nan"), device=dev)
+    for row in range(0, 16, 2):
+        serp[row, :] = 5.0
+        if row + 1 < 16:
+            serp[row + 1, -1 if (row // 2) % 2 == 0 else 0] = 5.0
+    check(torch.equal(torch.isfinite(speckle_filter(serp, 10 ** 6, 1.0,
+                                                    max_iters=1)),
+                      torch.isfinite(serp)), "serpentine at max_iters=1 keeps "
+          "every pixel")
+
+    left7, right7, gt7 = scene(ARKIT_720P)
+    cfg7 = headline(ARKIT_720P["D"])
+    disp7 = _match_core(left7, right7, cfg7)[0]
+    err["fgs_solve"] = 0.0
+    k7_shapes, k7_args = [], {}
+    lam = wls._lambda_schedule(80000.0, 3)[0]
+    for spec, guide, d in ((KITTI, left, disp), (ARKIT_720P, left7, disp7)):
+        valid = torch.isfinite(d)
+        conf = valid.to(torch.float32)
+        f = torch.stack([conf * torch.where(valid, d, 0.0), conf])
+        for kind, slab, (wp, wn) in (
+                ("row", f.transpose(1, 2).contiguous(),
+                 wls._scan_weights(wls._edge_weights(guide, 1, 1.2).T)),
+                ("column", f, wls._scan_weights(
+                    wls._edge_weights(guide, 0, 1.2)))):
+            u = K.fgs_solve(slab, wp, wn, lam)
+            u_ref = K.fgs_solve_plain(slab, wp, wn, lam)
+            e = float((u - u_ref).abs().max())
+            check(torch.equal(u, u_ref), f"K7 fgs_solve {kind} solve at "
+                  f"{label(spec)} bit-equal (max |diff| {e}, max relative "
+                  f"{rel_err(u, u_ref)})")
+            err["fgs_solve"] = max(err["fgs_solve"], e)
+            k7_shapes.append(f"{kind} {label(spec)} {tuple(slab.shape)}")
+            if spec is KITTI:
+                k7_args[kind] = (slab, wp, wn)
+    del disp7, d, valid, conf
+    print(f"[parity] fgs_solve: bit-equal on {k7_shapes} ({card})")
+
     # 4. main path through the user's entry point
     matcher = StereoMatcher(cfg, device=dev)
     left_np, right_np = left.cpu().numpy(), right.cpu().numpy()
@@ -180,7 +323,7 @@ def main() -> int:
     torch.cuda.synchronize()
     counts = dict(K.launches)
     print(f"[main] launches {counts}")
-    for name in KERNELS:
+    for name in MAIN_PATH:
         check(counts[name] > 0, f"kernel {name} launched on the main path")
     check(raw.shape == (KITTI["H"], KITTI["W"]) and raw.device == dev,
           "main path output shape and device")
@@ -193,8 +336,6 @@ def main() -> int:
     check(bad3 < 0.05, f"bad-3px {bad3} < 0.05")
     check(dens > 0.8, f"density {dens} > 0.8")
 
-    left7, right7, gt7 = scene(ARKIT_720P)
-    cfg7 = headline(ARKIT_720P["D"])
     raw7, _ = _match_core(left7, right7, cfg7)
     err7 = same_disparity(raw7, plain_path(left7, right7, cfg7),
                           "main path vs plain path, 720p")
@@ -202,6 +343,87 @@ def main() -> int:
           f"bad-3px = {float(bad_pixel_rate(raw7, gt7, 3.0, 0.0))}, density = "
           f"{float(density(raw7))}")
     del raw7
+
+    # 4b. post-stack paths through the user's entry point
+    spk_wls = spk_cfg.replace(wls=True, wls_iters=3)
+    post_paths = {   # name -> (scene spec, left, right, gt, config)
+        "settings.ini": (ARKIT_720P, left7, right7, gt7, DisparityConfig()),
+        "speckle+wls": (KITTI, left, right, gt, spk_wls),
+        "speckle+wls+lr_confidence": (KITTI, left, right, gt,
+                                      spk_wls.replace(wls_lr_confidence=True)),
+    }
+    post_counts = {}
+    for name, (spec, lft, rgt, g, pcfg) in post_paths.items():
+        matcher = StereoMatcher(pcfg, device=dev)
+        lft_np, rgt_np = lft.cpu().numpy(), rgt.cpu().numpy()
+        K.reset_launches()
+        raw_p, filt_p = matcher(lft_np, rgt_np)
+        torch.cuda.synchronize()
+        c = post_counts[name] = dict(K.launches)
+        print(f"[post] {name} {label(spec)}: launches {c} ({card})")
+        ran = MAIN_PATH + ("fgs_solve",) + (
+            ("speckle_sweep", "speckle_count_keep")
+            if pcfg.speckle_window_size > 0 else ())
+        for k in ran:
+            check(c[k] > 0, f"kernel {k} launched on the {name} path")
+        check(c["fgs_solve"] == 2 * pcfg.wls_iters,
+              f"{name}: two K7 solves per WLS iteration")
+        raw_ref, filt_ref = plain_post_path(lft, rgt, pcfg)
+        e_raw = same_disparity(raw_p, raw_ref, f"{name}: raw vs plain path")
+        check(bool(torch.isfinite(filt_p).all()), f"{name}: filtered finite")
+        e_filt = rel_err(filt_p, filt_ref)
+        check(e_filt <= K7_REL_TOL, f"{name}: filtered vs plain path, max "
+              f"relative {e_filt} > {K7_REL_TOL}")
+        on_raw = torch.where(torch.isnan(raw_p), torch.nan, filt_p)
+        bad3 = float(bad_pixel_rate(on_raw, g, 3.0, 0.0))
+        print(f"[post] {name} {label(spec)}: raw max |kernel - plain| = "
+              f"{e_raw}; filtered max relative |kernel - plain| = {e_filt}; "
+              f"raw bad-3px = {float(bad_pixel_rate(raw_p, g, 3.0, 0.0))}, "
+              f"density = {float(density(raw_p))}; filtered bad-3px over "
+              f"raw-valid pixels = {bad3} ({card})")
+        check(bad3 < 0.05, f"{name}: filtered bad-3px {bad3} < 0.05")
+        del raw_p, filt_p, raw_ref, filt_ref, on_raw
+
+    # 4c. the flagship flow: rectify from poses -> match -> WLS -> reproject
+    f_px, baseline = 1164.0, 0.1
+    H7, W7 = ARKIT_720P["H"], ARKIT_720P["W"]
+    K_cam = np.array([[f_px, 0.0, W7 / 2.0], [0.0, f_px, H7 / 2.0],
+                      [0.0, 0.0, 1.0]])
+    pose_l, pose_r = np.eye(4), np.eye(4)
+    pose_r[0, 3] = baseline                  # pure lateral baseline
+    with tempfile.TemporaryDirectory() as tmp:
+        ply = os.path.join(tmp, "cloud.ply")
+        K.reset_launches()
+        res = run_pipeline(pose_l, pose_r, K_cam, K_cam,
+                           left7.cpu().numpy(), right7.cpu().numpy(),
+                           ply_path=ply, device=dev)
+        torch.cuda.synchronize()
+        flow_counts = dict(K.launches)
+        ply_pts, ply_cols = read_ply(ply)
+    print(f"[flow] run_pipeline {W7}x{H7} DisparityConfig(): launches "
+          f"{flow_counts} ({card})")
+    for k in MAIN_PATH + ("fgs_solve",):
+        check(flow_counts[k] > 0, f"kernel {k} launched by run_pipeline")
+    valid = np.isfinite(res.disparity)
+    want_pts = np.where(np.isfinite(res.points[valid]), res.points[valid],
+                        0.0)
+    check(len(ply_pts) == res.meta["ply_vertices"] == int(valid.sum())
+          and np.allclose(ply_pts, want_pts, rtol=1e-6, atol=1e-5)
+          and ply_cols.shape == (len(ply_pts), 3),
+          "PLY round-trips through read_ply")
+    z = res.points[..., 2][valid]
+    z_true = f_px * baseline / gt7[valid]
+    z_rel = np.abs(z - z_true) / z_true
+    print(f"[flow] {len(ply_pts)} points; depth of the slanted plane "
+          f"({float(z_true.min())}-{float(z_true.max())} m) vs f*B/d: median "
+          f"relative error {float(np.median(z_rel))}, 95th percentile "
+          f"{float(np.percentile(z_rel, 95))}; Q[2,3] = "
+          f"{res.rectification.Q[2, 3]}, 1/Q[3,2] = "
+          f"{1.0 / res.rectification.Q[3, 2]} ({card})")
+    check(float(np.median(z_rel)) < 0.01 and
+          float(np.percentile(z_rel, 95)) < 0.05,
+          "reprojected depth matches f*B/d of the scene")
+    del res
 
     # 5. timing (CUDA events, after a warm-up)
     ms["census_words"] = cuda_ms(lambda: K.census_words(imgs), 50)
@@ -226,26 +448,76 @@ def main() -> int:
     plain_ms["wta_lr"] = cuda_ms(lambda: K.wta_lr_plain(total, *wta_args), 3)
     del vol, vol_ref, total, total_ref
 
+    # K5-K7 at KITTI shape; a K5 launch is half a sweep
+    converged = labels.clone()
+    sweep_ms = cuda_ms(lambda: K.speckle_sweep(converged, conn), 20)
+    sweep_plain_ms = cuda_ms(lambda: K.speckle_sweep_plain(converged, conn),
+                             5)
+    ms["speckle_sweep"], plain_ms["speckle_sweep"] = (sweep_ms / 2,
+                                                      sweep_plain_ms / 2)
+    keep_args = (speckled, labels, SPECKLE["T"], unconv)
+    ms["speckle_count_keep"] = cuda_ms(
+        lambda: K.speckle_count_keep(*keep_args), 20)
+    plain_ms["speckle_count_keep"] = cuda_ms(
+        lambda: K.speckle_count_keep_plain(*keep_args), 5)
+    solve_ms, solve_plain_ms = {}, {}
+    for kind, args in k7_args.items():
+        solve_ms[kind] = cuda_ms(lambda: K.fgs_solve(*args, lam), 20)
+        solve_plain_ms[kind] = cuda_ms(
+            lambda: K.fgs_solve_plain(*args, lam), 2)
+        print(f"[timing] fgs_solve {kind} solve {label(KITTI)} "
+              f"{tuple(args[0].shape)}: kernel {solve_ms[kind]} ms, plain "
+              f"{solve_plain_ms[kind]} ms ({card})")
+    ms["fgs_solve"] = sum(solve_ms.values()) / len(solve_ms)
+    plain_ms["fgs_solve"] = sum(solve_plain_ms.values()) / len(solve_ms)
+    spk_ms = cuda_ms(lambda: speckle_filter(speckled, SPECKLE["T"],
+                                            SPECKLE["range"]), 10)
+    spk_plain_ms = cuda_ms(lambda: plain_speckle(speckled, spk_cfg), 3)
+    wls_ms = cuda_ms(lambda: wls.wls_filter_disparity(
+        disp, left, 80000.0, 1.2, 3), 10)
+    wls_plain_ms = cuda_ms(lambda: wls.wls_filter_disparity(
+        disp, left, 80000.0, 1.2, 3, solve=K.fgs_solve_plain), 1)
+    print(f"[timing] speckle sweep (row + column launch) {label(KITTI)}: "
+          f"kernel {sweep_ms} ms, plain {sweep_plain_ms} ms; whole "
+          f"speckle_filter ({n_sweeps} sweeps, one host sync each): kernels "
+          f"{spk_ms} ms, plain {spk_plain_ms} ms ({card})")
+    print(f"[timing] wls_filter_disparity {label(KITTI)} (3 iterations, 6 "
+          f"solves): kernels {wls_ms} ms, plain {wls_plain_ms} ms ({card})")
+    del speckled, labels, labels_ref, conn, init, lin, kept, kept_ref, out
+    del converged, keep_args, k7_args, f, slab, u, u_ref, wp, wn
+
     frame_ms = cuda_ms(lambda: _match_core(left, right, cfg), 20, warmup=2)
     frame7_ms = cuda_ms(lambda: _match_core(left7, right7, cfg7), 10)
     plain_frame_ms = cuda_ms(lambda: plain_path(left, right, cfg), 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
     _match_core(left, right, cfg)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"[timing] main path {label(KITTI)}: kernels {frame_ms} ms/frame"
           f" = {1000.0 / frame_ms} frames/s; plain versions {plain_frame_ms} "
           f"ms/frame = {1000.0 / plain_frame_ms} frames/s; peak device memory "
-          f"{peak} B ({card})")
+          f"{peak} B, {peak - before} B of it for the frame ({card})")
     print(f"[timing] main path {label(ARKIT_720P)}: kernels {frame7_ms} "
           f"ms/frame = {1000.0 / frame7_ms} frames/s ({card})")
+
+    for name, (spec, lft, rgt, _, pcfg) in post_paths.items():
+        t = cuda_ms(lambda: _match_core(lft, rgt, pcfg), 10)
+        sweeps = post_counts[name]["speckle_sweep"] // 2
+        print(f"[timing] post-stack path {name} {label(spec)}: {t} ms/frame "
+              f"= {1000.0 / t} frames/s; {sweeps} speckle sweeps per frame "
+              f"({card})")
     for name in KERNELS:
         print(f"[timing] {name}: kernel {ms[name]} ms, plain {plain_ms[name]} "
               f"ms per launch ({card})")
 
+    # launches: K1-K4 from the headline run (phase 4), K5-K7 from the KITTI
+    # speckle + WLS run (phase 4b)
+    path_counts = {**post_counts["speckle+wls"],
+                   **{k: counts[k] for k in MAIN_PATH}}
     record = [{"name": name, "route": "cuda", "source": src,
-               "replaces": replaces, "launches": counts[name],
+               "replaces": replaces, "launches": path_counts[name],
                "max_abs_err": err[name], "ms": ms[name],
                "plain_ms": plain_ms[name]}
               for name, (src, replaces) in KERNELS.items()]

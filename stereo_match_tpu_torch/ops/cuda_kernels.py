@@ -1,16 +1,22 @@
-"""The four CUDA kernels of the census + SGM main path, with their plain
-PyTorch versions and launch counts.
+"""The CUDA kernels of the port, with their plain PyTorch versions and
+launch counts.
 
-=====  ===================  ==============================================
-K1     ``census_words``     csrc/census.cu       (census_words_pallas)
-K2     ``census_volume``    csrc/cost_volume.cu  (census_volume_pallas)
-K3     ``sgm_path_scan``    csrc/sgm.cu          (sgm_census_hpair_pallas,
-                                                  sgm_scan3_pallas, the scans
-                                                  of sgm_scan3_stats_pallas)
-K4     ``wta_lr``           csrc/wta.cu          (the WTA statistics of
-                                                  sgm_scan3_stats_pallas,
-                                                  lr_mask_pallas)
-=====  ===================  ==============================================
+=====  ======================  ===========================================
+K1     ``census_words``        csrc/census.cu       (census_words_pallas)
+K2     ``census_volume``       csrc/cost_volume.cu  (census_volume_pallas)
+K3     ``sgm_path_scan``       csrc/sgm.cu          (sgm_census_hpair_pallas,
+                                                     sgm_scan3_pallas, the
+                                                     scans of
+                                                     sgm_scan3_stats_pallas)
+K4     ``wta_lr``              csrc/wta.cu          (the WTA statistics of
+                                                     sgm_scan3_stats_pallas,
+                                                     lr_mask_pallas)
+K5     ``speckle_sweep``       csrc/speckle.cu      (the labels of
+                                                     speckle_filter_pallas)
+K6     ``speckle_count_keep``  csrc/speckle.cu      (the sizes and threshold
+                                                     of speckle_filter_pallas)
+K7     ``fgs_solve``           csrc/wls.cu          (fgs_solve_pallas)
+=====  ======================  ===========================================
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain version (``*_plain``, also the on-card reference of the checks), a
@@ -21,7 +27,9 @@ and called through ``ctypes`` on PyTorch's current stream. A C entry point
 allocates nothing and returns ``cudaGetLastError()``; the wrapper allocates
 the outputs and raises on a nonzero code.
 
-``launches`` counts, per kernel, the launches made by the wrappers.
+``launches`` counts, per kernel, the calls of its C entry point made by
+the wrappers: K5 counts two per sweep (rows, then columns); K6's entry
+runs its count and keep kernels as one.
 """
 
 from __future__ import annotations
@@ -43,7 +51,8 @@ from stereo_match_tpu_torch.ops.sgm import (PATH_DIRECTIONS_8,
 from stereo_match_tpu_torch.ops.wta import lr_consistency_mask
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("census.cu", "cost_volume.cu", "sgm.cu", "wta.cu")
+SOURCES = ("census.cu", "cost_volume.cu", "sgm.cu", "wta.cu",
+           "speckle.cu", "wls.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
     "stereo_match_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -51,7 +60,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIB_NAME = "libsmt_kernels.so"
 
 launches = {"census_words": 0, "census_volume": 0, "sgm_path_scan": 0,
-            "wta_lr": 0}
+            "wta_lr": 0, "speckle_sweep": 0, "speckle_count_keep": 0,
+            "fgs_solve": 0}
+
+# Packed speckle connectivity: the bit a pixel sets when it is connected to
+# its left neighbour, and the one for the pixel above.
+CONN_LEFT, CONN_UP = 1, 2
 
 
 def reset_launches() -> None:
@@ -117,6 +131,9 @@ def _library() -> ctypes.CDLL:
             "smt_census_volume": [p, p, p, i, i, i, i, p],
             "smt_sgm_path_scan": [p, p, i, i, i, i, i, f, f, i, p],
             "smt_wta_lr": [p, p, p, i, i, i, i, i, i, i, p],
+            "smt_speckle_sweep": [p, p, i, i, i, p, p],
+            "smt_speckle_count_keep": [p, p, p, p, i, i, i, i, p],
+            "smt_fgs_solve": [p, p, p, p, p, i, i, i, f, p],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
@@ -348,3 +365,172 @@ def wta_lr(total: torch.Tensor, min_disparity: int = 0,
             D, H, W, min_disparity, uniqueness_ratio, disp12_max_diff,
             int(subpixel))
     return disp, disp_right
+
+
+# ------------------------------------------------------ K5 speckle_sweep ----
+
+def _check_labels(labels: torch.Tensor, conn: torch.Tensor) -> None:
+    _check(labels, "labels", torch.int32, 2)
+    _check(conn, "conn", torch.uint8, 2)
+    if labels.shape != conn.shape:
+        raise ValueError(f"labels {tuple(labels.shape)} and conn "
+                         f"{tuple(conn.shape)} differ")
+
+
+def _seg_min_scan(labels: torch.Tensor, brk: torch.Tensor, dim: int,
+                  reverse: bool) -> torch.Tensor:
+    """Inclusive running min along ``dim``, restarted where ``brk`` is set.
+
+    ``cummin`` over ``label - seg * M``, ``seg`` the running count of
+    breaks: every segment starts below all earlier keys (``M`` exceeds any
+    label), so the minimum restarts there; adding ``seg * M`` back gives
+    the labels.
+    """
+    if reverse:
+        labels, brk = labels.flip(dim), brk.flip(dim)
+    seg = torch.cumsum(brk.to(torch.int64), dim)
+    M = labels.numel() + 2
+    out = torch.cummin(labels.to(torch.int64) - seg * M, dim).values + seg * M
+    return (out.flip(dim) if reverse else out).to(torch.int32)
+
+
+def speckle_sweep_plain(labels: torch.Tensor,
+                        conn: torch.Tensor) -> torch.Tensor:
+    """One sweep (x-forward, x-reverse, y-forward, y-reverse) in place.
+
+    Returns a bool tensor: whether the sweep lowered any label.
+    """
+    cx = (conn & CONN_LEFT) != 0          # pixel joins the run of x - 1
+    cy = (conn & CONN_UP) != 0            # pixel joins the run of y - 1
+    # reverse scans: a pixel joins the run of x + 1 (y + 1) when that pixel
+    # is connected back to it; the last column (row) starts a run anyway
+    cx_next = torch.zeros_like(cx)
+    cx_next[:, :-1] = cx[:, 1:]
+    cy_next = torch.zeros_like(cy)
+    cy_next[:-1, :] = cy[1:, :]
+    new = _seg_min_scan(labels, ~cx, 1, False)
+    new = _seg_min_scan(new, ~cx_next, 1, True)
+    new = _seg_min_scan(new, ~cy, 0, False)
+    new = _seg_min_scan(new, ~cy_next, 0, True)
+    changed = (new != labels).any()
+    labels.copy_(new)
+    return changed
+
+
+def speckle_sweep(labels: torch.Tensor, conn: torch.Tensor) -> torch.Tensor:
+    """One min-label sweep over (H, W) int32 ``labels``, in place (K5).
+
+    ``conn`` is the (H, W) uint8 packed connectivity (``CONN_LEFT``,
+    ``CONN_UP``). Returns a one-element tensor on the labels' device,
+    nonzero when the sweep lowered a label; reading it syncs the host.
+    """
+    _check_labels(labels, conn)
+    if _on_cpu(labels, conn):
+        return speckle_sweep_plain(labels, conn)
+    H, W = labels.shape
+    changed = torch.zeros(1, dtype=torch.int32, device=labels.device)
+    for axis in (1, 0):                    # rows, then columns
+        _launch("speckle_sweep", labels.device, _ptr(labels), _ptr(conn), H,
+                W, axis, _ptr(changed))
+    return changed
+
+
+# ------------------------------------------------- K6 speckle_count_keep ----
+
+def speckle_count_keep_plain(d: torch.Tensor, labels: torch.Tensor,
+                             threshold: int,
+                             unconverged: bool) -> torch.Tensor:
+    """Pixels of components under ``threshold`` pixels -> NaN.
+
+    ``unconverged`` keeps every valid pixel (the sweeps hit their cap).
+    """
+    sizes = torch.bincount(labels.reshape(-1).to(torch.int64),
+                           minlength=labels.numel() + 2)
+    keep = (sizes[labels.to(torch.int64)] >= threshold) | bool(unconverged)
+    return torch.where(keep & torch.isfinite(d), d, torch.nan)
+
+
+def speckle_count_keep(d: torch.Tensor, labels: torch.Tensor, threshold: int,
+                       unconverged: bool) -> torch.Tensor:
+    """Component sizes by label, then the size threshold (K6).
+
+    ``d``: (H, W) float32 disparities; ``labels``: their (H, W) int32
+    component labels after the sweeps (``H * W + 1`` for invalid pixels).
+    Returns ``d`` with NaN where the pixel is invalid or its component has
+    fewer than ``threshold`` pixels, unless ``unconverged``.
+    """
+    _check(d, "d", torch.float32, 2)
+    _check(labels, "labels", torch.int32, 2)
+    if d.shape != labels.shape:
+        raise ValueError(f"d {tuple(d.shape)} and labels "
+                         f"{tuple(labels.shape)} differ")
+    if _on_cpu(d, labels):
+        return speckle_count_keep_plain(d, labels, threshold, unconverged)
+    H, W = d.shape
+    count = torch.zeros(H * W, dtype=torch.int32, device=d.device)
+    out = torch.empty_like(d)
+    _launch("speckle_count_keep", d.device, _ptr(d), _ptr(labels),
+            _ptr(count), _ptr(out), H, W, int(threshold), int(unconverged))
+    return out
+
+
+# ---------------------------------------------------------- K7 fgs_solve ----
+
+def _check_solve(f: torch.Tensor, wp: torch.Tensor, wn: torch.Tensor) -> None:
+    _check(f, "f", torch.float32, 3)
+    _check(wp, "wp", torch.float32, 2)
+    _check(wn, "wn", torch.float32, 2)
+    if wp.shape != f.shape[1:] or wn.shape != f.shape[1:]:
+        raise ValueError(f"weights {tuple(wp.shape)}, {tuple(wn.shape)} do "
+                         f"not match the slab {tuple(f.shape)}")
+    if f.shape[0] not in (1, 2):
+        raise ValueError("fgs_solve takes one or two right-hand sides")
+
+
+def fgs_solve_plain(f: torch.Tensor, wp: torch.Tensor, wn: torch.Tensor,
+                    lam: float) -> torch.Tensor:
+    """Solve (I + lam*A) u = f along axis 1 of the (C, S, N) slab ``f``.
+
+    ``wp``/``wn`` (S, N): edge weights to the scan-order predecessor /
+    successor (``wp[0] = wn[S-1] = 0``). The Thomas algorithm of
+    ``ops/wls.py::_tridiagonal_smooth_rows``, vectorised over the N lines,
+    in the reference's operation order.
+    """
+    C, S, N = f.shape
+    lam = torch.tensor(lam, dtype=torch.float32, device=f.device)
+    a = -lam * wp
+    c = -lam * wn
+    b = (1.0 - a) - c
+    cp = torch.empty_like(wp)
+    u = torch.empty_like(f)
+    cp_prev = torch.zeros(N, dtype=torch.float32, device=f.device)
+    dp_prev = torch.zeros((C, N), dtype=torch.float32, device=f.device)
+    for s in range(S):
+        denom = b[s] - a[s] * cp_prev
+        cp_prev = c[s] / denom
+        dp_prev = (f[:, s] - a[s] * dp_prev) / denom
+        cp[s] = cp_prev
+        u[:, s] = dp_prev
+    u_next = torch.zeros((C, N), dtype=torch.float32, device=f.device)
+    for s in range(S - 1, -1, -1):
+        u_next = u[:, s] - cp[s] * u_next
+        u[:, s] = u_next
+    return u
+
+
+def fgs_solve(f: torch.Tensor, wp: torch.Tensor, wn: torch.Tensor,
+              lam: float) -> torch.Tensor:
+    """Tridiagonal solves along axis 1 of a (C, S, N) slab (K7).
+
+    ``lam`` is a float32 value (the smoother's lambda schedule is computed
+    in float32); C = 1 or 2 right-hand sides share one elimination.
+    """
+    _check_solve(f, wp, wn)
+    if _on_cpu(f, wp, wn):
+        return fgs_solve_plain(f, wp, wn, lam)
+    C, S, N = f.shape
+    cp = torch.empty_like(wp)
+    u = torch.empty_like(f)
+    _launch("fgs_solve", f.device, _ptr(f), _ptr(wp), _ptr(wn), _ptr(cp),
+            _ptr(u), C, S, N, float(lam))
+    return u

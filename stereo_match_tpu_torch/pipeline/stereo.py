@@ -1,33 +1,59 @@
-"""The census + SGM stereo matcher (PyTorch).
+"""The census + SGM stereo pipeline (PyTorch).
 
-Counterpart of ``stereo_match_tpu/pipeline/stereo.py:53-217``: the census
-branch of ``_match_core``, :class:`StereoMatcher` (with ``batched``) and the
-LRU-cached :func:`compute_disparity` with its int16 disparity*16 contract.
+Counterpart of ``stereo_match_tpu/pipeline/stereo.py``: the census branch
+of ``_match_core`` with its post stack, :class:`StereoMatcher` (with
+``batched``), the LRU-cached :func:`compute_disparity` with its int16
+disparity*16 contract, and the flagship flow :func:`run_pipeline` (rectify
+from poses -> match -> WLS -> reproject -> PLY).
 
-The path is four kernels (``ops/cuda_kernels.py``): census words of both
-views (K1), the (D, H, W) Hamming volume (K2), one SGM scan per path
-direction added into the total (K3, ``num_paths`` launches), and WTA with
-subpixel, uniqueness and the disp12 check (K4). CPU tensors run the
-kernels' plain versions; CUDA tensors run the kernels.
+The matching path is seven kernels (``ops/cuda_kernels.py``): census words
+of both views (K1), the (D, H, W) Hamming volume (K2), one SGM scan per
+path direction added into the total (K3, ``num_paths`` launches), WTA with
+subpixel, uniqueness and the disp12 check (K4); then, when configured, the
+speckle filter's label sweeps (K5) and component sizes (K6), and the WLS
+smoother's tridiagonal solves (K7, two per WLS iteration). CPU tensors run
+the kernels' plain versions; CUDA tensors run the kernels.
 
 The slice covers census costs with a single-word window (at most 33
 pixels), 2, 4 or 8 paths, any ``min_disparity >= 0``, float32 volumes, and
-no speckle or WLS post-filter; any other configuration raises
+the speckle and WLS post-filters; any other configuration raises
 ``NotImplementedError`` naming its ROADMAP.md entry.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
+from dataclasses import dataclass, field
 from typing import Any
 
+import numpy as np
 import torch
 
 from stereo_match_tpu_torch.config import DisparityConfig
+from stereo_match_tpu_torch.core.rectify import (RectificationResult,
+                                                 rectify_pair)
+from stereo_match_tpu_torch.core.reproject import reproject_image_to_3d
+from stereo_match_tpu_torch.data.image import to_grayscale
+from stereo_match_tpu_torch.data.ply import write_ply
 from stereo_match_tpu_torch.ops.cuda_kernels import (aggregate_paths,
                                                      census_volume,
                                                      census_words, wta_lr)
+from stereo_match_tpu_torch.ops.speckle import speckle_filter
+from stereo_match_tpu_torch.ops.wls import (wls_confidence_cv2,
+                                            wls_filter_disparity)
 from stereo_match_tpu_torch.ops.wta import to_fixed_point
+
+
+@dataclass
+class StereoResult:
+    """Outputs of one pipeline run (host-side numpy arrays)."""
+    disparity: np.ndarray                 # raw float32, NaN invalid
+    disparity_filtered: np.ndarray        # WLS-refined (dense)
+    rect_left: np.ndarray | None = None
+    rect_right: np.ndarray | None = None
+    rectification: RectificationResult | None = None
+    points: np.ndarray | None = None      # (H, W, 3) when reprojected
+    meta: dict[str, Any] = field(default_factory=dict)
 
 
 def check_slice(cfg: DisparityConfig) -> None:
@@ -51,21 +77,14 @@ def check_slice(cfg: DisparityConfig) -> None:
         raise NotImplementedError(
             f"dtype={cfg.dtype!r}: the port keeps float32 volumes (ROADMAP.md,"
             " queue 2: int16 scans)")
-    if cfg.speckle_window_size > 0:
-        raise NotImplementedError(
-            "speckle filtering is not ported yet (ROADMAP.md, queue 1: post "
-            "stack); set speckle_window_size=0")
-    if cfg.wls:
-        raise NotImplementedError(
-            "the WLS post-filter is not ported yet (ROADMAP.md, queue 1: post "
-            "stack); set wls=False")
 
 
 def _match_core(left_gray: torch.Tensor, right_gray: torch.Tensor,
                 cfg: DisparityConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """(H, W) images -> (raw, filtered) float32 disparities, NaN invalid.
 
-    Without a post-filter in the slice, ``filtered`` is ``raw``.
+    ``raw`` is the speckle-filtered WTA map; ``filtered`` its WLS
+    refinement (dense) when ``cfg.wls``, else ``raw``.
     """
     check_slice(cfg)
     imgs = torch.stack([left_gray, right_gray]).to(torch.float32).contiguous()
@@ -73,16 +92,26 @@ def _match_core(left_gray: torch.Tensor, right_gray: torch.Tensor,
     vol = census_volume(words[0], words[1], cfg.num_disparities,
                         cfg.min_disparity)
     total = aggregate_paths(vol, cfg.P1, cfg.P2, cfg.num_paths)
-    disp, _ = wta_lr(total, cfg.min_disparity, cfg.uniqueness_ratio,
-                     cfg.disp12_max_diff, cfg.subpixel)
-    return disp, disp
+    del vol                   # free the volumes before the post stack runs
+    disp, disp_right = wta_lr(total, cfg.min_disparity, cfg.uniqueness_ratio,
+                              cfg.disp12_max_diff, cfg.subpixel)
+    del total
+    disp = speckle_filter(disp, cfg.speckle_window_size, cfg.speckle_range)
+    if not cfg.wls:
+        return disp, disp
+    # OpenCV DisparityWLSFilter wiring: the confidence of the reference's
+    # right-matcher pair, from the right view that K4 already computed
+    confidence = wls_confidence_cv2(disp, disp_right) \
+        if cfg.wls_lr_confidence else None
+    filtered = wls_filter_disparity(disp, imgs[0], cfg.lmbda, cfg.sigma,
+                                    cfg.wls_iters, confidence=confidence)
+    return disp, filtered
 
 
 class StereoMatcher:
     """Stereo matcher for a fixed config on one device.
 
-    >>> matcher = StereoMatcher(DisparityConfig(num_disparities=128,
-    ...                                         wls=False), device="cuda")
+    >>> matcher = StereoMatcher(DisparityConfig(), device="cuda")
     >>> raw, filtered = matcher(left_gray, right_gray)
     """
 
@@ -139,3 +168,61 @@ def compute_disparity(gray_l, gray_r, config: DisparityConfig | None = None,
     raw, filtered = matcher(gray_l, gray_r)
     return (to_fixed_point(raw, cfg.min_disparity).cpu().numpy(),
             to_fixed_point(filtered, cfg.min_disparity).cpu().numpy())
+
+
+def run_pipeline(pose_l, pose_r, K_l, K_r, image_l, image_r,
+                 config: DisparityConfig | None = None,
+                 alpha: float = -1.0,
+                 reproject: bool = True,
+                 ply_path: str | None = None,
+                 q_override: np.ndarray | None = None,
+                 disparity_band: tuple[float, float] | None = None,
+                 matcher=None,
+                 device: torch.device | str = "cpu") -> StereoResult:
+    """Full flagship flow on one pair (``disparity_calculation.py`` parity).
+
+    Rectify from camera-to-world poses, match, refine, reproject the
+    WLS-filtered map to 3-D and optionally write a PLY. ``q_override``
+    reproduces the reference's hard-coded-Q quirk (:293-299);
+    ``disparity_band`` its (10, 20) PLY mask (:312). ``matcher`` overrides
+    the matching stage with any ``(gray_l, gray_r) -> (raw, filtered)``
+    callable. Rectification, matching and reprojection run on ``device``;
+    the result holds numpy arrays.
+    """
+    cfg = config or DisparityConfig()
+    rect_l, rect_r, rectification = rectify_pair(
+        pose_l, pose_r, K_l, K_r, np.asarray(image_l), np.asarray(image_r),
+        alpha=alpha, device=device)
+    rect_l, rect_r = rect_l.cpu().numpy(), rect_r.cpu().numpy()
+    gray_l = to_grayscale(rect_l)
+    gray_r = to_grayscale(rect_r)
+
+    matcher = matcher or StereoMatcher(cfg, device=device)
+    raw, filtered = matcher(gray_l, gray_r)
+    result = StereoResult(
+        disparity=_numpy(raw), disparity_filtered=_numpy(filtered),
+        rect_left=rect_l, rect_right=rect_r, rectification=rectification)
+
+    if reproject or ply_path:
+        Q = q_override if q_override is not None else rectification.Q
+        filtered = torch.as_tensor(filtered, dtype=torch.float32,
+                                   device=device)
+        pts = reproject_image_to_3d(filtered, Q).cpu().numpy()
+        result.points = pts
+        if ply_path:
+            disp = result.disparity_filtered
+            if disparity_band is not None:
+                lo, hi = disparity_band
+                mask = (disp > lo) & (disp < hi)
+            else:
+                mask = np.isfinite(result.disparity)
+            colors = rect_l
+            if colors.ndim == 2:
+                colors = np.stack([colors] * 3, axis=-1)
+            n = write_ply(ply_path, pts[mask], colors[mask])
+            result.meta["ply_vertices"] = n
+    return result
+
+
+def _numpy(x) -> np.ndarray:
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)

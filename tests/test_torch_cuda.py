@@ -8,7 +8,10 @@ card (no JAX there, so without the JAX test configuration):
 The kernel and its plain version take the same CUDA tensors. K1, K2 and K3
 must be bit-equal (integer census arithmetic; K3 repeats the plain scan's
 float operations in the same order, so even non-integer costs agree); K4
-must give the same NaN mask and values within 1e-6.
+must give the same NaN mask and values within 1e-6. K5 and K6 are integer
+label arithmetic and a copy, so the speckle filter must be bit-equal; K7
+rounds every operation as the plain solve does, so it must be bit-equal
+too.
 """
 
 import numpy as np
@@ -16,8 +19,11 @@ import pytest
 import torch
 
 from stereo_match_tpu_torch.config import DisparityConfig
+from stereo_match_tpu_torch.data.synthetic import random_dot_pair, slanted_scene
 from stereo_match_tpu_torch.ops import cuda_kernels as K
+from stereo_match_tpu_torch.ops import wls
 from stereo_match_tpu_torch.ops.sgm import PATH_DIRECTIONS_8
+from stereo_match_tpu_torch.ops.speckle import connectivity, speckle_filter
 from stereo_match_tpu_torch.pipeline.stereo import StereoMatcher
 from stereo_match_tpu_torch.utils.backend import require_hopper
 
@@ -132,7 +138,9 @@ def test_main_path_on_card_matches_cpu(dev):
     raw, filtered = StereoMatcher(cfg, device=dev)(left, right)
     assert raw.is_cuda
     assert K.launches == {"census_words": 1, "census_volume": 1,
-                          "sgm_path_scan": 8, "wta_lr": 1}
+                          "sgm_path_scan": 8, "wta_lr": 1,
+                          "speckle_sweep": 0, "speckle_count_keep": 0,
+                          "fgs_solve": 0}
     want, _ = StereoMatcher(cfg, device="cpu")(left, right)
     _assert_same_disparity(raw.cpu(), want)
 
@@ -146,3 +154,125 @@ def test_kernels_reject_bad_cuda_inputs(dev):
     with pytest.raises(ValueError):
         K.census_volume(torch.zeros(8, 16, dtype=torch.int32, device=dev),
                         torch.zeros(8, 16, dtype=torch.int32), 16)
+
+
+# ------------------------------------------------------ K5, K6 speckle ----
+
+def _speckled_map(H, W, dev, seed=7):
+    rng = np.random.default_rng(seed)
+    d = np.tile(np.linspace(5, 60, W, dtype=np.float32), (H, 1))
+    d += rng.normal(0, 0.3, (H, W)).astype(np.float32)
+    d[rng.uniform(size=d.shape) < 0.15] = np.nan
+    for _ in range(H * W // 400):               # 2x2 and 4x4 outliers
+        y, x = rng.integers(0, H - 4), rng.integers(0, W - 4)
+        s = int(rng.choice([2, 4]))
+        d[y:y + s, x:x + s] = rng.uniform(0, 100)
+    return torch.from_numpy(d).to(dev)
+
+
+def _plain_speckle(d, T, max_diff, max_iters=64):
+    return speckle_filter(d, T, max_diff, max_iters,
+                          sweep=K.speckle_sweep_plain,
+                          count_keep=K.speckle_count_keep_plain)
+
+
+def _assert_bit_equal_maps(got, want):
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
+
+
+@pytest.mark.parametrize("H,W,T,max_diff", [(37, 150, 10, 1.0),
+                                            (64, 33, 30, 2.0),
+                                            (1, 200, 5, 2.0),
+                                            (120, 1, 5, 2.0),
+                                            (*KITTI, 100, 2.0)])
+def test_speckle_kernels(dev, H, W, T, max_diff):
+    d = _speckled_map(H, W, dev)
+    K.reset_launches()
+    got = speckle_filter(d, T, max_diff)
+    sweeps = K.launches["speckle_sweep"] // 2
+    assert K.launches["speckle_count_keep"] == 1 and sweeps >= 1
+    _assert_bit_equal_maps(got, _plain_speckle(d, T, max_diff))
+
+
+def test_speckle_sweep_kernel_labels_and_flag(dev):
+    d = _speckled_map(48, 96, dev, seed=3)
+    conn = connectivity(d, 2.0)
+    lin = torch.arange(48 * 96, dtype=torch.int32, device=dev).view(48, 96)
+    init = torch.where(torch.isfinite(d), lin, 48 * 96 + 1).to(torch.int32)
+    a, b = init.clone(), init.clone()
+    while True:
+        fa = bool(K.speckle_sweep(a, conn))
+        fb = bool(K.speckle_sweep_plain(b, conn))
+        assert fa == fb and torch.equal(a, b)
+        if not fa:
+            break
+
+
+def test_speckle_serpentine_cap(dev):
+    d = torch.full((16, 33), float("nan"))
+    for row in range(0, 16, 2):
+        d[row, :] = 5.0
+        if row + 1 < 16:
+            d[row + 1, -1 if (row // 2) % 2 == 0 else 0] = 5.0
+    d = d.to(dev)
+    kept = speckle_filter(d, 10 ** 6, 1.0, max_iters=1)
+    assert torch.equal(torch.isfinite(kept), torch.isfinite(d))
+    assert torch.isnan(speckle_filter(d, 10 ** 6, 1.0)).all()
+
+
+# -------------------------------------------------------------- K7 WLS ----
+
+@pytest.mark.parametrize("C", [1, 2])
+@pytest.mark.parametrize("S,N", [(1242, 375), (375, 1242), (1280, 720),
+                                 (720, 1280), (37, 149)])
+def test_fgs_solve_kernel(dev, C, S, N):
+    """Row layout (S = W lines of the transposed slab) and column layout."""
+    rng = np.random.default_rng(8)
+    f = torch.from_numpy(rng.uniform(0, 60, (C, S, N)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0, 1, (S - 1, N)).astype(np.float32))
+    wp, wn = wls._scan_weights(w.to(dev))
+    f = f.to(dev)
+    for lam in wls._lambda_schedule(80000.0, 3):
+        got = K.fgs_solve(f, wp, wn, lam)
+        want = K.fgs_solve_plain(f, wp, wn, lam)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_wls_filter_on_card_matches_plain(dev):
+    d = _speckled_map(*KITTI, dev, seed=9)
+    guide = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 255, KITTI).astype(np.float32)).to(dev)
+    K.reset_launches()
+    got = wls.wls_filter_disparity(d, guide, 80000.0, 1.2, 3)
+    assert K.launches["fgs_solve"] == 6
+    want = wls.wls_filter_disparity(d, guide, 80000.0, 1.2, 3,
+                                    solve=K.fgs_solve_plain)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(speckle_window_size=100,
+                                             num_disparities=64),
+                                dict(speckle_window_size=100,
+                                     num_disparities=64,
+                                     wls_lr_confidence=True)])
+def test_post_stack_on_card_matches_cpu(dev, kw):
+    """Small size, so the CPU run stays short. Filtered maps within the
+    smoother's bound (the card's and the CPU's exp round the guide weights
+    differently, by an ulp, and the lambda ladder amplifies it)."""
+    gt = slanted_scene(40, 192, 4.0, 30.0)
+    left, right = random_dot_pair(40, 192, gt, blur=1.0, seed=10)
+    cfg = DisparityConfig(**kw)
+    K.reset_launches()
+    raw, filtered = StereoMatcher(cfg, device=dev)(left, right)
+    counts = dict(K.launches)
+    assert counts["fgs_solve"] == 2 * cfg.wls_iters
+    if cfg.speckle_window_size > 0:
+        assert counts["speckle_count_keep"] == 1
+        assert counts["speckle_sweep"] >= 2
+    want_raw, want_filtered = StereoMatcher(cfg, device="cpu")(left, right)
+    _assert_same_disparity(raw.cpu(), want_raw)
+    assert torch.isfinite(filtered).all()
+    torch.testing.assert_close(filtered.cpu(), want_filtered, rtol=1e-3,
+                               atol=2e-4)

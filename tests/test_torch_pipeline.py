@@ -117,8 +117,7 @@ def test_config_carries_across(tmp_path):
 
 @pytest.mark.parametrize("kw", [
     dict(cost="sad"), dict(cost="bt"), dict(cost="mccnn"),
-    dict(census_window=(7, 7)), dict(min_disparity=-2), dict(dtype="int16"),
-    dict(speckle_window_size=100), dict(wls=True)])
+    dict(census_window=(7, 7)), dict(min_disparity=-2), dict(dtype="int16")])
 def test_configs_outside_the_slice_raise(kw):
     cfg = DisparityConfig(num_disparities=16, **{**HEADLINE, **kw})
     img = torch.zeros(8, 32)
@@ -129,8 +128,8 @@ def test_configs_outside_the_slice_raise(kw):
 
 
 def test_default_config_and_bm_raise():
-    with pytest.raises(NotImplementedError):       # DisparityConfig().wls
-        tstereo.StereoMatcher()
+    # DisparityConfig() (WLS on) is in the slice; BM and 3 paths are not
+    assert tstereo.StereoMatcher().config == DisparityConfig()
     img = np.zeros((8, 32), np.float32)
     with pytest.raises(NotImplementedError):
         tstereo.compute_disparity(img, img, DisparityConfig(**HEADLINE),
@@ -144,15 +143,29 @@ def test_port_imports_no_jax():
         "import sys, numpy as np\n"
         "import stereo_match_tpu_torch\n"
         "from stereo_match_tpu_torch.config import DisparityConfig\n"
-        "from stereo_match_tpu_torch.pipeline.stereo import StereoMatcher\n"
+        "from stereo_match_tpu_torch.pipeline.stereo import (StereoMatcher, "
+        "run_pipeline)\n"
         "import stereo_match_tpu_torch.eval.metrics, "
         "stereo_match_tpu_torch.utils.backend\n"
+        "import stereo_match_tpu_torch.core.camera, "
+        "stereo_match_tpu_torch.core.rectify, "
+        "stereo_match_tpu_torch.core.reproject, "
+        "stereo_match_tpu_torch.data.ply, stereo_match_tpu_torch.data.image, "
+        "stereo_match_tpu_torch.ops.speckle, stereo_match_tpu_torch.ops.wls\n"
         "rng = np.random.default_rng(0)\n"
         "l, r = (rng.uniform(0, 255, (12, 40)).astype(np.float32) "
         "for _ in range(2))\n"
         "cfg = DisparityConfig(num_disparities=16, wls=False)\n"
         "raw, _ = StereoMatcher(cfg)(l, r)\n"
         "assert raw.shape == (12, 40)\n"
+        "l, r = (rng.uniform(0, 255, (12, 176)).astype(np.float32) "
+        "for _ in range(2))\n"
+        "raw, filtered = StereoMatcher()(l, r)\n"
+        "assert filtered.isfinite().all()\n"
+        "pose_r = np.eye(4); pose_r[0, 3] = 0.1\n"
+        "K = np.array([[50.0, 0, 88], [0, 50.0, 6], [0, 0, 1]])\n"
+        "res = run_pipeline(np.eye(4), pose_r, K, K, l, r)\n"
+        "assert res.points.shape == (12, 176, 3)\n"
         "assert 'jax' not in sys.modules, 'the port imported jax'\n"
         "print('ok')\n")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
