@@ -8,8 +8,9 @@ Run from the repository root, with no arguments:
 Phases, each of which raises (exit code 1, no result lines) on failure:
 
 1. device: the card must be a Hopper (sm_90); prints its name and power limit.
-2. build: compiles the seven CUDA kernels from ``stereo_match_tpu_torch/csrc``
-   with nvcc and prints the ``-Xptxas -v`` report.
+2. build: compiles the nine CUDA kernels from ``stereo_match_tpu_torch/csrc``
+   with nvcc (one process per source, all at once) and prints the
+   ``-Xptxas -v`` report.
 3. kernel parity at KITTI shape (1242x375, D=128, slanted random-dot scene,
    seed 1): each kernel against its plain PyTorch version on the same CUDA
    tensors. K1, K2 and the K3 totals must be bit-equal; K4 must give the
@@ -36,11 +37,26 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    pure lateral baseline and one K; the PLY must round-trip through
    ``read_ply`` and the reprojected depth of the slanted plane must match
    f*B/d of the scene.
+4d. the MC-CNN path with the shipped checkpoints (fast 4x64, accurate
+   5x112): K8 against its plain version (cuDNN in full float32) for every
+   layer of both at KITTI shape, within 1e-5; K9 against its plain version
+   at KITTI D=128 on both archs' features and at 720p D=160, within 1e-4
+   with the 1e4 mask exactly equal. Then ``StereoMatcher`` with
+   ``MCCNNCost`` at the headline WTA settings (``bench.py``'s
+   ``mccnn_sgm8``), per arch: launch counts (K8 one per layer, K9 1, K3 8,
+   K4 1, K1 = K2 = 0); agreement with the all-plain MC-CNN path on at least
+   99.5 % of the pixels (same NaN state, |diff| <= 0.01: the tower's sums
+   run in another order than cuDNN's, which can flip a WTA decision);
+   bad-3px < 0.05 and density > 0.8 on the seed-1 scene; with noise=25,
+   density above census's on the same frame and above 0.9, bad-3px
+   < 0.05. The JAX package's CPU figures are printed beside the card's.
 5. timing with CUDA events after a warm-up: frames/s of the main path with
    the kernels and with the plain versions at KITTI shape, and with the
    kernels at 720p; each kernel's time beside its plain version's; the
    peak device memory of one KITTI frame; the frame time of the three
-   post-stack paths and the speckle sweeps per frame.
+   post-stack paths and the speckle sweeps per frame; the frame time and
+   peak memory of both MC-CNN paths, K8 per layer (C_in=1 and C_in=F) and
+   K9 beside their plain versions.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit from nvidia-smi, and the result line.
@@ -62,6 +78,15 @@ KITTI = dict(H=375, W=1242, D=128, d_min=5.0, d_max=90.0, seed=1)
 ARKIT_720P = dict(H=720, W=1280, D=160, d_min=5.0, d_max=110.0, seed=3)
 K4_TOL = 1e-6
 K7_REL_TOL = 1e-6
+K8_TOL = 1e-5      # the tower's sums in another order than cuDNN's
+K9_TOL = 1e-4      # a 64- or 112-term dot product, times scale 24
+MC_AGREE = 0.995   # share of pixels the MC-CNN path must share with plain
+# The JAX package's XLA path in float32 on a CPU, KITTI D=128, seed-1
+# scene, headline WTA settings: (bad-3px, density)
+JAX_CPU = {"mccnn fast": (0.0013987, 0.99550),
+           "mccnn fast noise=25": (0.0018325, 0.97948),
+           "census": (0.0012966, 0.99447),
+           "census noise=25": (0.0039023, 0.73009)}
 SPECKLE = dict(T=100, range=2)
 PALLAS = "stereo_match_tpu/ops/pallas_kernels.py"
 MAIN_PATH = ("census_words", "census_volume", "sgm_path_scan", "wta_lr")
@@ -81,6 +106,11 @@ KERNELS = {   # name -> (source, the TPU kernel(s) it replaces)
     "fgs_solve": ("stereo_match_tpu_torch/csrc/wls.cu",
                   "stereo_match_tpu/ops/pallas_wls.py:93; "
                   "stereo_match_tpu/ops/pallas_wls.py:169"),
+    "mccnn_conv3x3": ("stereo_match_tpu_torch/csrc/mccnn.cu",
+                      f"{PALLAS}:1503; {PALLAS}:1712"),
+    "mccnn_volume": ("stereo_match_tpu_torch/csrc/mccnn.cu",
+                     f"{PALLAS}:1226; {PALLAS}:1329; {PALLAS}:1639; "
+                     f"{PALLAS}:1712"),
 }
 
 
@@ -118,10 +148,14 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from stereo_match_tpu_torch.config import DisparityConfig
+    from stereo_match_tpu_torch.costs import MCCNNCost
     from stereo_match_tpu_torch.data.ply import read_ply
     from stereo_match_tpu_torch.data.synthetic import (random_dot_pair,
                                                        slanted_scene)
     from stereo_match_tpu_torch.eval.metrics import bad_pixel_rate, density
+    from stereo_match_tpu_torch.models.mccnn import (from_flax_params,
+                                                     load_default_params,
+                                                     normalize_image)
     from stereo_match_tpu_torch.ops import cuda_kernels as K
     from stereo_match_tpu_torch.ops import wls
     from stereo_match_tpu_torch.ops.sgm import PATH_DIRECTIONS_8
@@ -145,10 +179,10 @@ def main() -> int:
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             print(f"[build] {line.strip()}")
 
-    def scene(spec):
+    def scene(spec, noise=0.0):
         gt = slanted_scene(spec["H"], spec["W"], spec["d_min"], spec["d_max"])
         left, right = random_dot_pair(spec["H"], spec["W"], gt, blur=1.0,
-                                      seed=spec["seed"])
+                                      seed=spec["seed"], noise=noise)
         return (torch.from_numpy(left).to(dev, torch.float32),
                 torch.from_numpy(right).to(dev, torch.float32), gt)
 
@@ -186,6 +220,34 @@ def main() -> int:
         return disp, wls.wls_filter_disparity(
             disp, left, cfg.lmbda, cfg.sigma, cfg.wls_iters, confidence=conf,
             solve=K.fgs_solve_plain)
+
+    def plain_tower(model, imgs):
+        """The MC-CNN tower on (V, H, W) images, every layer plain."""
+        h = torch.stack([normalize_image(im) for im in imgs])[:, None]
+        for i in range(model.num_layers):
+            last = i == model.num_layers - 1
+            h = K.mccnn_conv3x3_plain(h, model.weights[i], model.biases[i],
+                                      not last, last)
+        return h
+
+    def plain_mccnn_path(left, right, cfg, model):
+        """The MC-CNN main path with every kernel replaced by its plain
+        version."""
+        f = plain_tower(model, (left, right))
+        vol = K.mccnn_volume_plain(f[0], f[1], cfg.num_disparities,
+                                   cfg.min_disparity)
+        del f
+        total = aggregate(K.sgm_path_scan_plain, vol, cfg)
+        del vol
+        return K.wta_lr_plain(total, cfg.min_disparity, cfg.uniqueness_ratio,
+                              cfg.disp12_max_diff, cfg.subpixel)[0]
+
+    def agreement(a, b):
+        """Share of pixels with the same NaN state and |diff| <= 0.01."""
+        nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+        close = (a - b).abs().nan_to_num(0.0) <= 0.01
+        return float(((nan_a == nan_b) & (close | nan_a | nan_b)).float()
+                     .mean())
 
     def bit_equal(a, b, what):
         check(torch.equal(torch.isnan(a), torch.isnan(b)),
@@ -425,6 +487,91 @@ def main() -> int:
           "reprojected depth matches f*B/d of the scene")
     del res
 
+    # 4d. the MC-CNN path: shipped checkpoints, K8 per layer, K9, matcher
+    models = {arch: from_flax_params(load_default_params(arch), arch).to(dev)
+              for arch in ("fast", "accurate")}
+    norm = torch.stack([normalize_image(left), normalize_image(right)])
+    err["mccnn_conv3x3"] = err["mccnn_volume"] = 0.0
+    k8_args, k9_args = {}, {}   # timing inputs: (arch, kind) -> args
+    for arch, model in models.items():
+        h = norm[:, None].contiguous()
+        for i in range(model.num_layers):
+            last = i == model.num_layers - 1
+            args = (h, model.weights[i], model.biases[i], not last, last)
+            y = K.mccnn_conv3x3(*args, taps=getattr(model, f"taps{i}"))
+            y_ref = K.mccnn_conv3x3_plain(*args)
+            e = float((y - y_ref).abs().max())
+            print(f"[mccnn] K8 {arch} layer {i} {tuple(h.shape)} -> "
+                  f"{tuple(y.shape)} relu={not last} normalize={last}: "
+                  f"max |kernel - plain| = {e} ({card})")
+            check(e <= K8_TOL, f"K8 {arch} layer {i}: max |diff| {e} > "
+                  f"{K8_TOL}")
+            err["mccnn_conv3x3"] = max(err["mccnn_conv3x3"], e)
+            if i < 2:
+                k8_args[arch, "C_in=1" if i == 0 else "C_in=F"] = (
+                    args, getattr(model, f"taps{i}"))
+            h = y
+            del y_ref
+        k9_args[arch, label(KITTI)] = (h[0], h[1], KITTI["D"], 0)
+    f7 = models["fast"](torch.stack([normalize_image(left7),
+                                     normalize_image(right7)]))
+    k9_args["fast", label(ARKIT_720P)] = (f7[0], f7[1], ARKIT_720P["D"], 0)
+    for (arch, where), args in k9_args.items():
+        mvol = K.mccnn_volume(*args)
+        mvol_ref = K.mccnn_volume_plain(*args)
+        check(torch.equal(mvol == 1e4, mvol_ref == 1e4),
+              f"K9 {arch} {where}: the 1e4 masks differ")
+        e = float((mvol - mvol_ref).abs().max())
+        print(f"[mccnn] K9 {arch} {where} features {tuple(args[0].shape)}: "
+              f"max |kernel - plain| = {e}, 1e4 mask equal ({card})")
+        check(e <= K9_TOL, f"K9 {arch} {where}: max |diff| {e} > {K9_TOL}")
+        err["mccnn_volume"] = max(err["mccnn_volume"], e)
+    del h, y, mvol, mvol_ref, f7
+
+    mc_cfg = cfg.replace(cost="mccnn")   # bench.py's mccnn_sgm8
+    noisy_l, noisy_r, _ = scene(KITTI, noise=25.0)
+    noisy_np = (noisy_l.cpu().numpy(), noisy_r.cpu().numpy())
+    census_noisy, _ = StereoMatcher(cfg, device=dev)(*noisy_np)
+    census_noisy_q = (float(bad_pixel_rate(census_noisy, gt, 3.0, 0.0)),
+                      float(density(census_noisy)))
+    mc_counts, providers = {}, {}
+    for arch, model in models.items():
+        providers[arch] = MCCNNCost(model, mc_cfg)
+        matcher = StereoMatcher(mc_cfg, cost_fn=providers[arch], device=dev)
+        K.reset_launches()
+        mc_raw, _ = matcher(left_np, right_np)
+        torch.cuda.synchronize()
+        c = mc_counts[arch] = dict(K.launches)
+        print(f"[mccnn] {arch} {label(KITTI)} launches {c} ({card})")
+        want = {name: 0 for name in c}
+        want.update(mccnn_conv3x3=model.num_layers, mccnn_volume=1,
+                    sgm_path_scan=mc_cfg.num_paths, wta_lr=1)
+        check(c == want, f"MC-CNN {arch} launch counts {c} != {want}")
+        share = agreement(mc_raw, plain_mccnn_path(left, right, mc_cfg, model))
+        check(share >= MC_AGREE, f"MC-CNN {arch}: {share} of the pixels "
+              f"agree with the plain path (< {MC_AGREE})")
+        quality = {}
+        for name, frame in (("clean", (left_np, right_np)),
+                            ("noise=25", noisy_np)):
+            d = mc_raw if name == "clean" else matcher(*frame)[0]
+            quality[name] = (float(bad_pixel_rate(d, gt, 3.0, 0.0)),
+                             float(density(d)))
+        jax_ref = (f"JAX on a CPU {JAX_CPU['mccnn fast']} clean, "
+                   f"{JAX_CPU['mccnn fast noise=25']} noise=25"
+                   if arch == "fast" else "JAX on a CPU: not measured")
+        print(f"[mccnn] {arch} {label(KITTI)}: {share} of the pixels agree "
+              f"with the plain path; (bad-3px, density) clean "
+              f"{quality['clean']}, noise=25 {quality['noise=25']}; census "
+              f"on the noisy frame {census_noisy_q}; {jax_ref}; census "
+              f"{JAX_CPU['census noise=25']} noise=25 ({card})")
+        (bad3, dens), (nbad3, ndens) = quality["clean"], quality["noise=25"]
+        check(bad3 < 0.05 and dens > 0.8, f"MC-CNN {arch} clean: bad-3px "
+              f"{bad3} < 0.05 and density {dens} > 0.8")
+        check(ndens > census_noisy_q[1] and ndens > 0.9 and nbad3 < 0.05,
+              f"MC-CNN {arch} noise=25: density {ndens} above census "
+              f"{census_noisy_q[1]} and 0.9, bad-3px {nbad3} < 0.05")
+    del mc_raw, census_noisy, noisy_l, noisy_r
+
     # 5. timing (CUDA events, after a warm-up)
     ms["census_words"] = cuda_ms(lambda: K.census_words(imgs), 50)
     plain_ms["census_words"] = cuda_ms(lambda: K.census_words_plain(imgs), 5)
@@ -508,14 +655,55 @@ def main() -> int:
         print(f"[timing] post-stack path {name} {label(spec)}: {t} ms/frame "
               f"= {1000.0 / t} frames/s; {sweeps} speckle sweeps per frame "
               f"({card})")
+
+    # the MC-CNN paths, K8 per layer and K9 (KITTI shape)
+    for (arch, kind), (args, taps) in k8_args.items():
+        t = cuda_ms(lambda: K.mccnn_conv3x3(*args, taps=taps), 10)
+        t_plain = cuda_ms(lambda: K.mccnn_conv3x3_plain(*args), 10)
+        x, w = args[0], args[1]
+        flop = 2 * 9 * w.shape[0] * w.shape[1] * x.shape[0] * x.shape[2] \
+            * x.shape[3]
+        print(f"[timing] mccnn_conv3x3 {arch} {kind} {tuple(x.shape)} -> "
+              f"{w.shape[0]} features: kernel {t} ms ({flop / t / 1e9} "
+              f"TFLOP/s), plain (cuDNN, float32) {t_plain} ms ({card})")
+    tower_ms = {arch: cuda_ms(lambda: model(norm), 10)
+                for arch, model in models.items()}
+    tower_plain_ms = {arch: cuda_ms(lambda: plain_tower(model, (left, right)),
+                                    5) for arch, model in models.items()}
+    for (arch, where), args in k9_args.items():
+        t = cuda_ms(lambda: K.mccnn_volume(*args), 20)
+        t_plain = cuda_ms(lambda: K.mccnn_volume_plain(*args), 3)
+        print(f"[timing] mccnn_volume {arch} {where} F={args[0].shape[0]}: "
+              f"kernel {t} ms, plain {t_plain} ms ({card})")
+        if (arch, where) == ("fast", label(KITTI)):
+            ms["mccnn_volume"], plain_ms["mccnn_volume"] = t, t_plain
+    ms["mccnn_conv3x3"] = tower_ms["fast"] / models["fast"].num_layers
+    plain_ms["mccnn_conv3x3"] = tower_plain_ms["fast"] / \
+        models["fast"].num_layers
+    for arch, provider in providers.items():
+        t = cuda_ms(lambda: _match_core(left, right, mc_cfg, provider), 10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        _match_core(left, right, mc_cfg, provider)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"[timing] MC-CNN {arch} path {label(KITTI)}: {t} ms/frame = "
+              f"{1000.0 / t} frames/s; tower (K8 x "
+              f"{models[arch].num_layers}) {tower_ms[arch]} ms, plain tower "
+              f"{tower_plain_ms[arch]} ms; peak device memory {peak} B, "
+              f"{peak - before} B of it for the frame ({card})")
+
     for name in KERNELS:
         print(f"[timing] {name}: kernel {ms[name]} ms, plain {plain_ms[name]} "
               f"ms per launch ({card})")
 
     # launches: K1-K4 from the headline run (phase 4), K5-K7 from the KITTI
-    # speckle + WLS run (phase 4b)
+    # speckle + WLS run (phase 4b), K8-K9 from the fast MC-CNN run (4d)
     path_counts = {**post_counts["speckle+wls"],
-                   **{k: counts[k] for k in MAIN_PATH}}
+                   **{k: counts[k] for k in MAIN_PATH},
+                   "mccnn_conv3x3": mc_counts["fast"]["mccnn_conv3x3"],
+                   "mccnn_volume": mc_counts["fast"]["mccnn_volume"]}
     record = [{"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": path_counts[name],
                "max_abs_err": err[name], "ms": ms[name],

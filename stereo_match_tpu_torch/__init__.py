@@ -2,9 +2,10 @@
 
 The JAX package beside this one is the reference every function here is
 held against. Public functions keep its ``(D, H, W)`` planes layout. Plain
-tensor code is PyTorch; the four kernels of the census + 8-path SGM main
-path are CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` at first use
-and bound with ``ctypes`` (``ops/cuda_kernels.py``).
+tensor code is PyTorch; the kernels (census, cost volume, SGM scan, WTA,
+speckle, WLS solve, MC-CNN tower layer and volume) are CUDA C++ for Hopper
+(``csrc/``), built with ``nvcc`` at first use and bound with ``ctypes``
+(``ops/cuda_kernels.py``).
 
 Dispatch follows the device of the input tensor: a CPU tensor runs the
 kernels' plain PyTorch versions, a CUDA tensor runs the kernels.

@@ -1,8 +1,8 @@
 """Synthetic stereo scenes with exact ground truth (numpy).
 
 The same code as ``stereo_match_tpu/data/synthetic.py``: that module's
-package imports JAX, which the port must not load, so the two scene
-functions the port's checks use live here too. The same seed gives the same
+package imports JAX, which the port must not load, so the scene functions
+the port's checks use live here too. The same seed gives the same
 images in both packages.
 """
 
@@ -58,3 +58,27 @@ def slanted_scene(height: int = 120, width: int = 160,
     """GT disparity: a horizontally slanted plane (subpixel everywhere)."""
     ramp = np.linspace(d_min, d_max, width, dtype=np.float32)
     return np.tile(ramp, (height, 1))
+
+
+def rough_scene(height: int = 120, width: int = 160, seed: int = 0,
+                d_min: float = 2.0, d_max: float = 24.0,
+                cell: int = 16) -> np.ndarray:
+    """GT disparity: smooth random terrain (bilinear-upsampled noise grid).
+
+    The fractal-ish counterpart to the piecewise scenes: continuous
+    disparity with slopes in every direction, used for MC-CNN training
+    diversity and held-out evaluation.
+    """
+    rng = np.random.default_rng(seed)
+    coarse = rng.uniform(0, 1, (height // cell + 2, width // cell + 2))
+    ys = np.linspace(0, coarse.shape[0] - 1.001, height)
+    xs = np.linspace(0, coarse.shape[1] - 1.001, width)
+    y0 = ys.astype(int)
+    x0 = xs.astype(int)
+    fy = (ys - y0)[:, None]
+    fx = (xs - x0)[None, :]
+    g = (coarse[np.ix_(y0, x0)] * (1 - fy) * (1 - fx)
+         + coarse[np.ix_(y0 + 1, x0)] * fy * (1 - fx)
+         + coarse[np.ix_(y0, x0 + 1)] * (1 - fy) * fx
+         + coarse[np.ix_(y0 + 1, x0 + 1)] * fy * fx)
+    return (d_min + (d_max - d_min) * g).astype(np.float32)

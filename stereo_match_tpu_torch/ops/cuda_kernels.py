@@ -16,14 +16,23 @@ K5     ``speckle_sweep``       csrc/speckle.cu      (the labels of
 K6     ``speckle_count_keep``  csrc/speckle.cu      (the sizes and threshold
                                                      of speckle_filter_pallas)
 K7     ``fgs_solve``           csrc/wls.cu          (fgs_solve_pallas)
+K8     ``mccnn_conv3x3``       csrc/mccnn.cu        (mccnn_tower_pallas, the
+                                                     tower of
+                                                     mccnn_fused_volume_pallas)
+K9     ``mccnn_volume``        csrc/mccnn.cu        (mccnn_volume_pallas,
+                                                     mccnn_volume_mxu_pallas,
+                                                     mccnn_volume_flat_pallas,
+                                                     the volume of
+                                                     mccnn_fused_volume_pallas)
 =====  ======================  ===========================================
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain version (``*_plain``, also the on-card reference of the checks), a
 CUDA tensor launches the kernel or raises. The kernels are compiled with
-``nvcc`` for ``sm_90a`` into a plain-C shared library at first use, keyed on
-a hash of the sources and flags, under ``build/stereo_match_tpu_torch/``,
-and called through ``ctypes`` on PyTorch's current stream. A C entry point
+``nvcc`` for ``sm_90a`` at first use, one ``nvcc`` per source, all started
+together, then linked into a plain-C shared library, keyed on a hash of the
+sources and flags, under ``build/stereo_match_tpu_torch/``, and called
+through ``ctypes`` on PyTorch's current stream. A C entry point
 allocates nothing and returns ``cudaGetLastError()``; the wrapper allocates
 the outputs and raises on a nonzero code.
 
@@ -34,6 +43,7 @@ runs its count and keep kernels as one.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -43,25 +53,29 @@ import tempfile
 from pathlib import Path
 
 import torch
+import torch.nn.functional as Fn
 
 from stereo_match_tpu_torch.ops.census import census_transform
-from stereo_match_tpu_torch.ops.cost_volume import census_volume_from_words
+from stereo_match_tpu_torch.ops.cost_volume import (INVALID_COST,
+                                                    _invalid_mask,
+                                                    _shift_plane,
+                                                    census_volume_from_words)
 from stereo_match_tpu_torch.ops.sgm import (PATH_DIRECTIONS_8,
                                             aggregate_direction)
 from stereo_match_tpu_torch.ops.wta import lr_consistency_mask
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("census.cu", "cost_volume.cu", "sgm.cu", "wta.cu",
-           "speckle.cu", "wls.cu")
+           "speckle.cu", "wls.cu", "mccnn.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
     "stereo_match_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libsmt_kernels.so"
 
 launches = {"census_words": 0, "census_volume": 0, "sgm_path_scan": 0,
             "wta_lr": 0, "speckle_sweep": 0, "speckle_count_keep": 0,
-            "fgs_solve": 0}
+            "fgs_solve": 0, "mccnn_conv3x3": 0, "mccnn_volume": 0}
 
 # Packed speckle connectivity: the bit a pixel sets when it is connected to
 # its left neighbour, and the one for the pixel above.
@@ -91,7 +105,8 @@ def find_nvcc() -> str:
 def build() -> tuple[Path, str]:
     """Compile the kernels (once per source hash); return (library, log).
 
-    The log is nvcc's ``-Xptxas -v`` report: registers, shared memory and
+    One ``nvcc -c`` per source, all running at once, then one link. The
+    log is nvcc's ``-Xptxas -v`` report: registers, shared memory and
     spills of every kernel.
     """
     nvcc = find_nvcc()
@@ -104,17 +119,29 @@ def build() -> tuple[Path, str]:
     log = out_dir / "ptxas.log"
     if not lib.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               *(str(CSRC / name) for name in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)       # atomic: concurrent builds agree
+        work = Path(tempfile.mkdtemp(dir=out_dir))
+        objs = [work / (Path(name).stem + ".o") for name in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(CSRC / name),
+                                   "-o", str(obj)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for name, obj in zip(SOURCES, objs)]
+        outs = [(name, proc.communicate()[0], proc.returncode)
+                for name, proc in zip(SOURCES, procs)]
+        report = "".join(out for _, out, _ in outs)
+        failed = [f"{name} ({rc}):\n{out}" for name, out, rc in outs if rc]
+        if not failed:
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", str(work / LIB_NAME),
+                 *map(str, objs)], capture_output=True, text=True)
+            if link.returncode:
+                failed.append(f"link ({link.returncode}):\n{link.stdout}"
+                              f"{link.stderr}")
+        if failed:
+            shutil.rmtree(work)
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        log.write_text(report)
+        os.replace(work / LIB_NAME, lib)   # atomic: concurrent builds agree
+        shutil.rmtree(work)
     return lib, log.read_text() if log.exists() else ""
 
 
@@ -134,6 +161,8 @@ def _library() -> ctypes.CDLL:
             "smt_speckle_sweep": [p, p, i, i, i, p, p],
             "smt_speckle_count_keep": [p, p, p, p, i, i, i, i, p],
             "smt_fgs_solve": [p, p, p, p, p, i, i, i, f, p],
+            "smt_mccnn_conv3x3": [p, p, p, p, i, i, i, i, i, i, i, p],
+            "smt_mccnn_volume": [p, p, p, i, i, i, i, i, f, p],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
@@ -534,3 +563,136 @@ def fgs_solve(f: torch.Tensor, wp: torch.Tensor, wn: torch.Tensor,
     _launch("fgs_solve", f.device, _ptr(f), _ptr(wp), _ptr(wn), _ptr(cp),
             _ptr(u), C, S, N, float(lam))
     return u
+
+
+# ------------------------------------------------------ K8 mccnn_conv3x3 ----
+
+MCCNN_MAX_FEATURES = 128
+
+
+@contextlib.contextmanager
+def _fp32_cudnn():
+    """cuDNN in full float32: its float32 convolutions default to TF32.
+
+    ``cudnn.flags`` defaults to ``enabled=False``, which would turn cuDNN
+    off, hence ``enabled=True``; matmuls are kept out of TF32 as well.
+    """
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+
+
+def conv_taps(weight: torch.Tensor) -> torch.Tensor:
+    """(F, C_in, 3, 3) OIHW weights -> the (3, 3, C_in, F) layout K8 reads.
+
+    The flax kernel layout: taps, then input channels, then outputs, so a
+    block's staging of a few input channels reads contiguous rows of F.
+    """
+    return weight.permute(2, 3, 1, 0).contiguous()
+
+
+def mccnn_conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor, relu: bool,
+                        normalize: bool) -> torch.Tensor:
+    """One MC-CNN tower layer: (V, C_in, H, W) -> (V, F, H, W).
+
+    ``F.conv2d`` with one pixel of zero padding (flax ``padding="SAME"``,
+    per layer) and ``bias`` (``weight`` is OIHW), then ReLU when ``relu``,
+    then each pixel's F-vector divided by sqrt(sum of squares + 1e-12)
+    when ``normalize``. On the card cuDNN runs in full float32.
+    """
+    with _fp32_cudnn() if x.is_cuda else contextlib.nullcontext():
+        y = Fn.conv2d(x, weight, bias, padding=1)
+    if relu:
+        y = torch.relu(y)
+    if normalize:
+        y = y / torch.sqrt(torch.sum(y * y, dim=1, keepdim=True) + 1e-12)
+    return y
+
+
+def mccnn_conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  relu: bool, normalize: bool,
+                  taps: torch.Tensor | None = None) -> torch.Tensor:
+    """One MC-CNN tower layer: (V, C_in, H, W) -> (V, F, H, W) (K8).
+
+    ``weight`` (F, C_in, 3, 3) and ``bias`` (F,) float32, F <= 128.
+    ``taps`` is ``conv_taps(weight)``, the kernel's layout; a caller that
+    runs every frame (``models/mccnn.py::MCCNNFeatures``) passes the copy
+    it made once, otherwise it is made here.
+    """
+    _check(x, "x", torch.float32, 4)
+    _check(weight, "weight", torch.float32, 4)
+    _check(bias, "bias", torch.float32, 1)
+    V, C_in, H, W = x.shape
+    F = weight.shape[0]
+    if weight.shape != (F, C_in, 3, 3) or bias.shape != (F,):
+        raise ValueError(f"weight {tuple(weight.shape)} and bias "
+                         f"{tuple(bias.shape)} do not fit {C_in} input "
+                         "channels and 3x3 taps")
+    if F > MCCNN_MAX_FEATURES:
+        raise ValueError(f"{F} features: K8 holds at most "
+                         f"{MCCNN_MAX_FEATURES} per pixel")
+    if taps is None:
+        taps = conv_taps(weight)
+    _check(taps, "taps", torch.float32, 4)
+    if taps.shape != (3, 3, C_in, F):
+        raise ValueError(f"taps {tuple(taps.shape)}: expected "
+                         f"{(3, 3, C_in, F)}")
+    if _on_cpu(x, weight, bias, taps):
+        return mccnn_conv3x3_plain(x, weight, bias, relu, normalize)
+    y = torch.empty((V, F, H, W), dtype=torch.float32, device=x.device)
+    _launch("mccnn_conv3x3", x.device, _ptr(x), _ptr(taps), _ptr(bias),
+            _ptr(y), V, C_in, F, H, W, int(relu), int(normalize))
+    return y
+
+
+# ------------------------------------------------------- K9 mccnn_volume ----
+
+def mccnn_volume_plain(fl: torch.Tensor, fr: torch.Tensor,
+                       num_disparities: int, min_disparity: int = 0,
+                       scale: float = 24.0) -> torch.Tensor:
+    """(F, H, W) features of both views -> (D, H, W) float32 cost.
+
+    The plane loop of ``models/mccnn.py::mccnn_cost_volume``: the right
+    features shifted by d (edge-replicated), the channel sum of the
+    products, scale * (1 - sim) * 0.5, then INVALID_COST where x < d.
+    """
+    _, H, W = fl.shape
+    out = torch.empty((num_disparities, H, W), dtype=torch.float32,
+                      device=fl.device)
+    for i in range(num_disparities):
+        sim = torch.sum(fl * _shift_plane(fr, min_disparity + i), dim=0)
+        out[i] = scale * (1.0 - sim) * 0.5
+    mask = _invalid_mask(W, num_disparities, min_disparity, fl.device)
+    return out.masked_fill_(mask, INVALID_COST)
+
+
+def mccnn_volume(fl: torch.Tensor, fr: torch.Tensor, num_disparities: int,
+                 min_disparity: int = 0, scale: float = 24.0) -> torch.Tensor:
+    """(F, H, W) features of both views -> (D, H, W) float32 cost (K9).
+
+    ``out[i, y, x] = scale * (1 - <fl[:, y, x], fr[:, y, x - d]>) * 0.5``
+    with ``d = min_disparity + i``, exactly INVALID_COST (1e4) where x < d.
+    """
+    if min_disparity < 0:
+        raise ValueError("mccnn_volume needs min_disparity >= 0")
+    if num_disparities < 1:
+        raise ValueError("mccnn_volume needs num_disparities >= 1")
+    _check(fl, "fl", torch.float32, 3)
+    _check(fr, "fr", torch.float32, 3)
+    if fl.shape != fr.shape:
+        raise ValueError(f"features differ: {tuple(fl.shape)} vs "
+                         f"{tuple(fr.shape)}")
+    if _on_cpu(fl, fr):
+        return mccnn_volume_plain(fl, fr, num_disparities, min_disparity,
+                                  scale)
+    F, H, W = fl.shape
+    out = torch.empty((num_disparities, H, W), dtype=torch.float32,
+                      device=fl.device)
+    _launch("mccnn_volume", fl.device, _ptr(fl), _ptr(fr), _ptr(out), F, H,
+            W, num_disparities, min_disparity, float(scale))
+    return out

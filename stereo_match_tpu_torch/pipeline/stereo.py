@@ -1,23 +1,27 @@
-"""The census + SGM stereo pipeline (PyTorch).
+"""The stereo pipeline (PyTorch): census or MC-CNN cost, SGM, post stack.
 
-Counterpart of ``stereo_match_tpu/pipeline/stereo.py``: the census branch
-of ``_match_core`` with its post stack, :class:`StereoMatcher` (with
-``batched``), the LRU-cached :func:`compute_disparity` with its int16
-disparity*16 contract, and the flagship flow :func:`run_pipeline` (rectify
-from poses -> match -> WLS -> reproject -> PLY).
+Counterpart of ``stereo_match_tpu/pipeline/stereo.py``: ``_match_core``
+(census, or the volume of any ``cost_fn`` such as ``costs.MCCNNCost``) with
+its post stack, :class:`StereoMatcher` (with ``batched``), the LRU-cached
+:func:`compute_disparity` with its int16 disparity*16 contract, and the
+flagship flow :func:`run_pipeline` (rectify from poses -> match -> WLS ->
+reproject -> PLY).
 
-The matching path is seven kernels (``ops/cuda_kernels.py``): census words
-of both views (K1), the (D, H, W) Hamming volume (K2), one SGM scan per
-path direction added into the total (K3, ``num_paths`` launches), WTA with
-subpixel, uniqueness and the disp12 check (K4); then, when configured, the
-speckle filter's label sweeps (K5) and component sizes (K6), and the WLS
-smoother's tridiagonal solves (K7, two per WLS iteration). CPU tensors run
-the kernels' plain versions; CUDA tensors run the kernels.
+The matching path runs on the kernels of ``ops/cuda_kernels.py``: census
+words of both views (K1) and the (D, H, W) Hamming volume (K2), or with
+``costs.MCCNNCost`` the feature tower (K8, one launch per layer) and the
+feature-dot volume (K9); then one SGM scan per path direction added into
+the total (K3, ``num_paths`` launches), WTA with subpixel, uniqueness and
+the disp12 check (K4); then, when configured, the speckle filter's label
+sweeps (K5) and component sizes (K6), and the WLS smoother's tridiagonal
+solves (K7, two per WLS iteration). CPU tensors run the kernels' plain
+versions; CUDA tensors run the kernels.
 
 The slice covers census costs with a single-word window (at most 33
-pixels), 2, 4 or 8 paths, any ``min_disparity >= 0``, float32 volumes, and
-the speckle and WLS post-filters; any other configuration raises
-``NotImplementedError`` naming its ROADMAP.md entry.
+pixels) or a ``cost_fn`` volume, 2, 4 or 8 paths, any
+``min_disparity >= 0``, float32 volumes, and the speckle and WLS
+post-filters; any other configuration raises ``NotImplementedError``
+naming its ROADMAP.md entry.
 """
 
 from __future__ import annotations
@@ -30,14 +34,13 @@ import numpy as np
 import torch
 
 from stereo_match_tpu_torch.config import DisparityConfig
+from stereo_match_tpu_torch.costs import ClassicCost
 from stereo_match_tpu_torch.core.rectify import (RectificationResult,
                                                  rectify_pair)
 from stereo_match_tpu_torch.core.reproject import reproject_image_to_3d
 from stereo_match_tpu_torch.data.image import to_grayscale
 from stereo_match_tpu_torch.data.ply import write_ply
-from stereo_match_tpu_torch.ops.cuda_kernels import (aggregate_paths,
-                                                     census_volume,
-                                                     census_words, wta_lr)
+from stereo_match_tpu_torch.ops.cuda_kernels import aggregate_paths, wta_lr
 from stereo_match_tpu_torch.ops.speckle import speckle_filter
 from stereo_match_tpu_torch.ops.wls import (wls_confidence_cv2,
                                             wls_filter_disparity)
@@ -56,17 +59,26 @@ class StereoResult:
     meta: dict[str, Any] = field(default_factory=dict)
 
 
-def check_slice(cfg: DisparityConfig) -> None:
-    """Raise unless the port implements ``cfg`` (see the module doc)."""
-    if cfg.cost != "census":
-        raise NotImplementedError(
-            f"cost={cfg.cost!r} is not ported yet (ROADMAP.md, queue 1: "
-            "other costs and MC-CNN)")
-    wh, ww = cfg.census_window
-    if wh * ww - 1 > 32:
-        raise NotImplementedError(
-            f"census window {cfg.census_window} needs several words; the "
-            "port's K1/K2 take one (ROADMAP.md, queue 2: multiword census)")
+def check_slice(cfg: DisparityConfig, cost_fn=None) -> None:
+    """Raise unless the port implements ``cfg`` (see the module doc).
+
+    With a ``cost_fn`` the volume comes from it and ``cfg.cost`` and the
+    census window are not read, as in the JAX package.
+    """
+    if cost_fn is None:
+        if cfg.cost == "mccnn":
+            raise ValueError("unknown cost family: mccnn (cost='mccnn' "
+                             "needs cost_fn=costs.MCCNNCost(...))")
+        if cfg.cost != "census":
+            raise NotImplementedError(
+                f"cost={cfg.cost!r} is not ported yet (ROADMAP.md, queue 1 "
+                "item 9: other costs and matchers)")
+        wh, ww = cfg.census_window
+        if wh * ww - 1 > 32:
+            raise NotImplementedError(
+                f"census window {cfg.census_window} needs several words; "
+                "the port's K1/K2 take one (ROADMAP.md, queue 2: multiword "
+                "census)")
     if cfg.num_paths not in (2, 4, 8):
         raise ValueError("num_paths must be 2, 4 or 8")
     if cfg.min_disparity < 0:
@@ -79,18 +91,39 @@ def check_slice(cfg: DisparityConfig) -> None:
             " queue 2: int16 scans)")
 
 
+def _check_volume(vol, cfg: DisparityConfig, like: torch.Tensor) -> None:
+    """A ``cost_fn`` volume must be what K3 reads; nothing is converted."""
+    if not torch.is_tensor(vol):
+        raise TypeError(f"cost_fn returned {type(vol).__name__}, not a "
+                        "tensor")
+    want = (cfg.num_disparities, *like.shape)
+    if vol.dtype != torch.float32 or tuple(vol.shape) != want:
+        raise ValueError(f"cost_fn volume {tuple(vol.shape)} {vol.dtype}: "
+                         f"expected {want} torch.float32")
+    if vol.device != like.device:
+        raise ValueError(f"cost_fn volume on {vol.device}, the matcher "
+                         f"runs on {like.device}")
+    if not vol.is_contiguous():
+        raise ValueError("cost_fn volume must be contiguous")
+
+
 def _match_core(left_gray: torch.Tensor, right_gray: torch.Tensor,
-                cfg: DisparityConfig) -> tuple[torch.Tensor, torch.Tensor]:
+                cfg: DisparityConfig,
+                cost_fn=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(H, W) images -> (raw, filtered) float32 disparities, NaN invalid.
 
-    ``raw`` is the speckle-filtered WTA map; ``filtered`` its WLS
-    refinement (dense) when ``cfg.wls``, else ``raw``.
+    ``cost_fn`` overrides the cost family (e.g. a ``costs.MCCNNCost``);
+    without it, census on K1/K2. ``raw`` is the speckle-filtered WTA map;
+    ``filtered`` its WLS refinement (dense) when ``cfg.wls``, else ``raw``.
     """
-    check_slice(cfg)
-    imgs = torch.stack([left_gray, right_gray]).to(torch.float32).contiguous()
-    words = census_words(imgs, cfg.census_window)
-    vol = census_volume(words[0], words[1], cfg.num_disparities,
-                        cfg.min_disparity)
+    check_slice(cfg, cost_fn)
+    left = left_gray.to(torch.float32)
+    right = right_gray.to(torch.float32)
+    if cost_fn is None:
+        vol = ClassicCost(cfg)(left, right)
+    else:
+        vol = cost_fn(left, right)
+        _check_volume(vol, cfg, left)
     total = aggregate_paths(vol, cfg.P1, cfg.P2, cfg.num_paths)
     del vol                   # free the volumes before the post stack runs
     disp, disp_right = wta_lr(total, cfg.min_disparity, cfg.uniqueness_ratio,
@@ -103,7 +136,7 @@ def _match_core(left_gray: torch.Tensor, right_gray: torch.Tensor,
     # right-matcher pair, from the right view that K4 already computed
     confidence = wls_confidence_cv2(disp, disp_right) \
         if cfg.wls_lr_confidence else None
-    filtered = wls_filter_disparity(disp, imgs[0], cfg.lmbda, cfg.sigma,
+    filtered = wls_filter_disparity(disp, left, cfg.lmbda, cfg.sigma,
                                     cfg.wls_iters, confidence=confidence)
     return disp, filtered
 
@@ -113,12 +146,17 @@ class StereoMatcher:
 
     >>> matcher = StereoMatcher(DisparityConfig(), device="cuda")
     >>> raw, filtered = matcher(left_gray, right_gray)
+
+    ``cost_fn`` (e.g. ``costs.MCCNNCost(model.to(device), config)``)
+    replaces the census volume; it must return a contiguous float32
+    (D, H, W) tensor on ``device``.
     """
 
-    def __init__(self, config: DisparityConfig | None = None,
+    def __init__(self, config: DisparityConfig | None = None, cost_fn=None,
                  device: torch.device | str = "cpu"):
         self.config = config or DisparityConfig()
-        check_slice(self.config)
+        check_slice(self.config, cost_fn)
+        self.cost_fn = cost_fn
         self.device = torch.device(device)
 
     def _tensor(self, a) -> torch.Tensor:
@@ -126,12 +164,13 @@ class StereoMatcher:
 
     def __call__(self, left_gray, right_gray):
         return _match_core(self._tensor(left_gray), self._tensor(right_gray),
-                           self.config)
+                           self.config, self.cost_fn)
 
     def batched(self, lefts, rights):
         """Match a leading batch axis of frames (a capture sequence)."""
         lefts, rights = self._tensor(lefts), self._tensor(rights)
-        outs = [_match_core(l, r, self.config) for l, r in zip(lefts, rights)]
+        outs = [_match_core(l, r, self.config, self.cost_fn)
+                for l, r in zip(lefts, rights)]
         return (torch.stack([raw for raw, _ in outs]),
                 torch.stack([filtered for _, filtered in outs]))
 

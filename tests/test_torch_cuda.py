@@ -11,7 +11,11 @@ float operations in the same order, so even non-integer costs agree); K4
 must give the same NaN mask and values within 1e-6. K5 and K6 are integer
 label arithmetic and a copy, so the speckle filter must be bit-equal; K7
 rounds every operation as the plain solve does, so it must be bit-equal
-too.
+too. K8 (a tower layer) and K9 (the MC-CNN volume) sum in another order
+than cuDNN and the plain channel sum: K8 within 1e-5 of the plain layer
+(cuDNN in full float32), K9 within 1e-4 with the 1e4 mask exactly equal;
+the MC-CNN matcher must agree with its plain path on at least 99.5 % of
+the pixels, since a rounding difference can flip a WTA decision.
 """
 
 import numpy as np
@@ -19,7 +23,11 @@ import pytest
 import torch
 
 from stereo_match_tpu_torch.config import DisparityConfig
+from stereo_match_tpu_torch.costs import MCCNNCost
 from stereo_match_tpu_torch.data.synthetic import random_dot_pair, slanted_scene
+from stereo_match_tpu_torch.models.mccnn import (from_flax_params,
+                                                 load_default_params,
+                                                 normalize_image)
 from stereo_match_tpu_torch.ops import cuda_kernels as K
 from stereo_match_tpu_torch.ops import wls
 from stereo_match_tpu_torch.ops.sgm import PATH_DIRECTIONS_8
@@ -140,7 +148,8 @@ def test_main_path_on_card_matches_cpu(dev):
     assert K.launches == {"census_words": 1, "census_volume": 1,
                           "sgm_path_scan": 8, "wta_lr": 1,
                           "speckle_sweep": 0, "speckle_count_keep": 0,
-                          "fgs_solve": 0}
+                          "fgs_solve": 0, "mccnn_conv3x3": 0,
+                          "mccnn_volume": 0}
     want, _ = StereoMatcher(cfg, device="cpu")(left, right)
     _assert_same_disparity(raw.cpu(), want)
 
@@ -276,3 +285,77 @@ def test_post_stack_on_card_matches_cpu(dev, kw):
     assert torch.isfinite(filtered).all()
     torch.testing.assert_close(filtered.cpu(), want_filtered, rtol=1e-3,
                                atol=2e-4)
+
+
+# ------------------------------------------------------- K8, K9 MC-CNN ----
+
+@pytest.mark.parametrize("H,W", [(17, 129), (33, 70), KITTI])
+@pytest.mark.parametrize("relu,normalize", [(True, False), (False, True),
+                                            (False, False)])
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("F", [64, 112])
+def test_mccnn_conv3x3_kernel(dev, F, first, relu, normalize, H, W):
+    """C_in = 1 (the first layer) and C_in = F, unit-scale activations."""
+    rng = np.random.default_rng(F + H)
+    C_in = 1 if first else F
+    x = rng.normal(size=(2, C_in, H, W)).astype(np.float32)
+    w = (rng.normal(size=(F, C_in, 3, 3)) / np.sqrt(9 * C_in)).astype(
+        np.float32)
+    b = rng.normal(0, 0.1, F).astype(np.float32)
+    x, w, b = (torch.from_numpy(a).to(dev) for a in (x, w, b))
+    got = K.mccnn_conv3x3(x, w, b, relu, normalize)
+    want = K.mccnn_conv3x3_plain(x, w, b, relu, normalize)
+    torch.cuda.synchronize()
+    assert got.shape == (2, F, H, W)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("H,W,D,min_d", [
+    (20, 150, 32, 0), (20, 150, 32, 4), (24, 300, 128, 0),
+    (24, 300, 128, 7), (16, 330, 160, 0), (16, 330, 160, 4),
+    (12, 100, 160, 7), (*KITTI, 128, 0)])
+def test_mccnn_volume_kernel(dev, H, W, D, min_d):
+    """Unit features; (12, 100, 160, 7) is narrower than the disparities,
+    so whole rows of the planes are invalid."""
+    rng = np.random.default_rng(D + min_d)
+    f = rng.normal(size=(2, 64, H, W)).astype(np.float32)
+    f /= np.linalg.norm(f, axis=1, keepdims=True)
+    fl, fr = torch.from_numpy(f).to(dev)
+    got = K.mccnn_volume(fl, fr, D, min_d)
+    want = K.mccnn_volume_plain(fl, fr, D, min_d)
+    torch.cuda.synchronize()
+    assert torch.equal(got == 1e4, want == 1e4)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["fast", "accurate"])
+def test_mccnn_matcher_on_card_matches_plain(dev, arch):
+    gt = slanted_scene(64, 256, 4.0, 40.0)
+    left, right = random_dot_pair(64, 256, gt, blur=1.0, seed=11)
+    cfg = DisparityConfig(num_disparities=64, cost="mccnn",
+                          uniqueness_ratio=15, disp12_max_diff=1, wls=False,
+                          speckle_window_size=0)
+    model = from_flax_params(load_default_params(arch), arch)
+    K.reset_launches()
+    raw, _ = StereoMatcher(cfg, cost_fn=MCCNNCost(model.to(dev), cfg),
+                           device=dev)(left, right)
+    assert raw.is_cuda
+    assert K.launches["mccnn_conv3x3"] == model.num_layers
+    assert K.launches["mccnn_volume"] == 1
+    assert K.launches["census_words"] == K.launches["census_volume"] == 0
+    imgs = torch.stack([normalize_image(torch.from_numpy(im).to(dev))
+                        for im in (left, right)])[:, None]
+    for i in range(model.num_layers):
+        last = i == model.num_layers - 1
+        imgs = K.mccnn_conv3x3_plain(imgs, model.weights[i], model.biases[i],
+                                     not last, last)
+    vol = K.mccnn_volume_plain(imgs[0], imgs[1], 64)
+    total = K.aggregate_paths(vol, cfg.P1, cfg.P2, 8, K.sgm_path_scan_plain)
+    want = K.wta_lr_plain(total, 0, 15, 1)[0]
+    same_nan = torch.isnan(raw) == torch.isnan(want)
+    close = (raw - want).abs().nan_to_num(0.0) <= 0.01
+    share = float((same_nan & (close | torch.isnan(raw) |
+                               torch.isnan(want))).float().mean())
+    print(f"MC-CNN {arch} on the card: {share} of the pixels agree with "
+          "the plain path")
+    assert share >= 0.995
