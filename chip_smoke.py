@@ -8,7 +8,7 @@ Run from the repository root, with no arguments:
 Phases, each of which raises (exit code 1, no result lines) on failure:
 
 1. device: the card must be a Hopper (sm_90); prints its name and power limit.
-2. build: compiles the nine CUDA kernels from ``stereo_match_tpu_torch/csrc``
+2. build: compiles the ten CUDA kernels from ``stereo_match_tpu_torch/csrc``
    with nvcc (one process per source, all at once) and prints the
    ``-Xptxas -v`` report.
 3. kernel parity at KITTI shape (1242x375, D=128, slanted random-dot scene,
@@ -50,13 +50,39 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    bad-3px < 0.05 and density > 0.8 on the seed-1 scene; with noise=25,
    density above census's on the same frame and above 0.9, bad-3px
    < 0.05. The JAX package's CPU figures are printed beside the card's.
+4e. int16 volumes, the row-tiled SGM and the stage-pipelined stream, at
+   KITTI on the seed-1 scene: K2 int16 and transposed, K3 int16 totals,
+   K10 (forward and reverse, invalid 1e4 and 1024, min_d 0 and 5) and K4's
+   int16, wta_stats, right_wta and lr_mask entries bit-equal to their plain
+   versions, K10 at 1e4 equal to K2 + K3's horizontal pair;
+   ``extract_disparity_fast`` launching wta_stats, right_wta and lr_mask
+   once each and equal to wta_lr's map;
+   ``sgm_aggregate_sharded`` over 4 row shards of 96/96/96/87 rows on a
+   device list repeating the card: exact bit-equal to the whole-frame K3
+   total and to the plain chain, halo 48 agreeing on the argmin for
+   >= 0.985 of the pixels; ``StreamingPipeline`` with 4 stages on one card
+   over 6 frames, volume and census payloads: the float32 wire bit-equal to
+   ``_match_core`` frame by frame, the int16 wire bit-equal to the float32
+   run with the 1024 sentinel, a 2-stage run with speckle 100 + WLS within
+   1e-5 (raw) and 5e-3 (filtered); ``StereoMatcher`` with
+   ``dtype="int16"`` bit-equal to its plain path and to the float32 path
+   with the 1024 sentinel, equal to the float32 matcher for x >= D, with
+   a lower peak memory. Each path with its launch counts, which must be
+   exactly what its stages run (6 frames: volume stream K1 6, K2 6, K3 48,
+   K4 6; census stream K1 6, K10 12, K2 12, K3 36, K4 6; tiling K3 32;
+   int16 matcher K1 1, K2 1, K3 8, K4 1).
 5. timing with CUDA events after a warm-up: frames/s of the main path with
    the kernels and with the plain versions at KITTI shape, and with the
    kernels at 720p; each kernel's time beside its plain version's; the
    peak device memory of one KITTI frame; the frame time of the three
    post-stack paths and the speckle sweeps per frame; the frame time and
    peak memory of both MC-CNN paths, K8 per layer (C_in=1 and C_in=F) and
-   K9 beside their plain versions.
+   K9 beside their plain versions; the int16 and transposed K2, K10 per
+   direction beside K3's horizontal directions, the int16 K3 and K4, K4's
+   entries, K3 per row shard, the exact and halo tiling beside the
+   whole-frame aggregation, the stream's frames/s in both payload modes
+   and wires beside ``_match_core``'s, and the peak memory of the float32
+   and int16 frames.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit from nvidia-smi, and the result line.
@@ -94,11 +120,15 @@ KERNELS = {   # name -> (source, the TPU kernel(s) it replaces)
     "census_words": ("stereo_match_tpu_torch/csrc/census.cu",
                      f"{PALLAS}:750"),
     "census_volume": ("stereo_match_tpu_torch/csrc/cost_volume.cu",
-                      f"{PALLAS}:892"),
+                      f"{PALLAS}:892; {PALLAS}:970"),
     "sgm_path_scan": ("stereo_match_tpu_torch/csrc/sgm.cu",
-                      f"{PALLAS}:530; {PALLAS}:1953; {PALLAS}:464"),
+                      f"{PALLAS}:530; {PALLAS}:1953; {PALLAS}:464; "
+                      f"{PALLAS}:174"),
     "wta_lr": ("stereo_match_tpu_torch/csrc/wta.cu",
                f"{PALLAS}:825; {PALLAS}:464"),
+    "wta_stats": ("stereo_match_tpu_torch/csrc/wta.cu", f"{PALLAS}:1146"),
+    "right_wta": ("stereo_match_tpu_torch/csrc/wta.cu", f"{PALLAS}:1064"),
+    "lr_mask": ("stereo_match_tpu_torch/csrc/wta.cu", f"{PALLAS}:825"),
     "speckle_sweep": ("stereo_match_tpu_torch/csrc/speckle.cu",
                       "stereo_match_tpu/ops/pallas_speckle.py:276"),
     "speckle_count_keep": ("stereo_match_tpu_torch/csrc/speckle.cu",
@@ -111,6 +141,8 @@ KERNELS = {   # name -> (source, the TPU kernel(s) it replaces)
     "mccnn_volume": ("stereo_match_tpu_torch/csrc/mccnn.cu",
                      f"{PALLAS}:1226; {PALLAS}:1329; {PALLAS}:1639; "
                      f"{PALLAS}:1712"),
+    "census_scan": ("stereo_match_tpu_torch/csrc/census_scan.cu",
+                    f"{PALLAS}:1924"),
 }
 
 
@@ -161,6 +193,11 @@ def main() -> int:
     from stereo_match_tpu_torch.ops.sgm import PATH_DIRECTIONS_8
     from stereo_match_tpu_torch.ops.speckle import (connectivity,
                                                     speckle_filter)
+    from stereo_match_tpu_torch.ops.wta import disparity_from_stats
+    from stereo_match_tpu_torch.parallel import (StreamingPipeline, make_mesh,
+                                                 make_stage_mesh,
+                                                 sgm_aggregate_sharded,
+                                                 volume_sharding)
     from stereo_match_tpu_torch.pipeline.stereo import (StereoMatcher,
                                                         _match_core,
                                                         run_pipeline)
@@ -199,7 +236,7 @@ def main() -> int:
         words = K.census_words_plain(torch.stack([left, right]),
                                      cfg.census_window)
         vol = K.census_volume_plain(words[0], words[1], cfg.num_disparities,
-                                    cfg.min_disparity)
+                                    cfg.min_disparity, cfg.dtype)
         total = aggregate(K.sgm_path_scan_plain, vol, cfg)
         del vol
         out = K.wta_lr_plain(total, cfg.min_disparity, cfg.uniqueness_ratio,
@@ -255,6 +292,13 @@ def main() -> int:
         check(torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)),
               f"{what}: values differ")
         return float((a - b).abs().nan_to_num(0.0).max())
+
+    def exact_counts(counts, want, what):
+        """The launch counts must be ``want`` and 0 for every other
+        kernel."""
+        full = {name: 0 for name in counts}
+        full.update(want)
+        check(counts == full, f"{what} launch counts {counts} != {full}")
 
     def rel_err(a, b):
         return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
@@ -572,6 +616,186 @@ def main() -> int:
               f"{census_noisy_q[1]} and 0.9, bad-3px {nbad3} < 0.05")
     del mc_raw, census_noisy, noisy_l, noisy_r
 
+    # 4e. int16 volumes, the row-tiled SGM and the stage-pipelined stream
+    D = KITTI["D"]
+    p1, p2 = cfg.P1, cfg.P2
+    wT = words.transpose(1, 2).contiguous()          # (2, W, H) words
+    vol16 = K.census_volume(words[0], words[1], D, 0, torch.int16)
+    check(torch.equal(vol16, K.census_volume_plain(
+        words[0], words[1], D, 0, torch.int16)), "K2 int16 bit-equal")
+    volT = K.census_volume(wT[0], wT[1], D, transposed=True)
+    check(torch.equal(volT, K.census_volume_plain(wT[0], wT[1], D, 0,
+                                                  transposed=True)),
+          "K2 transposed bit-equal")
+    check(torch.equal(K.census_volume(wT[0], wT[1], D, 0, torch.int16, True),
+                      vol16.transpose(1, 2)), "K2 int16 transposed")
+    total16 = aggregate(K.sgm_path_scan, vol16, cfg)
+    check(torch.equal(total16, aggregate(K.sgm_path_scan_plain, vol16, cfg)),
+          "K3 int16 totals bit-equal")
+    print(f"[4e] K2 int16 and transposed, K3 int16 totals: bit-equal to the "
+          f"plain versions ({label(KITTI)}; {card})")
+
+    rows_mesh = make_mesh(1, 4, devices=[dev] * 4)
+    shards = [hi - lo for lo, hi in volume_sharding(rows_mesh).bounds(
+        KITTI["H"], 8)]
+    check(shards == [96, 96, 96, 87], f"row shards {shards}")
+    K.reset_launches()
+    exact = sgm_aggregate_sharded(vol, p1, p2, rows_mesh, 8, "exact")
+    torch.cuda.synchronize()
+    tiling_counts = dict(K.launches)
+    exact_counts(tiling_counts, {"sgm_path_scan": 8 * 4}, "tiling (8 "
+                 "directions x 4 shards)")
+    check(torch.equal(exact, total), "K3 carry chain over 4 row shards "
+          "bit-equal to the whole-frame total")
+    check(torch.equal(exact, sgm_aggregate_sharded(
+        vol, p1, p2, rows_mesh, 8, "exact", scan=K.sgm_path_scan_plain)),
+        "K3 carry chain bit-equal to the plain chain")
+    halo = sgm_aggregate_sharded(vol, p1, p2, rows_mesh, 8, "halo", 48)
+    halo_agree = float((halo.argmin(0) == total.argmin(0)).float().mean())
+    check(halo_agree >= 0.985, f"halo argmin agreement {halo_agree}")
+    print(f"[4e] sgm_aggregate_sharded on {list(rows_mesh.devices.ravel())}, "
+          f"row shards {shards}: exact bit-equal to the whole-frame K3 total "
+          f"and to the plain chain; halo 48 argmin agreement {halo_agree}; "
+          f"launches {tiling_counts} ({card})")
+    del exact, halo
+
+    err["census_scan"] = 0.0
+    for min_d in (0, 5):
+        vol_d = K.census_volume(words[0], words[1], D, min_d)
+        for reverse in (False, True):
+            dx = -1 if reverse else 1
+            pair = K.sgm_path_scan(vol_d, torch.empty_like(vol_d), 0, dx, p1,
+                                   p2, False)
+            for invalid in (1e4, 1024.0):
+                args = (words[0], words[1], torch.empty_like(vol_d), min_d,
+                        p1, p2, reverse, invalid, False)
+                got = K.census_scan(*args)
+                want = K.census_scan_plain(*args)
+                err["census_scan"] = max(err["census_scan"],
+                                         float((got - want).abs().max()))
+                check(torch.equal(got, want), f"K10 min_d={min_d} "
+                      f"reverse={reverse} invalid={invalid} bit-equal")
+                if invalid == 1e4:
+                    check(torch.equal(got, pair), f"K10 min_d={min_d} "
+                          f"reverse={reverse} equals K2 + K3 (0, {dx})")
+    del vol_d, pair, got, want
+    print(f"[4e] K10 census_scan: bit-equal to its plain version (forward "
+          f"and reverse, invalid 1e4 and 1024, min_d 0 and 5) and, at 1e4, "
+          f"to K2 + K3's horizontal pair ({label(KITTI)}; {card})")
+
+    wta16 = K.wta_lr(total16, *wta_args)
+    same_disparity(wta16[0], K.wta_lr_plain(total16, *wta_args)[0],
+                   "K4 int16 wta_lr")
+    err["wta_stats"] = err["right_wta"] = 0.0
+    fast_stats = K.wta_stats(total)
+    fast_disp, _ = disparity_from_stats(fast_stats, D, *wta_args[:2],
+                                        cfg.subpixel)
+    fast_right = (K.right_wta(total) + cfg.min_disparity).float()
+    for tol in (cfg.disp12_max_diff, 0, 3):
+        a = K.lr_mask(fast_disp, fast_right, tol)
+        b = K.lr_mask_plain(fast_disp, fast_right, tol)
+        err["lr_mask"] = max(err.get("lr_mask", 0),
+                             int((a.int() - b.int()).abs().max()))
+        check(torch.equal(a, b), f"K4 lr_mask tol={tol} bit-equal")
+    for t in (total, total16):
+        for a, b in zip(K.wta_stats(t), K.wta_stats_plain(t)):
+            err["wta_stats"] = max(err["wta_stats"],
+                                   float((a.float() - b.float()).abs().max()))
+            check(torch.equal(a, b), f"K4 wta_stats {t.dtype} bit-equal")
+        a, b = K.right_wta(t), K.right_wta_plain(t)
+        err["right_wta"] = max(err["right_wta"], int((a - b).abs().max()))
+        check(torch.equal(a, b), f"K4 right_wta {t.dtype} bit-equal")
+    K.reset_launches()
+    fast = K.extract_disparity_fast(total, *wta_args)
+    torch.cuda.synchronize()
+    fast_counts = dict(K.launches)
+    exact_counts(fast_counts, {"wta_stats": 1, "right_wta": 1, "lr_mask": 1},
+                 "extract_disparity_fast")
+    same_disparity(fast, disp, "extract_disparity_fast vs K4 wta_lr")
+    print(f"[4e] K4 int16 wta_lr, wta_stats and right_wta (float32 and "
+          f"int16), lr_mask (tol {cfg.disp12_max_diff}, 0, 3) equal to their "
+          f"plain versions; extract_disparity_fast equals wta_lr's map; "
+          f"launches {fast_counts} ({card})")
+
+    frames = [scene({**KITTI, "seed": s}) for s in range(1, 7)]
+    stream_counts = {}
+    n = len(frames)
+    stream_want = {   # K3: 8 directions a frame, K10 taking 2 of them
+        "volume": {"census_words": n, "census_volume": n,
+                   "sgm_path_scan": 8 * n, "wta_lr": n},
+        "census": {"census_words": n, "census_scan": 2 * n,
+                   "census_volume": 2 * n, "sgm_path_scan": 6 * n,
+                   "wta_lr": n}}
+
+    def stream(mode, wire, n_stages=4, config=cfg, clamp=None):
+        mesh = make_stage_mesh(n_stages, devices=[dev] * n_stages)
+        return StreamingPipeline(config, mesh, (KITTI["H"], KITTI["W"]),
+                                 payload_mode=mode, payload_dtype=wire,
+                                 _invalid_clamp=clamp)
+
+    refs = [_match_core(lf, rf, cfg)[0] for lf, rf, _ in frames]
+    pairs = [(lf, rf) for lf, rf, _ in frames]
+    for mode in ("volume", "census"):
+        pipe = stream(mode, "float32")
+        K.reset_launches()
+        outs = pipe.run(pairs)
+        torch.cuda.synchronize()
+        c = stream_counts[mode] = dict(K.launches)
+        exact_counts(c, stream_want[mode], f"{mode} stream")
+        check(len(outs) == len(frames), f"{mode} stream: one result a frame")
+        for i, ((raw, _), ref) in enumerate(zip(outs, refs)):
+            bit_equal(raw, ref, f"{mode} stream frame {i} vs _match_core")
+        clamped = stream(mode, "float32", clamp=1024.0).run(pairs)
+        for i, ((raw, filt), (r16, f16)) in enumerate(
+                zip(clamped, stream(mode, "int16").run(pairs))):
+            bit_equal(r16, raw, f"{mode} int16 wire frame {i}")
+            bit_equal(f16, filt, f"{mode} int16 wire frame {i} filtered")
+        print(f"[4e] StreamingPipeline 4 stages on one card, {mode} payload, "
+              f"{len(frames)} frames {label(KITTI)}: float32 wire bit-equal "
+              f"to _match_core frame by frame; int16 wire bit-equal to the "
+              f"float32 run with the 1024 sentinel; launches {c} ({card})")
+    del outs, clamped
+    e_raw = e_filt = 0.0
+    post = stream("volume", "float32", 2, spk_wls).run(pairs[:3])
+    for (raw, filt), (lf, rf) in zip(post, pairs):
+        ref_raw, ref_filt = _match_core(lf, rf, spk_wls)
+        check(torch.equal(torch.isnan(raw), torch.isnan(ref_raw)),
+              "2-stage stream with speckle + WLS: raw NaN masks")
+        e_raw = max(e_raw, float((raw - ref_raw).abs().nan_to_num(0.0).max()))
+        e_filt = max(e_filt, float((filt - ref_filt).abs().max()))
+    check(e_raw <= 1e-5 and e_filt <= 5e-3, f"2-stage stream with speckle + "
+          f"WLS: raw {e_raw}, filtered {e_filt}")
+    print(f"[4e] 2-stage stream with speckle {SPECKLE['T']} + WLS: raw max "
+          f"|diff| {e_raw}, filtered {e_filt} against _match_core (bounds "
+          f"1e-5, 5e-3; {card})")
+    del post
+
+    cfg16 = cfg.replace(dtype="int16")
+    K.reset_launches()
+    raw16, _ = StereoMatcher(cfg16, device=dev)(left_np, right_np)
+    torch.cuda.synchronize()
+    int16_counts = dict(K.launches)
+    exact_counts(int16_counts, {"census_words": 1, "census_volume": 1,
+                                "sgm_path_scan": cfg.num_paths, "wta_lr": 1},
+                 "int16 matcher")
+    raw32 = _match_core(left, right, cfg)[0]
+    clamped32 = K.wta_lr(aggregate(K.sgm_path_scan, vol.clamp(max=1024.0),
+                                   cfg), *wta_args)[0]
+    bit_equal(raw16, clamped32, "int16 matcher vs the float32 path with "
+              "the 1024 sentinel")
+    bit_equal(raw16[:, D:], raw32[:, D:], "int16 matcher vs float32 for "
+              "x >= D")
+    edge = int((~((raw16 == raw32) | (torch.isnan(raw16) & torch.isnan(raw32)))
+                ).sum())
+    bit_equal(raw16, plain_path(left, right, cfg16), "int16 matcher vs its "
+              "plain path")
+    print(f"[4e] StereoMatcher(dtype='int16') {label(KITTI)}: bit-equal to "
+          f"its plain path and to the float32 path with the 1024 sentinel; "
+          f"equal to the float32 matcher for x >= D, {edge} pixels differ "
+          f"left of x = D (the sentinel enters the subpixel parabola); "
+          f"launches {int16_counts} ({card})")
+    del raw16, raw32, clamped32
+
     # 5. timing (CUDA events, after a warm-up)
     ms["census_words"] = cuda_ms(lambda: K.census_words(imgs), 50)
     plain_ms["census_words"] = cuda_ms(lambda: K.census_words_plain(imgs), 5)
@@ -593,6 +817,106 @@ def main() -> int:
     del scratch
     ms["wta_lr"] = cuda_ms(lambda: K.wta_lr(total, *wta_args), 20)
     plain_ms["wta_lr"] = cuda_ms(lambda: K.wta_lr_plain(total, *wta_args), 3)
+    # 4e timing: int16 and transposed K2, K10 against K3's horizontal
+    # directions, K3 per row shard, the tiling, the stream, int16 memory
+    t16 = cuda_ms(lambda: K.census_volume(words[0], words[1], D, 0,
+                                          torch.int16), 20)
+    t16_plain = cuda_ms(lambda: K.census_volume_plain(
+        words[0], words[1], D, 0, torch.int16), 3)
+    tT = cuda_ms(lambda: K.census_volume(wT[0], wT[1], D, transposed=True),
+                 20)
+    tT_plain = cuda_ms(lambda: K.census_volume_plain(wT[0], wT[1], D, 0,
+                                                     transposed=True), 3)
+    print(f"[timing] census_volume {label(KITTI)}: int16 kernel {t16} ms, "
+          f"plain {t16_plain} ms; transposed (D, W, H) float32 kernel {tT} "
+          f"ms, plain {tT_plain} ms; planes float32 kernel "
+          f"{ms['census_volume']} ms ({card})")
+    scratch = torch.empty_like(vol)
+    k10, k10_plain = [], []
+    for reverse in (False, True):
+        dx = -1 if reverse else 1
+        k10.append(cuda_ms(lambda: K.census_scan(
+            words[0], words[1], scratch, 0, p1, p2, reverse, 1e4, True), 20))
+        k10_plain.append(cuda_ms(lambda: K.census_scan_plain(
+            words[0], words[1], scratch, 0, p1, p2, reverse, 1e4, True), 2))
+        k3 = cuda_ms(lambda: K.sgm_path_scan(vol, scratch, 0, dx, p1, p2,
+                                             True), 20)
+        print(f"[timing] census_scan direction (0, {dx}) {label(KITTI)}: "
+              f"kernel {k10[-1]} ms, plain {k10_plain[-1]} ms; K3 on K2's "
+              f"volume {k3} ms ({card})")
+    ms["census_scan"] = sum(k10) / 2
+    plain_ms["census_scan"] = sum(k10_plain) / 2
+    t3_16 = cuda_ms(lambda: aggregate(K.sgm_path_scan, vol16, cfg), 10)
+    t4_16 = cuda_ms(lambda: K.wta_lr(total16, *wta_args), 20)
+    print(f"[timing] int16 {label(KITTI)}: K3 8 directions {t3_16} ms "
+          f"({t3_16 / 8} per direction), K4 wta_lr {t4_16} ms ({card})")
+    for name, fn, plain in (("wta_stats", K.wta_stats, K.wta_stats_plain),
+                            ("right_wta", K.right_wta, K.right_wta_plain)):
+        ms[name] = cuda_ms(lambda: fn(total), 20)
+        plain_ms[name] = cuda_ms(lambda: plain(total), 3)
+        t = cuda_ms(lambda: fn(total16), 20)
+        print(f"[timing] {name} {label(KITTI)}: float32 {ms[name]} ms, "
+              f"int16 {t} ms, plain {plain_ms[name]} ms ({card})")
+    tol = cfg.disp12_max_diff
+    ms["lr_mask"] = cuda_ms(lambda: K.lr_mask(fast_disp, fast_right, tol), 20)
+    plain_ms["lr_mask"] = cuda_ms(
+        lambda: K.lr_mask_plain(fast_disp, fast_right, tol), 5)
+    print(f"[timing] lr_mask {label(KITTI)}: kernel {ms['lr_mask']} ms, plain "
+          f"{plain_ms['lr_mask']} ms ({card})")
+    del fast_stats, fast_disp, fast_right
+
+    whole = cuda_ms(lambda: aggregate(K.sgm_path_scan, vol, cfg), 10)
+    per_shard = []
+    for lo, hi in volume_sharding(rows_mesh).bounds(KITTI["H"], 8):
+        piece = vol[:, lo:hi].contiguous()
+        piece_total = torch.empty_like(piece)
+        piece_carry = torch.zeros((D, KITTI["W"]), device=dev)
+
+        def shard_scans():
+            for i, (dy, dx) in enumerate(PATH_DIRECTIONS_8):
+                K.sgm_path_scan(piece, piece_total, dy, dx, p1, p2, i > 0,
+                                init_carry=piece_carry if dy else None,
+                                return_carry=bool(dy))
+        per_shard.append(cuda_ms(shard_scans, 10))
+    t_exact = cuda_ms(lambda: sgm_aggregate_sharded(vol, p1, p2, rows_mesh,
+                                                    8, "exact"), 10)
+    t_halo = cuda_ms(lambda: sgm_aggregate_sharded(vol, p1, p2, rows_mesh, 8,
+                                                   "halo", 48), 10)
+    print(f"[timing] K3 8 directions per row shard {shards}: {per_shard} ms "
+          f"(sum {sum(per_shard)}); whole frame {whole} ms; "
+          f"sgm_aggregate_sharded on one card: exact {t_exact} ms, halo 48 "
+          f"{t_halo} ms ({card})")
+    del scratch, piece, piece_total, piece_carry
+
+    matcher_ms = cuda_ms(lambda: _match_core(left, right, cfg), 10)
+    for mode in ("volume", "census"):
+        for wire in ("float32", "int16"):
+            pipe = stream(mode, wire)
+            pipe.reset()
+            for lf, rf in pairs[:3]:
+                pipe.step(lf, rf)                  # fill
+            t = cuda_ms(lambda: pipe.step(left, right), 12, warmup=2)
+            print(f"[timing] StreamingPipeline 4 stages on one card, {mode} "
+                  f"payload, {wire} wire, {label(KITTI)}: {t} ms/frame = "
+                  f"{1000.0 / t} frames/s; {pipe.wire_bytes()} B a hop; "
+                  f"_match_core {matcher_ms} ms/frame = "
+                  f"{1000.0 / matcher_ms} frames/s ({card})")
+            del pipe
+    for name, c in (("float32", cfg), ("int16", cfg16)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        _match_core(left, right, c)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        t = cuda_ms(lambda: _match_core(left, right, c), 10)
+        print(f"[timing] {name} volumes {label(KITTI)}: {t} ms/frame, peak "
+              f"device memory of the frame {peak} B ({card})")
+        if name == "float32":
+            peak32 = peak
+    check(peak < peak32, f"int16 frame peak {peak} B below float32 {peak32}")
+    del vol16, total16, volT, wT
+
     del vol, vol_ref, total, total_ref
 
     # K5-K7 at KITTI shape; a K5 launch is half a sweep
@@ -699,11 +1023,17 @@ def main() -> int:
               f"ms per launch ({card})")
 
     # launches: K1-K4 from the headline run (phase 4), K5-K7 from the KITTI
-    # speckle + WLS run (phase 4b), K8-K9 from the fast MC-CNN run (4d)
+    # speckle + WLS run (phase 4b), K8-K9 from the fast MC-CNN run (4d),
+    # K10 from the census-payload stream and K4's wta_stats, right_wta and
+    # lr_mask entries from extract_disparity_fast (4e)
     path_counts = {**post_counts["speckle+wls"],
                    **{k: counts[k] for k in MAIN_PATH},
                    "mccnn_conv3x3": mc_counts["fast"]["mccnn_conv3x3"],
-                   "mccnn_volume": mc_counts["fast"]["mccnn_volume"]}
+                   "mccnn_volume": mc_counts["fast"]["mccnn_volume"],
+                   "census_scan": stream_counts["census"]["census_scan"],
+                   "wta_stats": fast_counts["wta_stats"],
+                   "right_wta": fast_counts["right_wta"],
+                   "lr_mask": fast_counts["lr_mask"]}
     record = [{"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": path_counts[name],
                "max_abs_err": err[name], "ms": ms[name],

@@ -29,7 +29,8 @@ class CostProvider(Protocol):
 class ClassicCost:
     """Census words of both views (K1), then the Hamming volume (K2).
 
-    The other classic families (sad, ssd, bt) are not ported.
+    The volume is float32, or int16 with ``config.dtype == "int16"``. The
+    other classic families (sad, ssd, bt) are not ported.
     """
     config: DisparityConfig
 
@@ -43,7 +44,7 @@ class ClassicCost:
         imgs = torch.stack([left, right]).to(torch.float32).contiguous()
         words = census_words(imgs, c.census_window)
         return census_volume(words[0], words[1], c.num_disparities,
-                             c.min_disparity)
+                             c.min_disparity, dtype=c.dtype)
 
 
 @dataclass(frozen=True)

@@ -3,14 +3,23 @@ launch counts.
 
 =====  ======================  ===========================================
 K1     ``census_words``        csrc/census.cu       (census_words_pallas)
-K2     ``census_volume``       csrc/cost_volume.cu  (census_volume_pallas)
+K2     ``census_volume``       csrc/cost_volume.cu  (census_volume_pallas,
+                                                     float32 or int16;
+                                                     census_volume_T_pallas,
+                                                     ``transposed=True``)
 K3     ``sgm_path_scan``       csrc/sgm.cu          (sgm_census_hpair_pallas,
-                                                     sgm_scan3_pallas, the
+                                                     sgm_scan3_pallas,
+                                                     sgm_scan_pallas, the
                                                      scans of
-                                                     sgm_scan3_stats_pallas)
+                                                     sgm_scan3_stats_pallas;
+                                                     float32 or int16, carry
+                                                     in and out)
 K4     ``wta_lr``              csrc/wta.cu          (the WTA statistics of
                                                      sgm_scan3_stats_pallas,
-                                                     lr_mask_pallas)
+                                                     lr_mask_pallas fused)
+       ``wta_stats``           csrc/wta.cu          (wta_stats_pallas)
+       ``right_wta``           csrc/wta.cu          (right_wta_pallas)
+       ``lr_mask``             csrc/wta.cu          (lr_mask_pallas)
 K5     ``speckle_sweep``       csrc/speckle.cu      (the labels of
                                                      speckle_filter_pallas)
 K6     ``speckle_count_keep``  csrc/speckle.cu      (the sizes and threshold
@@ -24,6 +33,7 @@ K9     ``mccnn_volume``        csrc/mccnn.cu        (mccnn_volume_pallas,
                                                      mccnn_volume_flat_pallas,
                                                      the volume of
                                                      mccnn_fused_volume_pallas)
+K10    ``census_scan``         csrc/census_scan.cu  (sgm_census_scan_pallas)
 =====  ======================  ===========================================
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
@@ -36,9 +46,13 @@ through ``ctypes`` on PyTorch's current stream. A C entry point
 allocates nothing and returns ``cudaGetLastError()``; the wrapper allocates
 the outputs and raises on a nonzero code.
 
-``launches`` counts, per kernel, the calls of its C entry point made by
-the wrappers: K5 counts two per sweep (rows, then columns); K6's entry
-runs its count and keep kernels as one.
+``launches`` counts, per kernel entry, the calls of its C entry point made
+by the wrappers: K5 counts two per sweep (rows, then columns); K6's entry
+runs its count and keep kernels as one; K4's four entries count apart.
+``extract_disparity_fast`` runs K4's ``wta_stats``, ``right_wta`` and
+``lr_mask`` entries.
+K2, K3 and K4 take float32 or int16 volumes (``census_volume``'s
+``dtype``); int16 SGM follows the XLA int16 path (P1 and P2 truncated).
 """
 
 from __future__ import annotations
@@ -56,17 +70,17 @@ import torch
 import torch.nn.functional as Fn
 
 from stereo_match_tpu_torch.ops.census import census_transform
-from stereo_match_tpu_torch.ops.cost_volume import (INVALID_COST,
-                                                    _invalid_mask,
-                                                    _shift_plane,
-                                                    census_volume_from_words)
+from stereo_match_tpu_torch.ops.cost_volume import (
+    INVALID_COST, _invalid_mask, _shift_plane, census_volume_from_words,
+    census_volume_T_from_words, volume_dtype)
 from stereo_match_tpu_torch.ops.sgm import (PATH_DIRECTIONS_8,
                                             aggregate_direction)
-from stereo_match_tpu_torch.ops.wta import lr_consistency_mask
+from stereo_match_tpu_torch.ops.wta import (disparity_from_stats,
+                                            lr_consistency_mask)
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("census.cu", "cost_volume.cu", "sgm.cu", "wta.cu",
-           "speckle.cu", "wls.cu", "mccnn.cu")
+           "speckle.cu", "wls.cu", "mccnn.cu", "census_scan.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
     "stereo_match_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -74,8 +88,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIB_NAME = "libsmt_kernels.so"
 
 launches = {"census_words": 0, "census_volume": 0, "sgm_path_scan": 0,
-            "wta_lr": 0, "speckle_sweep": 0, "speckle_count_keep": 0,
-            "fgs_solve": 0, "mccnn_conv3x3": 0, "mccnn_volume": 0}
+            "wta_lr": 0, "wta_stats": 0, "right_wta": 0, "lr_mask": 0,
+            "speckle_sweep": 0, "speckle_count_keep": 0, "fgs_solve": 0,
+            "mccnn_conv3x3": 0, "mccnn_volume": 0, "census_scan": 0}
 
 # Packed speckle connectivity: the bit a pixel sets when it is connected to
 # its left neighbour, and the one for the pixel above.
@@ -155,9 +170,13 @@ def _library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         signatures = {
             "smt_census_words": [p, p, i, i, i, i, i, p],
-            "smt_census_volume": [p, p, p, i, i, i, i, p],
-            "smt_sgm_path_scan": [p, p, i, i, i, i, i, f, f, i, p],
-            "smt_wta_lr": [p, p, p, i, i, i, i, i, i, i, p],
+            "smt_census_volume": [p, p, p, i, i, i, i, i, i, p],
+            "smt_sgm_path_scan": [p, p, p, p, i, i, i, i, i, f, f, i, i, p],
+            "smt_wta_lr": [p, p, p, i, i, i, i, i, i, i, i, p],
+            "smt_wta_stats": [p, p, p, p, p, p, i, i, i, i, p],
+            "smt_right_wta": [p, p, i, i, i, i, p],
+            "smt_lr_mask": [p, p, p, i, i, i, p],
+            "smt_census_scan": [p, p, p, i, i, i, i, f, f, f, i, i, p],
             "smt_speckle_sweep": [p, p, i, i, i, p, p],
             "smt_speckle_count_keep": [p, p, p, p, i, i, i, i, p],
             "smt_fgs_solve": [p, p, p, p, p, i, i, i, f, p],
@@ -183,8 +202,9 @@ def _launch(name: str, device: torch.device, *args) -> None:
     launches[name] += 1
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """The tensor's device address; NULL for None."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -206,6 +226,13 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"{tuple(t.shape)} {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_volume(t: torch.Tensor, name: str, ndim: int = 3) -> bool:
+    """Check a contiguous float32 or int16 volume; True for int16."""
+    _check(t, name, torch.int16 if t.dtype == torch.int16 else torch.float32,
+           ndim)
+    return t.dtype == torch.int16
 
 
 def _check_window(window: tuple[int, int]) -> tuple[int, int]:
@@ -243,41 +270,53 @@ def census_words(imgs: torch.Tensor,
 # ------------------------------------------------------ K2 census_volume ----
 
 def census_volume_plain(cl: torch.Tensor, cr: torch.Tensor,
-                        num_disparities: int,
-                        min_disparity: int = 0) -> torch.Tensor:
-    """(H, W) int32 census words of both views -> (D, H, W) float32."""
-    return census_volume_from_words(cl[None], cr[None], num_disparities,
-                                    min_disparity)
+                        num_disparities: int, min_disparity: int = 0,
+                        dtype=torch.float32,
+                        transposed: bool = False) -> torch.Tensor:
+    """(H, W) int32 census words of both views -> (D, H, W) volume.
+
+    ``transposed``: (W, H) words -> the (D, W, H) volume.
+    """
+    build = census_volume_T_from_words if transposed \
+        else census_volume_from_words
+    return build(cl[None], cr[None], num_disparities, min_disparity, dtype)
 
 
 def census_volume(cl: torch.Tensor, cr: torch.Tensor, num_disparities: int,
-                  min_disparity: int = 0) -> torch.Tensor:
-    """(H, W) int32 census words of both views -> (D, H, W) float32 (K2).
+                  min_disparity: int = 0, dtype=torch.float32,
+                  transposed: bool = False) -> torch.Tensor:
+    """(H, W) int32 census words of both views -> (D, H, W) volume (K2).
 
-    Hamming cost of ``cl[y, x]`` against ``cr[y, x - d]``, 1e4 where x < d.
+    Hamming cost of ``cl[y, x]`` against ``cr[y, x - d]``; where x < d, 1e4
+    (``dtype`` float32) or 1024 (int16). With ``transposed`` the words are
+    (W, H) and the volume is (D, W, H), as ``census_volume_T_pallas``
+    builds it for the horizontal scans.
     """
     if min_disparity < 0:
         raise ValueError("census_volume needs min_disparity >= 0")
+    dt = volume_dtype(dtype)
     _check(cl, "cl", torch.int32, 2)
     _check(cr, "cr", torch.int32, 2)
     if cl.shape != cr.shape:
         raise ValueError(f"census images differ: {cl.shape} vs {cr.shape}")
     if _on_cpu(cl, cr):
-        return census_volume_plain(cl, cr, num_disparities, min_disparity)
-    H, W = cl.shape
-    out = torch.empty((num_disparities, H, W), dtype=torch.float32,
-                      device=cl.device)
-    _launch("census_volume", cl.device, _ptr(cl), _ptr(cr), _ptr(out), H, W,
-            num_disparities, min_disparity)
+        return census_volume_plain(cl, cr, num_disparities, min_disparity, dt,
+                                   transposed)
+    R, C = cl.shape
+    out = torch.empty((num_disparities, R, C), dtype=dt, device=cl.device)
+    _launch("census_volume", cl.device, _ptr(cl), _ptr(cr), _ptr(out), R, C,
+            num_disparities, min_disparity, int(transposed),
+            int(dt == torch.int16))
     return out
 
 
 # ------------------------------------------------------ K3 sgm_path_scan ----
 
-def _check_scan(cost: torch.Tensor, total: torch.Tensor, dy: int,
-                dx: int) -> None:
-    _check(cost, "cost", torch.float32, 3)
-    _check(total, "total", torch.float32, 3)
+def _check_scan(cost: torch.Tensor, total: torch.Tensor, dy: int, dx: int,
+                init_carry: torch.Tensor | None,
+                return_carry: bool) -> None:
+    _check_volume(cost, "cost")
+    _check(total, "total", cost.dtype, 3)
     if cost.shape != total.shape:
         raise ValueError(f"cost {tuple(cost.shape)} and total "
                          f"{tuple(total.shape)} differ")
@@ -286,30 +325,60 @@ def _check_scan(cost: torch.Tensor, total: torch.Tensor, dy: int,
     if cost.shape[0] > 1024:
         raise ValueError("sgm_path_scan runs one thread per disparity: "
                          "at most 1024")
+    if (init_carry is not None or return_carry) and dy == 0:
+        raise ValueError("horizontal directions take no carry")
+    if init_carry is not None:
+        _check(init_carry, "init_carry", cost.dtype, 2)
+        want = (cost.shape[0], cost.shape[2])
+        if tuple(init_carry.shape) != want:
+            raise ValueError(f"init_carry {tuple(init_carry.shape)}: "
+                             f"expected {want}")
 
 
 def sgm_path_scan_plain(cost: torch.Tensor, total: torch.Tensor, dy: int,
-                        dx: int, p1: float, p2: float,
-                        accumulate: bool) -> torch.Tensor:
-    """Add (or, with ``accumulate=False``, write) L_(dy,dx) into ``total``."""
-    L = aggregate_direction(cost, dy, dx, p1, p2)
-    return total.add_(L) if accumulate else total.copy_(L)
+                        dx: int, p1: float, p2: float, accumulate: bool,
+                        init_carry: torch.Tensor | None = None,
+                        return_carry: bool = False):
+    """Add (or, with ``accumulate=False``, write) L_(dy,dx) into ``total``.
+
+    With ``return_carry`` also returns the scan-order-last row of L, the
+    (D, W) carry of ``init_carry`` for the next row shard.
+    """
+    L = aggregate_direction(cost, dy, dx, p1, p2, init_carry)
+    total = total.add_(L) if accumulate else total.copy_(L)
+    if return_carry:
+        return total, L[:, -1 if dy > 0 else 0].clone()
+    return total
 
 
 def sgm_path_scan(cost: torch.Tensor, total: torch.Tensor, dy: int, dx: int,
-                  p1: float, p2: float, accumulate: bool) -> torch.Tensor:
+                  p1: float, p2: float, accumulate: bool,
+                  init_carry: torch.Tensor | None = None,
+                  return_carry: bool = False):
     """One SGM path direction over (D, H, W) ``cost``, into ``total`` (K3).
 
     Updates ``total`` in place (the first direction of a frame passes
-    ``accumulate=False`` and overwrites it) and returns it.
+    ``accumulate=False`` and overwrites it) and returns it. ``cost`` and
+    ``total`` are float32, or int16 (P1 and P2 truncated to integers, as
+    the XLA int16 path does). For dy != 0, ``init_carry`` (D, W) is the
+    previous row shard's carry and ``return_carry`` returns
+    ``(total, carry)`` with this shard's (``ops/sgm.py::aggregate_direction``).
     """
-    _check_scan(cost, total, dy, dx)
-    if _on_cpu(cost, total):
-        return sgm_path_scan_plain(cost, total, dy, dx, p1, p2, accumulate)
+    _check_scan(cost, total, dy, dx, init_carry, return_carry)
+    extra = () if init_carry is None else (init_carry,)
+    if _on_cpu(cost, total, *extra):
+        return sgm_path_scan_plain(cost, total, dy, dx, p1, p2, accumulate,
+                                   init_carry, return_carry)
     D, H, W = cost.shape
-    _launch("sgm_path_scan", cost.device, _ptr(cost), _ptr(total), D, H, W,
-            dy, dx, float(p1), float(p2), int(accumulate))
-    return total
+    i16 = cost.dtype == torch.int16
+    if i16:
+        p1, p2 = int(p1), int(p2)
+    carry = torch.empty((D, W), dtype=cost.dtype, device=cost.device) \
+        if return_carry else None
+    _launch("sgm_path_scan", cost.device, _ptr(cost), _ptr(total),
+            _ptr(init_carry), _ptr(carry), D, H, W, dy, dx, float(p1),
+            float(p2), int(accumulate), int(i16))
+    return (total, carry) if return_carry else total
 
 
 def aggregate_paths(cost: torch.Tensor, p1: float, p2: float,
@@ -317,8 +386,9 @@ def aggregate_paths(cost: torch.Tensor, p1: float, p2: float,
     """The SGM total over the first ``num_paths`` of ``PATH_DIRECTIONS_8``.
 
     One ``scan`` per direction, in the order ``ops/sgm.py::sgm_aggregate``
-    adds them, the first writing the total. ``scan`` is K3 by default;
-    ``sgm_path_scan_plain`` gives the plain version on any device.
+    adds them, the first writing the total (of the volume's dtype).
+    ``scan`` is K3 by default; ``sgm_path_scan_plain`` gives the plain
+    version on any device.
     """
     total = torch.empty_like(cost)
     for i, (dy, dx) in enumerate(PATH_DIRECTIONS_8[:num_paths]):
@@ -327,6 +397,45 @@ def aggregate_paths(cost: torch.Tensor, p1: float, p2: float,
 
 
 # ------------------------------------------------------------- K4 wta_lr ----
+
+WTA_BIG = 3e9   # c0 / c2 / second where no such d exists
+
+
+def wta_stats_plain(total: torch.Tensor):
+    """(D, H, W) float32 or int16 costs -> (best, idx, c0, c2, second).
+
+    Per pixel the best cost, its first index (int32), the costs at idx -+ 1
+    and the best cost outside idx +- 1, float32, 3e9 where no such d
+    exists: ``_wta_stats_rows`` of the JAX package.
+    """
+    total = total.to(torch.float32)
+    D = total.shape[0]
+    d_iota = torch.arange(D, device=total.device)[:, None, None]
+    best = total.amin(dim=0)
+    idx = torch.where(total == best[None], d_iota, D).amin(dim=0)
+    edge = torch.full_like(total[:1], WTA_BIG)
+    c0 = torch.cat([edge, total[:-1]]).gather(0, idx[None])[0]
+    c2 = torch.cat([total[1:], edge]).gather(0, idx[None])[0]
+    near = (d_iota - idx[None]).abs() <= 1
+    second = torch.where(near, WTA_BIG, total).amin(dim=0)
+    return best, idx.to(torch.int32), c0, c2, second
+
+
+def right_wta_plain(total: torch.Tensor) -> torch.Tensor:
+    """(D, H, W) costs -> (H, W) int32 argmin over in-frame d of
+    C(d, y, xr + d), ties to the smallest d (without min_disparity)."""
+    total = total.to(torch.float32)
+    D, H, W = total.shape
+    rbest = torch.full((H, W), WTA_BIG, dtype=torch.float32,
+                       device=total.device)
+    ridx = torch.zeros((H, W), dtype=torch.int32, device=total.device)
+    for d in range(min(D, W)):          # ascending d, strict <: first on ties
+        v = total[d, :, d:]
+        better = v < rbest[:, :W - d]
+        rbest[:, :W - d] = torch.where(better, v, rbest[:, :W - d])
+        ridx[:, :W - d] = torch.where(better, d, ridx[:, :W - d])
+    return ridx
+
 
 def wta_lr_plain(total: torch.Tensor, min_disparity: int = 0,
                  uniqueness_ratio: int = 15, disp12_max_diff: int = 1,
@@ -338,52 +447,24 @@ def wta_lr_plain(total: torch.Tensor, min_disparity: int = 0,
     outside idx +- 1; the right-view argmin over in-frame d (ties to the
     smallest d); then subpixel, uniqueness and the disp12 check.
     """
-    D, H, W = total.shape
-    big = 3e9
-    d_iota = torch.arange(D, device=total.device)[:, None, None]
-    best = total.amin(dim=0)
-    idx = torch.where(total == best[None], d_iota, D).amin(dim=0)
-    edge = torch.full_like(total[:1], big)
-    c0 = torch.cat([edge, total[:-1]]).gather(0, idx[None])[0]
-    c2 = torch.cat([total[1:], edge]).gather(0, idx[None])[0]
-    near = (d_iota - idx[None]).abs() <= 1
-    second = torch.where(near, big, total).amin(dim=0)
-
-    disp = idx.to(torch.float32)
-    if subpixel:
-        denom = c0 - 2.0 * best + c2
-        offset = torch.where(denom > 1e-9,
-                             (c0 - c2) / (2.0 * torch.clamp(denom, min=1e-9)),
-                             0.0).clamp(-0.5, 0.5)
-        disp = disp + torch.where((idx == 0) | (idx == D - 1), 0.0, offset)
-    disp = disp + min_disparity
-    mask = second * 100.0 > best * (100.0 + uniqueness_ratio) \
-        if uniqueness_ratio > 0 else torch.ones_like(disp, dtype=torch.bool)
-
-    rbest = torch.full((H, W), big, dtype=torch.float32, device=total.device)
-    ridx = torch.zeros((H, W), dtype=torch.int64, device=total.device)
-    for d in range(min(D, W)):          # ascending d, strict <: first on ties
-        v = total[d, :, d:]
-        better = v < rbest[:, :W - d]
-        rbest[:, :W - d] = torch.where(better, v, rbest[:, :W - d])
-        ridx[:, :W - d] = torch.where(better, d, ridx[:, :W - d])
-    disp_right = (ridx + min_disparity).to(torch.float32)
-
-    mask = mask & lr_consistency_mask(disp, disp_right, disp12_max_diff,
-                                      min_disparity)
+    disp, mask = disparity_from_stats(wta_stats_plain(total), total.shape[0],
+                                      min_disparity, uniqueness_ratio,
+                                      subpixel)
+    disp_right = (right_wta_plain(total) + min_disparity).to(torch.float32)
+    mask = mask & lr_mask_plain(disp, disp_right, disp12_max_diff)
     return torch.where(mask, disp, torch.nan), disp_right
 
 
 def wta_lr(total: torch.Tensor, min_disparity: int = 0,
            uniqueness_ratio: int = 15, disp12_max_diff: int = 1,
            subpixel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-    """(D, H, W) aggregated costs -> (disp, disp_right) (K4).
+    """(D, H, W) float32 or int16 aggregated costs -> (disp, disp_right) (K4).
 
     ``disp`` is float32 with NaN where the uniqueness or disp12 check fails
     (``uniqueness_ratio <= 0`` / ``disp12_max_diff < 0`` disable them);
     ``disp_right`` is the right-view WTA disparity used by the check.
     """
-    _check(total, "total", torch.float32, 3)
+    i16 = _check_volume(total, "total")
     if _on_cpu(total):
         return wta_lr_plain(total, min_disparity, uniqueness_ratio,
                             disp12_max_diff, subpixel)
@@ -392,8 +473,96 @@ def wta_lr(total: torch.Tensor, min_disparity: int = 0,
     disp_right = torch.empty_like(disp)
     _launch("wta_lr", total.device, _ptr(total), _ptr(disp), _ptr(disp_right),
             D, H, W, min_disparity, uniqueness_ratio, disp12_max_diff,
-            int(subpixel))
+            int(subpixel), int(i16))
     return disp, disp_right
+
+
+def wta_stats(total: torch.Tensor):
+    """(D, H, W) float32 or int16 costs -> (best, idx, c0, c2, second) (K4).
+
+    The five (H, W) maps of ``wta_stats_plain``: idx int32, the rest
+    float32.
+    """
+    i16 = _check_volume(total, "total")
+    if _on_cpu(total):
+        return wta_stats_plain(total)
+    D, H, W = total.shape
+    f32 = dict(dtype=torch.float32, device=total.device)
+    best, c0, c2, second = (torch.empty((H, W), **f32) for _ in range(4))
+    idx = torch.empty((H, W), dtype=torch.int32, device=total.device)
+    _launch("wta_stats", total.device, _ptr(total), _ptr(best), _ptr(idx),
+            _ptr(c0), _ptr(c2), _ptr(second), D, H, W, int(i16))
+    return best, idx, c0, c2, second
+
+
+def right_wta(total: torch.Tensor) -> torch.Tensor:
+    """(D, H, W) float32 or int16 costs -> (H, W) int32 right-view argmin
+    (K4; ties to the smallest d, without min_disparity)."""
+    i16 = _check_volume(total, "total")
+    if _on_cpu(total):
+        return right_wta_plain(total)
+    D, H, W = total.shape
+    ridx = torch.empty((H, W), dtype=torch.int32, device=total.device)
+    _launch("right_wta", total.device, _ptr(total), _ptr(ridx), D, H, W,
+            int(i16))
+    return ridx
+
+
+def lr_mask_plain(disp: torch.Tensor, disp_right: torch.Tensor,
+                  disp12_max_diff: int) -> torch.Tensor:
+    """(H, W) bool disp12 check of ``ops/wta.py::lr_consistency_mask``."""
+    return lr_consistency_mask(disp, disp_right, disp12_max_diff)
+
+
+def lr_mask(disp: torch.Tensor, disp_right: torch.Tensor,
+            disp12_max_diff: int) -> torch.Tensor:
+    """The disp12 check of (H, W) float32 maps -> (H, W) bool (K4).
+
+    True where ``xr = round(x - disp)`` (half to even) lies in the frame
+    and ``|disp - disp_right[xr]| <= disp12_max_diff``; NaN ``disp`` gives
+    False; ``disp12_max_diff < 0`` gives all True.
+    """
+    _check(disp, "disp", torch.float32, 2)
+    _check(disp_right, "disp_right", torch.float32, 2)
+    if disp.shape != disp_right.shape:
+        raise ValueError(f"disp {tuple(disp.shape)} and disp_right "
+                         f"{tuple(disp_right.shape)} differ")
+    if _on_cpu(disp, disp_right):
+        return lr_mask_plain(disp, disp_right, disp12_max_diff)
+    H, W = disp.shape
+    mask = torch.empty((H, W), dtype=torch.bool, device=disp.device)
+    _launch("lr_mask", disp.device, _ptr(disp), _ptr(disp_right), _ptr(mask),
+            H, W, int(disp12_max_diff))
+    return mask
+
+
+def extract_disparity_fast(agg: torch.Tensor, min_disparity: int = 0,
+                           uniqueness_ratio: int = 15,
+                           disp12_max_diff: int = 1, subpixel: bool = True,
+                           return_right: bool = False, stats=None):
+    """``ops/wta.py::extract_disparity`` on K4's stand-alone entries.
+
+    The JAX package's ``extract_disparity_fast``: ``stats`` is the
+    ``(best, idx, c0, c2, second[, right_idx])`` tuple when the caller has
+    it; otherwise ``wta_stats`` computes it from ``agg`` (float32 or int16,
+    one volume pass). The disp12 check takes the right view from
+    ``right_wta`` unless ``stats`` carries it, and runs on ``lr_mask``. The
+    rest is ``ops/wta.py::disparity_from_stats``.
+    """
+    if agg.dtype not in (torch.float32, torch.int16):
+        agg = agg.to(torch.float32)
+    if stats is None:
+        stats = wta_stats(agg)
+    disp, mask = disparity_from_stats(stats, agg.shape[0], min_disparity,
+                                      uniqueness_ratio, subpixel)
+    disp_right = None
+    if disp12_max_diff >= 0 or return_right:
+        ridx = stats[5] if len(stats) > 5 else right_wta(agg)
+        disp_right = (ridx + min_disparity).to(torch.float32)
+    if disp12_max_diff >= 0:
+        mask = mask & lr_mask(disp, disp_right, disp12_max_diff)
+    disp = torch.where(mask, disp, torch.nan)
+    return (disp, disp_right) if return_right else disp
 
 
 # ------------------------------------------------------ K5 speckle_sweep ----
@@ -696,3 +865,53 @@ def mccnn_volume(fl: torch.Tensor, fr: torch.Tensor, num_disparities: int,
     _launch("mccnn_volume", fl.device, _ptr(fl), _ptr(fr), _ptr(out), F, H,
             W, num_disparities, min_disparity, float(scale))
     return out
+
+
+# -------------------------------------------------------- K10 census_scan ----
+
+def census_scan_plain(cl: torch.Tensor, cr: torch.Tensor, total: torch.Tensor,
+                      min_disparity: int, p1: float, p2: float,
+                      reverse: bool, invalid_cost: float,
+                      accumulate: bool) -> torch.Tensor:
+    """K2's volume with ``invalid_cost`` at x < d, scanned along (0, +-1)."""
+    D, H, W = total.shape
+    vol = census_volume_from_words(cl[None], cr[None], D, min_disparity)
+    vol.masked_fill_(_invalid_mask(W, D, min_disparity, cl.device),
+                     invalid_cost)
+    return sgm_path_scan_plain(vol, total, 0, -1 if reverse else 1, p1, p2,
+                               accumulate)
+
+
+def census_scan(cl: torch.Tensor, cr: torch.Tensor, total: torch.Tensor,
+                min_disparity: int, p1: float, p2: float,
+                reverse: bool = False, invalid_cost: float = INVALID_COST,
+                accumulate: bool = False) -> torch.Tensor:
+    """One horizontal SGM scan with costs rebuilt from census words (K10).
+
+    ``cl``, ``cr``: (H, W) int32 single-word census of both views;
+    ``total``: (D, H, W) float32, updated in place (added into, or with
+    ``accumulate=False`` written) and returned. The cost of disparity
+    ``d = min_disparity + i`` at x is ``popc(cl[y, x] ^ cr[y, x - d])``,
+    or ``invalid_cost`` where x < d (1e4 as K2 writes; 1024 for the int16
+    wire of the streaming pipeline). ``reverse`` scans right to left.
+    """
+    if min_disparity < 0:
+        raise ValueError("census_scan needs min_disparity >= 0")
+    _check(cl, "cl", torch.int32, 2)
+    _check(cr, "cr", torch.int32, 2)
+    _check(total, "total", torch.float32, 3)
+    if cl.shape != cr.shape or tuple(total.shape[1:]) != tuple(cl.shape):
+        raise ValueError(f"census images {tuple(cl.shape)}, "
+                         f"{tuple(cr.shape)} and total "
+                         f"{tuple(total.shape)} do not fit")
+    if total.shape[0] > 1024:
+        raise ValueError("census_scan runs one thread per disparity: at "
+                         "most 1024")
+    if _on_cpu(cl, cr, total):
+        return census_scan_plain(cl, cr, total, min_disparity, p1, p2,
+                                 reverse, invalid_cost, accumulate)
+    D, H, W = total.shape
+    _launch("census_scan", cl.device, _ptr(cl), _ptr(cr), _ptr(total), D, H,
+            W, min_disparity, float(p1), float(p2), float(invalid_cost),
+            -1 if reverse else 1, int(accumulate))
+    return total

@@ -14,6 +14,11 @@ same order (``1e9`` at the d-edges, ``(C + m) - min``), and the direction
 totals are summed in ``PATH_DIRECTIONS_8`` order, so the totals are
 bit-identical to the reference's for any P1, P2 >= 0.
 
+int16 volumes follow the XLA int16 path: P1 and P2 are truncated to
+integers, the d-edges hold 30000, L and the total are int16. The values are
+computed in int32 and stored as int16, which is the same arithmetic: the
+config bounds every value below 2^15 (``num_paths * (1024 + P2)``).
+
 Diagonal paths carry the previous row's L shifted by one column, with zeros
 shifted in at the frame edge. That equals the reference's shear: there,
 out-of-frame cells hold cost 0 and carry 0, so every diagonal path starts
@@ -34,13 +39,14 @@ PATH_DIRECTIONS_8 = (
 )
 
 BIG = 1e9   # L(d-1) / L(d+1) beyond the disparity range
+BIG_I16 = 30000   # the same for int16 volumes
 
 
 def _step(c: torch.Tensor, carry: torch.Tensor, p1: torch.Tensor,
-          p2: torch.Tensor) -> torch.Tensor:
+          p2: torch.Tensor, big: float) -> torch.Tensor:
     """One SGM step on a (D, N) slab: the recurrence of the module doc."""
     prev_min = carry.amin(dim=0, keepdim=True)
-    edge = torch.full_like(carry[:1], BIG)
+    edge = torch.full_like(carry[:1], big)
     up = torch.cat([edge, carry[:-1]], dim=0)       # L(d-1)
     down = torch.cat([carry[1:], edge], dim=0)      # L(d+1)
     m = torch.minimum(torch.minimum(carry, prev_min + p2),
@@ -58,16 +64,25 @@ def _shift_columns(carry: torch.Tensor, dx: int) -> torch.Tensor:
 
 def _scan(cost: torch.Tensor, p1: float, p2: float,
           init_carry: torch.Tensor | None = None, dx: int = 0) -> torch.Tensor:
-    """Scan along axis 1 of (D, S, N), moving the carry ``dx`` along N."""
-    cost = cost.to(torch.float32)
-    p1 = torch.tensor(p1, dtype=torch.float32, device=cost.device)
-    p2 = torch.tensor(p2, dtype=torch.float32, device=cost.device)
-    carry = torch.zeros_like(cost[:, 0]) if init_carry is None else init_carry
+    """Scan along axis 1 of (D, S, N), moving the carry ``dx`` along N.
+
+    ``init_carry`` (D, N) is the predecessor row's L, unshifted: the first
+    row's step shifts it by ``dx`` like every other carry. The output keeps
+    an int16 volume's dtype (computed in int32); anything else is float32.
+    """
+    if cost.dtype == torch.int16:
+        work, big, p1, p2 = torch.int32, BIG_I16, int(p1), int(p2)
+    else:
+        cost, work, big = cost.to(torch.float32), torch.float32, BIG
+    p1 = torch.tensor(p1, dtype=work, device=cost.device)
+    p2 = torch.tensor(p2, dtype=work, device=cost.device)
+    carry = torch.zeros(cost[:, 0].shape, dtype=work, device=cost.device) \
+        if init_carry is None else init_carry.to(work)
     out = torch.empty_like(cost)
     for s in range(cost.shape[1]):
         if dx:
             carry = _shift_columns(carry, dx)
-        carry = _step(cost[:, s], carry, p1, p2)
+        carry = _step(cost[:, s].to(work), carry, p1, p2, big)
         out[:, s] = carry
     return out
 
@@ -83,11 +98,22 @@ def scan_direction(cost: torch.Tensor, p1: float, p2: float,
     return _scan(cost, p1, p2, init_carry)
 
 
-def aggregate_direction(cost: torch.Tensor, dy: int, dx: int,
-                        p1: float, p2: float) -> torch.Tensor:
-    """L for one path direction over a (D, H, W) volume."""
+def aggregate_direction(cost: torch.Tensor, dy: int, dx: int, p1: float,
+                        p2: float, init_carry: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """L for one path direction over a (D, H, W) volume.
+
+    ``init_carry`` (D, W), for dy != 0 only: L of the row before the
+    volume's first row in scan order (the previous row shard's last row,
+    unshifted), so a path starting on that row at column x continues from
+    ``init_carry[:, x - dx]`` (zero off the frame). The carry to hand to
+    the next shard is the returned L's last row in scan order.
+    """
+    if init_carry is not None and dy == 0:
+        raise ValueError("horizontal directions take no carry")
     if dy < 0:        # flip y: a (-1, dx) path becomes a (1, dx) path
-        return aggregate_direction(cost.flip(1), -dy, dx, p1, p2).flip(1)
+        return aggregate_direction(cost.flip(1), -dy, dx, p1, p2,
+                                   init_carry).flip(1)
     if dy == 0:       # horizontal: scan over x of the (D, W, H) view
         vol = cost.transpose(1, 2)
         if dx < 0:
@@ -96,7 +122,7 @@ def aggregate_direction(cost: torch.Tensor, dy: int, dx: int,
         if dx < 0:
             out = out.flip(1)
         return out.transpose(1, 2)
-    return _scan(cost, p1, p2, dx=dx)   # vertical (dx = 0) or diagonal
+    return _scan(cost, p1, p2, init_carry, dx)   # vertical or diagonal
 
 
 def sgm_aggregate(cost: torch.Tensor, p1: float, p2: float,
@@ -104,10 +130,12 @@ def sgm_aggregate(cost: torch.Tensor, p1: float, p2: float,
     """Sum of per-direction aggregations, S(p, d) = sum_r L_r(p, d).
 
     ``num_paths``: 8 (full), 4 (horizontal + vertical) or 2 (horizontal).
+    The total is int16 for an int16 volume, else float32.
     """
     if num_paths not in (2, 4, 8):
         raise ValueError("num_paths must be 2, 4 or 8")
-    total = torch.zeros(cost.shape, dtype=torch.float32, device=cost.device)
+    dt = torch.int16 if cost.dtype == torch.int16 else torch.float32
+    total = torch.zeros(cost.shape, dtype=dt, device=cost.device)
     for dy, dx in PATH_DIRECTIONS_8[:num_paths]:
         total = total + aggregate_direction(cost, dy, dx, p1, p2)
     return total

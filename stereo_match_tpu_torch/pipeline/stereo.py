@@ -19,9 +19,12 @@ versions; CUDA tensors run the kernels.
 
 The slice covers census costs with a single-word window (at most 33
 pixels) or a ``cost_fn`` volume, 2, 4 or 8 paths, any
-``min_disparity >= 0``, float32 volumes, and the speckle and WLS
-post-filters; any other configuration raises ``NotImplementedError``
-naming its ROADMAP.md entry.
+``min_disparity >= 0``, float32 or (census) int16 volumes, and the speckle
+and WLS post-filters; any other configuration raises
+``NotImplementedError`` naming its ROADMAP.md entry. ``dtype="int16"``
+runs K2, K3 and K4 on int16 volumes as the JAX package's XLA path does
+(INVALID 1024, P1 and P2 truncated to integers): half the memory of the
+float32 volumes; a ``cost_fn`` volume stays float32, as in JAX.
 """
 
 from __future__ import annotations
@@ -85,10 +88,10 @@ def check_slice(cfg: DisparityConfig, cost_fn=None) -> None:
         raise NotImplementedError(
             "min_disparity < 0 is not ported (ROADMAP.md, queue 1: other "
             "costs and matchers)")
-    if cfg.dtype != "float32":
+    if cfg.dtype not in ("float32", "int16"):
         raise NotImplementedError(
-            f"dtype={cfg.dtype!r}: the port keeps float32 volumes (ROADMAP.md,"
-            " queue 2: int16 scans)")
+            f"dtype={cfg.dtype!r}: the port builds float32 or int16 volumes "
+            "(ROADMAP.md, queue 1 item 9: other costs and volume types)")
 
 
 def _check_volume(vol, cfg: DisparityConfig, like: torch.Tensor) -> None:

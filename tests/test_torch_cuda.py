@@ -15,7 +15,12 @@ too. K8 (a tower layer) and K9 (the MC-CNN volume) sum in another order
 than cuDNN and the plain channel sum: K8 within 1e-5 of the plain layer
 (cuDNN in full float32), K9 within 1e-4 with the 1e4 mask exactly equal;
 the MC-CNN matcher must agree with its plain path on at least 99.5 % of
-the pixels, since a rounding difference can flip a WTA decision.
+the pixels, since a rounding difference can flip a WTA decision. The int16
+volumes (K2, K3, K4), the transposed K2, K3's carries, K4's wta_stats,
+right_wta and lr_mask entries and K10 (census-fused scan) are integer or
+K3-ordered float arithmetic and must be bit-equal; so must the row-sharded
+exact total and the 4-stage stream on one card against the single-card
+path.
 """
 
 import numpy as np
@@ -32,7 +37,10 @@ from stereo_match_tpu_torch.ops import cuda_kernels as K
 from stereo_match_tpu_torch.ops import wls
 from stereo_match_tpu_torch.ops.sgm import PATH_DIRECTIONS_8
 from stereo_match_tpu_torch.ops.speckle import connectivity, speckle_filter
-from stereo_match_tpu_torch.pipeline.stereo import StereoMatcher
+from stereo_match_tpu_torch.parallel import (StreamingPipeline, make_mesh,
+                                             make_stage_mesh,
+                                             sgm_aggregate_sharded)
+from stereo_match_tpu_torch.pipeline.stereo import StereoMatcher, _match_core
 from stereo_match_tpu_torch.utils.backend import require_hopper
 
 pytestmark = pytest.mark.cuda
@@ -145,11 +153,9 @@ def test_main_path_on_card_matches_cpu(dev):
     K.reset_launches()
     raw, filtered = StereoMatcher(cfg, device=dev)(left, right)
     assert raw.is_cuda
-    assert K.launches == {"census_words": 1, "census_volume": 1,
-                          "sgm_path_scan": 8, "wta_lr": 1,
-                          "speckle_sweep": 0, "speckle_count_keep": 0,
-                          "fgs_solve": 0, "mccnn_conv3x3": 0,
-                          "mccnn_volume": 0}
+    assert K.launches == {**{name: 0 for name in K.launches},
+                          "census_words": 1, "census_volume": 1,
+                          "sgm_path_scan": 8, "wta_lr": 1}
     want, _ = StereoMatcher(cfg, device="cpu")(left, right)
     _assert_same_disparity(raw.cpu(), want)
 
@@ -359,3 +365,172 @@ def test_mccnn_matcher_on_card_matches_plain(dev, arch):
     print(f"MC-CNN {arch} on the card: {share} of the pixels agree with "
           "the plain path")
     assert share >= 0.995
+
+
+# ------------------------------- int16, transposed K2, carries, K4 entries --
+
+@pytest.mark.parametrize("H,W,D,min_d", [(36, 150, 64, 0), (24, 160, 128, 4),
+                                         (*KITTI, 128, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_census_volume_int16_and_transposed(dev, H, W, D, min_d, dtype,
+                                            transposed):
+    words = K.census_words(_images(H, W, dev, seed=1))
+    if transposed:
+        words = words.transpose(1, 2).contiguous()
+    got = K.census_volume(words[0], words[1], D, min_d, dtype, transposed)
+    want = K.census_volume_plain(words[0], words[1], D, min_d, dtype,
+                                 transposed)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("direction", PATH_DIRECTIONS_8)
+def test_sgm_path_scan_int16(dev, direction):
+    """int16 storage: P1 = 8/3 is truncated to 2, as the XLA path does."""
+    words = K.census_words(_images(37, 150, dev, seed=8), (3, 3))
+    vol = K.census_volume(words[0], words[1], 64, 0, torch.int16)
+    start = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 999, vol.shape).astype(np.int16)).to(dev)
+    for accumulate in (False, True):
+        got = K.sgm_path_scan(vol, start.clone(), *direction, 8 / 3, 32.0,
+                              accumulate)
+        want = K.sgm_path_scan_plain(vol, start.clone(), *direction, 8 / 3,
+                                     32.0, accumulate)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int16 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("direction", [d for d in PATH_DIRECTIONS_8 if d[0]])
+def test_sgm_path_scan_carry_chain(dev, direction, dtype):
+    """Shards of 16/16/5 rows chained through the carries equal the whole
+    frame, on the card and in the plain version."""
+    rng = np.random.default_rng(10)
+    cost = torch.from_numpy(rng.uniform(0, 24, (20, 37, 150)).astype(
+        np.float32)).to(dev)
+    if dtype == torch.int16:
+        cost = cost.to(torch.int16)
+    whole = K.sgm_path_scan(cost, torch.empty_like(cost), *direction, 5.0,
+                            40.0, False)
+    bounds = [(0, 16), (16, 32), (32, 37)]
+    if direction[0] < 0:
+        bounds = bounds[::-1]
+    for scan in (K.sgm_path_scan, K.sgm_path_scan_plain):
+        carry, parts = None, {}
+        for lo, hi in bounds:
+            part = cost[:, lo:hi].contiguous()
+            parts[lo], carry = scan(part, torch.empty_like(part), *direction,
+                                    5.0, 40.0, False, init_carry=carry,
+                                    return_carry=True)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat([parts[lo] for lo in sorted(parts)], 1),
+                           whole)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("invalid", [1e4, 1024.0])
+@pytest.mark.parametrize("min_d", [0, 5])
+@pytest.mark.parametrize("shape", [(37, 150, 64), (*KITTI, 128)])
+def test_census_scan_kernel(dev, reverse, invalid, min_d, shape):
+    H, W, D = shape
+    words = K.census_words(_images(H, W, dev, seed=11))
+    start = torch.from_numpy(np.random.default_rng(12).uniform(
+        0, 99, (D, H, W)).astype(np.float32)).to(dev)
+    for accumulate in (False, True):
+        got = K.census_scan(words[0], words[1], start.clone(), min_d, 8.0,
+                            96.0, reverse, invalid, accumulate)
+        want = K.census_scan_plain(words[0], words[1], start.clone(), min_d,
+                                   8.0, 96.0, reverse, invalid, accumulate)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    if invalid == 1e4:          # equal to K2's volume scanned by K3
+        vol = K.census_volume(words[0], words[1], D, min_d)
+        want = K.sgm_path_scan(vol, start.clone(), 0, -1 if reverse else 1,
+                               8.0, 96.0, True)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+def test_wta_entries_and_int16(dev, dtype):
+    rng = np.random.default_rng(13)
+    total = torch.from_numpy(rng.integers(0, 12, (16, 20, 90)).astype(
+        np.float32)).to(dev).to(dtype)
+    for got, want in zip(K.wta_stats(total), K.wta_stats_plain(total)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(K.right_wta(total), K.right_wta_plain(total))
+    disp, right = K.wta_lr(total)
+    want, want_right = K.wta_lr_plain(total)
+    torch.cuda.synchronize()
+    _assert_same_disparity(disp, want)
+    assert torch.equal(right, want_right)
+    K.reset_launches()
+    _assert_same_disparity(K.extract_disparity_fast(total), want)
+    assert (K.launches["wta_stats"], K.launches["right_wta"],
+            K.launches["lr_mask"]) == (1, 1, 1)
+
+
+@pytest.mark.parametrize("tol", [1, 0, 3, -1])
+@pytest.mark.parametrize("H,W", [(20, 90), KITTI])
+def test_lr_mask_kernel(dev, H, W, tol):
+    rng = np.random.default_rng(15)
+    dl = rng.integers(0, 256, (H, W)) / 2.0          # halves: round to even
+    dl[rng.random((H, W)) < 0.1] = np.nan
+    dr = rng.integers(0, 128, (H, W)).astype(np.float32)
+    dl = torch.from_numpy(dl.astype(np.float32)).to(dev)
+    dr = torch.from_numpy(dr).to(dev)
+    got = K.lr_mask(dl, dr, tol)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bool
+    assert torch.equal(got, K.lr_mask_plain(dl, dr, tol))
+
+
+def test_int16_matcher_on_card(dev):
+    gt = slanted_scene(48, 160, 3.0, 40.0)
+    left, right = random_dot_pair(48, 160, gt, blur=1.0, seed=1)
+    cfg = DisparityConfig(num_disparities=64, dtype="int16", wls=False,
+                          speckle_window_size=0)
+    raw, _ = StereoMatcher(cfg, device=dev)(left, right)
+    want, _ = StereoMatcher(cfg, device="cpu")(left, right)
+    _assert_same_disparity(raw.cpu(), want)
+
+
+@pytest.mark.parametrize("mode", ["exact", "halo"])
+def test_sharded_sgm_on_one_card(dev, mode):
+    words = K.census_words(_images(53, 150, dev, seed=14))
+    vol = K.census_volume(words[0], words[1], 64)
+    mesh = make_mesh(1, 4, devices=[dev] * 4)
+    got = sgm_aggregate_sharded(vol, 8.0, 96.0, mesh, 8, mode, halo=8)
+    want = sgm_aggregate_sharded(vol.cpu(), 8.0, 96.0,
+                                 make_mesh(1, 4, devices=["cpu"] * 4), 8,
+                                 mode, halo=8)
+    assert torch.equal(got.cpu(), want)
+    if mode == "exact":
+        assert torch.equal(got, K.aggregate_paths(vol, 8.0, 96.0))
+
+
+@pytest.mark.parametrize("mode", ["volume", "census"])
+@pytest.mark.parametrize("wire", ["float32", "int16"])
+def test_stream_on_one_card(dev, mode, wire):
+    cfg = DisparityConfig(num_disparities=32, wls=False,
+                          speckle_window_size=0)
+    frames = []
+    for seed in range(5):
+        gt = slanted_scene(40, 120, 3.0, 20.0 + seed)
+        frames.append(random_dot_pair(40, 120, gt, blur=1.0, seed=seed))
+    pipe = StreamingPipeline(cfg, make_stage_mesh(4, devices=[dev] * 4),
+                             (40, 120), payload_mode=mode,
+                             payload_dtype=wire)
+    got = pipe.run(frames)
+    assert len(got) == len(frames)
+    if wire == "float32":
+        for (raw, _), (l, r) in zip(got, frames):
+            want, _ = _match_core(torch.from_numpy(l).to(dev),
+                                  torch.from_numpy(r).to(dev), cfg)
+            _assert_same_disparity(raw, want)
+    else:
+        ref = StreamingPipeline(cfg, make_stage_mesh(4, devices=[dev] * 4),
+                                (40, 120), payload_mode=mode,
+                                _invalid_clamp=1024.0).run(frames)
+        for (raw, _), (want, _) in zip(got, ref):
+            _assert_same_disparity(raw, want)

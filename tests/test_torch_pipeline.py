@@ -117,7 +117,8 @@ def test_config_carries_across(tmp_path):
 
 @pytest.mark.parametrize("kw", [
     dict(cost="sad"), dict(cost="bt"), dict(cost="mccnn"),
-    dict(census_window=(7, 7)), dict(min_disparity=-2), dict(dtype="int16")])
+    dict(census_window=(7, 7)), dict(min_disparity=-2),
+    dict(dtype="float16")])
 def test_configs_outside_the_slice_raise(kw):
     cfg = DisparityConfig(num_disparities=16, **{**HEADLINE, **kw})
     img = torch.zeros(8, 32)
