@@ -11,7 +11,8 @@ reference's ``cv2.stereoRectify`` + ``initUndistortRectifyMap`` + ``remap``
 * :func:`remap_bilinear` — bilinear resampling with a zero border.
 
 The alpha semantics match OpenCV: alpha<0 = no scaling, alpha=0 = zoom so
-only valid pixels remain, alpha=1 = keep every source pixel.
+only valid pixels remain, alpha=1 = keep every source pixel. The warp runs
+on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from stereo_match_tpu_torch.core.camera import (check_epipoles, relative_pose,
                                                 rodrigues, rotation_to_vector)
+from stereo_match_tpu_torch.utils.backend import entry_device
 
 
 @dataclass
@@ -213,7 +215,7 @@ def stereo_rectify(K_l: np.ndarray, K_r: np.ndarray,
 
 
 def rectification_maps(K, R, P, image_size: tuple[int, int], dist=None,
-                       device: torch.device | str = "cpu"
+                       device: torch.device | str = "cuda"
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Inverse warp maps for one view, on ``device``.
 
@@ -222,6 +224,7 @@ def rectification_maps(K, R, P, image_size: tuple[int, int], dist=None,
     (``cv2.initUndistortRectifyMap``). ``image_size`` = (w, h). Returns
     (map_x, map_y), each (h, w) float32.
     """
+    device = entry_device(device)
     w, h = image_size
     Kf = np.asarray(K, np.float32)
     # the 3x3 inverse is calibration math: float64 on the host, then
@@ -294,7 +297,7 @@ def rectify_pair(pose_l: np.ndarray, pose_r: np.ndarray,
                  alpha: float = -1.0,
                  dist_l: np.ndarray | None = None,
                  dist_r: np.ndarray | None = None,
-                 check: bool = True, device: torch.device | str = "cpu"):
+                 check: bool = True, device: torch.device | str = "cuda"):
     """End-to-end pair rectification from camera-to-world poses.
 
     Capability parity with ``stereo_vision/stereo_vision.py:50-129``.
@@ -304,6 +307,7 @@ def rectify_pair(pose_l: np.ndarray, pose_r: np.ndarray,
     and raises ``ValueError`` when an epipole falls inside an image (e.g.
     a forward-motion pair, which planar rectification cannot handle).
     """
+    device = entry_device(device)
     h, w = np.asarray(image_l).shape[:2]
     if check and not check_epipoles(K_l, K_r, pose_l, pose_r, (h, w)):
         raise ValueError(

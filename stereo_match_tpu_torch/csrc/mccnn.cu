@@ -12,17 +12,44 @@
 // layer to rebuild the per-layer padding; here every layer reads its input
 // from device memory and the halo outside the image is loaded as zero.
 //
-// Bound on the H100: FP32 FMAs. A KITTI frame (both 1242x375 views) is
-// 2*9*F*C_in*H*W*2 FLOP per layer: 69 GFLOP for a 64->64 layer, 210 GFLOP
-// for 112->112, ~1.0 and ~3.1 ms at the 67 TFLOP/s non-tensor peak. Design:
-// a block owns an 8x32 tile of output pixels and all F channels of it in
-// registers (256 threads, each 4 pixels x F/4 channels, so one input load
-// feeds F/4 FMAs and one float4 weight load feeds 16). Input channels are
-// staged 8 at a time: the 10x34 halo of each and its 9xF weights, read
-// coalesced from the (3, 3, C_in, F) tap-major copy of the weights that
-// the module makes once. The four threads of a pixel are neighbouring
-// lanes, so the last layer's norm is two shuffles. F is padded to the next
-// of 32, 64, 112, 128 with zero weights; padded channels are not stored.
+// One entry point, two bodies chosen by C_in:
+//
+// C_in > 1 (every layer but the first): implicit GEMM on the tensor cores
+// in 3xTF32. Bound on the H100: a KITTI frame (both 1242x375 views) is
+// 2*9*F*C_in*H*W*2 FLOP a layer, 69 GFLOP at F = 64 and 210 GFLOP at
+// F = 112; at float32 accuracy that is three TF32 products each, 0.42 and
+// 1.27 ms at 495 TFLOP/s (1.03 and 3.14 ms on the 67 TFLOP/s FP32 pipes).
+// Design: M = the 8 x 32 output pixels of a block (a warp per tile row, two
+// m16 tiles), N = all F channels (F padded to 32, 64, 112 or 128: n8
+// tiles; at 112 and 128 two warps share a tile row, half the n8 tiles
+// each, so 16 warps fill the SM that one block occupies), K = 9 taps x
+// C_in, stepped 8 channels of one tap at a time with mma.sync.m16n8k8
+// TF32. Each operand x is split into hi = tf32(x) and lo = tf32(x - hi)
+// (cvt.rna); each k8 step forms lo*hi + hi*lo + hi*hi, small terms first,
+// in a zeroed tensor-core accumulator, and adds it to the float32 total on
+// the FP32 pipes. (Chaining every step through the tensor-core
+// accumulator, which does not round to nearest, biased the sums: their
+// error against float64 grew with K, well past cuDNN float32's; a rounded
+// add a step keeps the bias to one step's sum.) The weights are split once
+// by the module (cuda_kernels.mccnn_pack_weights: (2, 3, 3, C8, F8), hi
+// then lo), the activations as their fragments are read, once for all n8
+// tiles. Input channels are staged 8 at a time, the 10 x 34 halo and the
+// 9 x 8 x F hi/lo weights, by cp.async into two buffers, so the next
+// stage's copies overlap this stage's products; out-of-frame halo cells are
+// zero-filled by the copy (the SAME padding). Shared-memory pitches (344
+// floats a channel, F8 + 8 a weight row) keep the fragment reads free of
+// bank conflicts. The epilogue adds the bias, then applies ReLU, or the L2
+// norm: a pixel's channels lie in the four lanes of a quad (two shuffles)
+// and, where two warps share the row, in shared memory. (TF32 wgmma would
+// take A and B K-major from shared memory only; the NCHW halo tile is
+// M-major for a tap, so this first tensor-core form is mma.sync fed from
+// shared memory.)
+//
+// C_in = 1 (the first layer): K = 9, so it is bound by the output write
+// (238 MB at F = 64), not by arithmetic, and stays on the FP32 pipes: a
+// block owns an 8x32 tile of output pixels and all F channels of it in
+// registers (256 threads, each 4 pixels x F/4 channels), reading the
+// (3, 3, C_in, F) tap-major copy of the weights that the module makes once.
 //
 // K9 replaces mccnn_volume_pallas (_mccnn_vol_kernel), mccnn_volume_mxu_
 // pallas (_mccnn_vol_mxu_kernel), mccnn_volume_flat_pallas
@@ -43,11 +70,13 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr float kInvalid = 1e4f;
 
-// ------------------------------------------------------------------- K8 ----
+// ------------------------------------------------ K8, C_in = 1: FP32 ----
 
 constexpr int kConvTH = 8;
 constexpr int kConvTW = 32;
@@ -185,6 +214,245 @@ int launch_conv3x3(const float* x, const float* taps, const float* bias,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------- K8, C_in > 1: 3xTF32 ----
+
+constexpr int kTcTH = 8;                  // tile rows: one warp each
+constexpr int kTcTW = 32;                 // tile columns: two m16 tiles
+constexpr int kTcThreads = 32 * kTcTH;
+constexpr int kTcCC = 8;                  // input channels a stage (k8)
+constexpr int kTcHaloW = kTcTW + 2;
+constexpr int kTcHaloH = kTcTH + 2;
+constexpr int kTcHaloPitch = 344;         // >= 10 * 34; 24 banks apart
+
+__device__ inline void cp_async4_zfill(float* smem, const float* gmem,
+                                       int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
+
+__device__ inline void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ inline void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  hi &= 0xffffe000u;
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+__device__ inline void mma_tf32(float* c, const uint32_t* a, uint32_t b0,
+                                uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// NT n8 tiles: the block covers F8 = 8 * NT output channels; NS warps
+// share a tile row, each taking NT / NS of the n8 tiles (more warps an SM
+// where one block fills it).
+template <int NT, int NS>
+__global__ void __launch_bounds__(kTcThreads * NS)
+conv3x3_tf32x3_kernel(const float* __restrict__ x,
+                      const float* __restrict__ packed,
+                      const float* __restrict__ bias, float* __restrict__ y,
+                      int C_in, int C8, int F, int H, int W, int relu,
+                      int normalize) {
+  constexpr int F8 = 8 * NT;
+  constexpr int NW = NT / NS;             // n8 tiles a warp
+  constexpr int THREADS = kTcThreads * NS;
+  constexpr int FP = F8 + 8;              // weight row pitch: 8 banks apart
+  constexpr int XSTAGE = kTcCC * kTcHaloPitch;
+  constexpr int STAGE = XSTAGE + 2 * 9 * kTcCC * FP;
+  static_assert(NT % NS == 0, "the warps of a row split the n8 tiles");
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int row = (threadIdx.x >> 5) % kTcTH;   // tile row
+  const int nh = (threadIdx.x >> 5) / kTcTH;    // this warp's share of F8
+  const int g = lane >> 2;                // mma groupID
+  const int t = lane & 3;                 // thread in group
+  const int ty0 = blockIdx.y * kTcTH;
+  const int tx0 = blockIdx.x * kTcTW;
+  const int view = blockIdx.z;
+  const float* xv = x + (size_t)view * C_in * H * W;
+
+  auto stage = [&](int chunk, float* buf) {
+    const int c0 = chunk * kTcCC;
+    for (int i = threadIdx.x; i < kTcCC * kTcHaloH * kTcHaloW; i += THREADS) {
+      const int ci = i / (kTcHaloH * kTcHaloW);
+      const int rem = i - ci * (kTcHaloH * kTcHaloW);
+      const int hy = rem / kTcHaloW;
+      const int hx = rem - hy * kTcHaloW;
+      const int gy = ty0 + hy - 1;
+      const int gx = tx0 + hx - 1;
+      const bool ok = c0 + ci < C_in && gy >= 0 && gy < H && gx >= 0 &&
+                      gx < W;
+      cp_async4_zfill(buf + ci * kTcHaloPitch + hy * kTcHaloW + hx,
+                      ok ? xv + ((size_t)(c0 + ci) * H + gy) * W + gx : xv,
+                      ok ? 4 : 0);
+    }
+    // weight rows (part, tap, ci) of F8 floats, 16 B at a time
+    float* wb = buf + XSTAGE;
+    for (int i = threadIdx.x; i < 2 * 9 * kTcCC * (F8 / 4); i += THREADS) {
+      const int r = i / (F8 / 4);
+      const int q = i - r * (F8 / 4);
+      const int pt = r / kTcCC;           // part * 9 + tap
+      const int ci = r - pt * kTcCC;
+      cp_async16(wb + r * FP + q * 4,
+                 packed + ((size_t)pt * C8 + c0 + ci) * F8 + q * 4);
+    }
+  };
+
+  float acc[2][NW][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int n = 0; n < NW; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+
+  const int chunks = C8 / kTcCC;
+  stage(0, smem);
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int ch = 0; ch < chunks; ++ch) {
+    if (ch + 1 < chunks) stage(ch + 1, smem + ((ch + 1) & 1) * STAGE);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncthreads();                      // stage ch has landed
+    const float* xs = smem + (ch & 1) * STAGE;
+    const float* ws = xs + XSTAGE;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ky = tap / 3;
+      const int kx = tap - 3 * ky;
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* a = xs + t * kTcHaloPitch + (row + ky) * kTcHaloW +
+                         mt * 16 + g + kx;
+        split_tf32(a[0], ah[mt][0], al[mt][0]);
+        split_tf32(a[8], ah[mt][1], al[mt][1]);
+        split_tf32(a[4 * kTcHaloPitch], ah[mt][2], al[mt][2]);
+        split_tf32(a[4 * kTcHaloPitch + 8], ah[mt][3], al[mt][3]);
+      }
+      const float* whi = ws + (tap * kTcCC + t) * FP + nh * NW * 8 + g;
+      const float* wlo = whi + 9 * kTcCC * FP;
+#pragma unroll
+      for (int n = 0; n < NW; ++n) {
+        const uint32_t bh0 = __float_as_uint(whi[n * 8]);
+        const uint32_t bh1 = __float_as_uint(whi[4 * FP + n * 8]);
+        const uint32_t bl0 = __float_as_uint(wlo[n * 8]);
+        const uint32_t bl1 = __float_as_uint(wlo[4 * FP + n * 8]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(part, al[mt], bh0, bh1);
+          mma_tf32(part, ah[mt], bl0, bl1);
+          mma_tf32(part, ah[mt], bh0, bh1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][n][e] += part[e];
+        }
+      }
+    }
+    __syncthreads();                      // stage ch may be overwritten
+  }
+
+  // c0, c1: pixel g, channels 2t, 2t + 1; c2, c3: pixel g + 8. Bias and
+  // ReLU, and each pixel's sum of squares over this warp's channels (the
+  // four lanes of a quad; across the NS warps of a row in shared memory).
+  float ss[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NW; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int f = (nh * NW + n) * 8 + 2 * t + e;
+          float v = acc[mt][n][2 * half + e] + (f < F ? bias[f] : 0.f);
+          if (relu) v = fmaxf(v, 0.f);
+          acc[mt][n][2 * half + e] = v;
+          sum = fmaf(v, v, sum);
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      ss[mt][half] = sum;
+    }
+  }
+  if (normalize && NS > 1) {
+    float* red = smem;                    // [NS][kTcTH][kTcTW], stages done
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        if (t == 0)
+          red[(nh * kTcTH + row) * kTcTW + mt * 16 + g + 8 * half] =
+              ss[mt][half];
+    __syncthreads();
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float sum = 0.f;
+        for (int h = 0; h < NS; ++h)
+          sum += red[(h * kTcTH + row) * kTcTW + mt * 16 + g + 8 * half];
+        ss[mt][half] = sum;
+      }
+  }
+  const int gy = ty0 + row;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float norm = normalize ? sqrtf(ss[mt][half] + 1e-12f) : 1.f;
+      const int gx = tx0 + mt * 16 + g + 8 * half;
+      if (gy >= H || gx >= W) continue;
+#pragma unroll
+      for (int n = 0; n < NW; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int f = (nh * NW + n) * 8 + 2 * t + e;
+          if (f < F) {
+            const float v = acc[mt][n][2 * half + e];
+            y[(((size_t)view * F + f) * H + gy) * W + gx] =
+                normalize ? v / norm : v;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int NT, int NS>
+int launch_tf32x3(const float* x, const float* packed, const float* bias,
+                  float* y, int V, int C_in, int F, int H, int W, int relu,
+                  int normalize, cudaStream_t stream) {
+  constexpr int FP = 8 * NT + 8;
+  const size_t smem =
+      2 * (size_t)(kTcCC * kTcHaloPitch + 2 * 9 * kTcCC * FP) * sizeof(float);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv3x3_tf32x3_kernel<NT, NS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const int C8 = (C_in + kTcCC - 1) / kTcCC * kTcCC;
+  dim3 grid((W + kTcTW - 1) / kTcTW, (H + kTcTH - 1) / kTcTH, V);
+  conv3x3_tf32x3_kernel<NT, NS><<<grid, kTcThreads * NS, smem, stream>>>(
+      x, packed, bias, y, C_in, C8, F, H, W, relu, normalize);
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------------------------------------- K9 ----
 
 constexpr int kVolTX = 128;                  // columns per block: 32 x 4
@@ -268,13 +536,30 @@ mccnn_volume_kernel(const float* __restrict__ fl,
 
 }  // namespace
 
-// x: (V, C_in, H, W); taps: (3, 3, C_in, F), the flax kernel layout;
-// bias: (F,); y: (V, F, H, W). F <= 128.
+// x: (V, C_in, H, W); taps: (3, 3, C_in, F), the flax kernel layout, read
+// when C_in = 1; packed: (2, 3, 3, C8, F8), the TF32 hi and lo parts of the
+// taps with C_in padded to C8 (a multiple of 8) and F to F8 (32, 64, 112 or
+// 128) by zeros, read when C_in > 1; bias: (F,); y: (V, F, H, W). F <= 128.
 extern "C" int smt_mccnn_conv3x3(const float* x, const float* taps,
-                                 const float* bias, float* y, int V,
-                                 int C_in, int F, int H, int W, int relu,
-                                 int normalize, void* stream) {
+                                 const float* packed, const float* bias,
+                                 float* y, int V, int C_in, int F, int H,
+                                 int W, int relu, int normalize,
+                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (F < 1 || F > 128 || C_in < 1) return (int)cudaErrorInvalidValue;
+  if (C_in > 1) {
+    if (F <= 32)
+      return launch_tf32x3<4, 1>(x, packed, bias, y, V, C_in, F, H, W, relu,
+                              normalize, st);
+    if (F <= 64)
+      return launch_tf32x3<8, 1>(x, packed, bias, y, V, C_in, F, H, W, relu,
+                              normalize, st);
+    if (F <= 112)
+      return launch_tf32x3<14, 2>(x, packed, bias, y, V, C_in, F, H, W, relu,
+                               normalize, st);
+    return launch_tf32x3<16, 2>(x, packed, bias, y, V, C_in, F, H, W, relu,
+                             normalize, st);
+  }
   if (F <= 32)
     return launch_conv3x3<8>(x, taps, bias, y, V, C_in, F, H, W, relu,
                              normalize, st);
@@ -284,10 +569,8 @@ extern "C" int smt_mccnn_conv3x3(const float* x, const float* taps,
   if (F <= 112)
     return launch_conv3x3<28>(x, taps, bias, y, V, C_in, F, H, W, relu,
                               normalize, st);
-  if (F <= 128)
-    return launch_conv3x3<32>(x, taps, bias, y, V, C_in, F, H, W, relu,
-                              normalize, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_conv3x3<32>(x, taps, bias, y, V, C_in, F, H, W, relu,
+                            normalize, st);
 }
 
 // fl, fr: (F, H, W) features of the two views; out: (D, H, W).

@@ -15,6 +15,7 @@ import torch
 
 from stereo_match_tpu_torch.ops.cuda_kernels import aggregate_paths, wta_lr
 from stereo_match_tpu_torch.ops.wls import wls_filter_disparity
+from stereo_match_tpu_torch.utils.backend import entry_device
 
 
 def read_cost_bin(path: str, disp_max: int, width: int, height: int,
@@ -39,7 +40,7 @@ def external_volume_to_disparity(volume: np.ndarray, p1: float = 8.0,
                                  p2: float = 96.0, num_paths: int = 8,
                                  guide=None, lmbda: float = 8000.0,
                                  sigma: float = 1.2,
-                                 device: torch.device | str = "cpu"
+                                 device: torch.device | str = "cuda"
                                  ) -> np.ndarray:
     """Aggregate + extract + (optionally) WLS-refine an external volume.
 
@@ -49,6 +50,7 @@ def external_volume_to_disparity(volume: np.ndarray, p1: float = 8.0,
     disp12 check at 1, then the WLS smoother guided by ``guide``. Runs on
     ``device``; returns a numpy (H, W) float32 map, NaN invalid.
     """
+    device = entry_device(device)
     vol = torch.as_tensor(np.array(volume, np.float32, order="C"),
                           device=device)
     total = aggregate_paths(vol, p1, p2, num_paths)

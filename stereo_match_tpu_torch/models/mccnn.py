@@ -26,6 +26,7 @@ from torch import nn
 
 from stereo_match_tpu_torch.ops.cuda_kernels import (conv_taps,
                                                      mccnn_conv3x3,
+                                                     mccnn_pack_weights,
                                                      mccnn_volume)
 
 ARCHS = {"fast": (64, 4), "accurate": (112, 5)}   # arch -> (F, layers)
@@ -42,10 +43,12 @@ class MCCNNFeatures(nn.Module):
     """Siamese feature tower: ``num_layers`` 3x3 convs, L2-normalized.
 
     Weights ``weights[i]`` (F, C_in, 3, 3) and biases ``biases[i]`` (F,)
-    are float32 parameters without gradients (inference only). ``taps[i]``
-    is their (3, 3, C_in, F) copy in K8's layout, made when the weights are
-    set (construction, ``load_state_dict``) and moved with the module; after
-    changing a weight in place, call :meth:`relayout`.
+    are float32 parameters without gradients (inference only). ``taps{i}``
+    is their (3, 3, C_in, F) copy in the layout of K8's FP32 body (the first
+    layer) and ``packed{i}`` their TF32 hi/lo parts in the layout of its
+    3xTF32 tensor-core body (``mccnn_pack_weights``), made when the weights
+    are set (construction, ``load_state_dict``) and moved with the module;
+    after changing a weight in place, call :meth:`relayout`.
     """
 
     def __init__(self, features: int = 64, num_layers: int = 4,
@@ -65,14 +68,17 @@ class MCCNNFeatures(nn.Module):
             for _ in range(num_layers))
         for i in range(num_layers):
             self.register_buffer(f"taps{i}", torch.empty(0), persistent=False)
+            self.register_buffer(f"packed{i}", torch.empty(0),
+                                 persistent=False)
         self.relayout()
         self.register_load_state_dict_post_hook(
             lambda module, _: module.relayout())
 
     def relayout(self) -> None:
-        """Rebuild K8's (3, 3, C_in, F) copies of the weights."""
+        """Rebuild K8's two copies of the weights (taps and TF32 parts)."""
         for i, w in enumerate(self.weights):
             setattr(self, f"taps{i}", conv_taps(w.detach()))
+            setattr(self, f"packed{i}", mccnn_pack_weights(w.detach()))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(V, H, W) normalized images -> (V, F, H, W) unit features."""
@@ -81,7 +87,8 @@ class MCCNNFeatures(nn.Module):
             last = i == self.num_layers - 1
             h = mccnn_conv3x3(h, self.weights[i], self.biases[i],
                               relu=not last, normalize=last,
-                              taps=getattr(self, f"taps{i}"))
+                              taps=getattr(self, f"taps{i}"),
+                              packed=getattr(self, f"packed{i}"))
         return h
 
 
@@ -113,8 +120,8 @@ def mccnn_cost_volume(model: MCCNNFeatures, left: torch.Tensor,
     if use_bf16:
         raise NotImplementedError(
             "use_bf16=True is not ported: the port's tower is float32 "
-            "(ROADMAP.md, queue 2: perf_opt items for the ported MC-CNN "
-            "kernels, tensor-core K8 and use_bf16)")
+            "(3xTF32 on the tensor cores; ROADMAP.md, queue 2: perf_opt "
+            "items for the ported MC-CNN kernels, use_bf16)")
     if min_disparity < 0:
         raise NotImplementedError(
             "min_disparity < 0 is not ported (ROADMAP.md, queue 1 item 9: "

@@ -27,7 +27,10 @@ K6     ``speckle_count_keep``  csrc/speckle.cu      (the sizes and threshold
 K7     ``fgs_solve``           csrc/wls.cu          (fgs_solve_pallas)
 K8     ``mccnn_conv3x3``       csrc/mccnn.cu        (mccnn_tower_pallas, the
                                                      tower of
-                                                     mccnn_fused_volume_pallas)
+                                                     mccnn_fused_volume_pallas;
+                                                     3xTF32 tensor cores for
+                                                     C_in > 1, FP32 for
+                                                     C_in = 1)
 K9     ``mccnn_volume``        csrc/mccnn.cu        (mccnn_volume_pallas,
                                                      mccnn_volume_mxu_pallas,
                                                      mccnn_volume_flat_pallas,
@@ -180,7 +183,7 @@ def _library() -> ctypes.CDLL:
             "smt_speckle_sweep": [p, p, i, i, i, p, p],
             "smt_speckle_count_keep": [p, p, p, p, i, i, i, i, p],
             "smt_fgs_solve": [p, p, p, p, p, i, i, i, f, p],
-            "smt_mccnn_conv3x3": [p, p, p, p, i, i, i, i, i, i, i, p],
+            "smt_mccnn_conv3x3": [p, p, p, p, p, i, i, i, i, i, i, i, p],
             "smt_mccnn_volume": [p, p, p, i, i, i, i, i, f, p],
         }
         for name, argtypes in signatures.items():
@@ -323,8 +326,8 @@ def _check_scan(cost: torch.Tensor, total: torch.Tensor, dy: int, dx: int,
     if dy not in (-1, 0, 1) or dx not in (-1, 0, 1) or dy == dx == 0:
         raise ValueError(f"bad path direction {(dy, dx)}")
     if cost.shape[0] > 1024:
-        raise ValueError("sgm_path_scan runs one thread per disparity: "
-                         "at most 1024")
+        raise ValueError("sgm_path_scan holds a line's disparities in one "
+                         "warp's registers: at most 1024")
     if (init_carry is not None or return_carry) and dy == 0:
         raise ValueError("horizontal directions take no carry")
     if init_carry is not None:
@@ -756,12 +759,52 @@ def _fp32_cudnn():
 
 
 def conv_taps(weight: torch.Tensor) -> torch.Tensor:
-    """(F, C_in, 3, 3) OIHW weights -> the (3, 3, C_in, F) layout K8 reads.
+    """(F, C_in, 3, 3) OIHW weights -> the (3, 3, C_in, F) layout K8 reads
+    for C_in = 1.
 
     The flax kernel layout: taps, then input channels, then outputs, so a
     block's staging of a few input channels reads contiguous rows of F.
     """
     return weight.permute(2, 3, 1, 0).contiguous()
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero: what ``cvt.rna.tf32.f32`` gives, as a float32 whose low 13 bits
+    are zero."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 x -> (hi, lo), both TF32: hi = tf32(x), lo = tf32(x - hi).
+
+    hi + lo equals x within 2^-22 of |x|; K8 forms a product as
+    lo*hi + hi*lo + hi*hi (3xTF32).
+    """
+    hi = tf32_round(x)
+    return hi, tf32_round(x.to(torch.float32) - hi)
+
+
+def _mccnn_padded(C_in: int, F: int) -> tuple[int, int]:
+    """(C8, F8): C_in to a multiple of 8 (the k8 steps), F to the next of
+    32, 64, 112, 128 (K8's n8 tile counts)."""
+    return -(-C_in // 8) * 8, next(n for n in (32, 64, 112, 128) if n >= F)
+
+
+def mccnn_pack_weights(weight: torch.Tensor) -> torch.Tensor:
+    """(F, C_in, 3, 3) OIHW -> the (2, 3, 3, C8, F8) float32 layout K8's
+    tensor-core body reads: ``tf32_split`` of the (3, 3, C_in, F) taps, hi
+    then lo, zero-padded to C8 input and F8 output channels
+    (``_mccnn_padded``)."""
+    F, C_in = weight.shape[:2]
+    C8, F8 = _mccnn_padded(C_in, F)
+    hi, lo = tf32_split(conv_taps(weight))
+    packed = torch.zeros((2, 3, 3, C8, F8), dtype=torch.float32,
+                         device=weight.device)
+    packed[0, :, :, :C_in, :F] = hi
+    packed[1, :, :, :C_in, :F] = lo
+    return packed
 
 
 def mccnn_conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -785,13 +828,17 @@ def mccnn_conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
 
 def mccnn_conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   relu: bool, normalize: bool,
-                  taps: torch.Tensor | None = None) -> torch.Tensor:
+                  taps: torch.Tensor | None = None,
+                  packed: torch.Tensor | None = None) -> torch.Tensor:
     """One MC-CNN tower layer: (V, C_in, H, W) -> (V, F, H, W) (K8).
 
-    ``weight`` (F, C_in, 3, 3) and ``bias`` (F,) float32, F <= 128.
-    ``taps`` is ``conv_taps(weight)``, the kernel's layout; a caller that
-    runs every frame (``models/mccnn.py::MCCNNFeatures``) passes the copy
-    it made once, otherwise it is made here.
+    ``weight`` (F, C_in, 3, 3) and ``bias`` (F,) float32, F <= 128. The
+    kernel reads one of two weight layouts: ``taps`` (``conv_taps(weight)``)
+    in the FP32 body that runs C_in = 1, ``packed``
+    (``mccnn_pack_weights(weight)``, the TF32 hi/lo parts) in the 3xTF32
+    tensor-core body that runs C_in > 1. A caller that runs every frame
+    (``models/mccnn.py::MCCNNFeatures``) passes the copies it made once;
+    otherwise the one the body reads is made here.
     """
     _check(x, "x", torch.float32, 4)
     _check(weight, "weight", torch.float32, 4)
@@ -805,17 +852,22 @@ def mccnn_conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if F > MCCNN_MAX_FEATURES:
         raise ValueError(f"{F} features: K8 holds at most "
                          f"{MCCNN_MAX_FEATURES} per pixel")
-    if taps is None:
-        taps = conv_taps(weight)
-    _check(taps, "taps", torch.float32, 4)
-    if taps.shape != (3, 3, C_in, F):
-        raise ValueError(f"taps {tuple(taps.shape)}: expected "
-                         f"{(3, 3, C_in, F)}")
-    if _on_cpu(x, weight, bias, taps):
+    if C_in == 1:
+        name, layout = "taps", conv_taps(weight) if taps is None else taps
+        want = (3, 3, C_in, F)
+    else:
+        name = "packed"
+        layout = mccnn_pack_weights(weight) if packed is None else packed
+        want = (2, 3, 3, *_mccnn_padded(C_in, F))
+    _check(layout, name, torch.float32, len(want))
+    if tuple(layout.shape) != want:
+        raise ValueError(f"{name} {tuple(layout.shape)}: expected {want}")
+    if _on_cpu(x, weight, bias, layout):
         return mccnn_conv3x3_plain(x, weight, bias, relu, normalize)
+    taps, packed = (layout, None) if C_in == 1 else (None, layout)
     y = torch.empty((V, F, H, W), dtype=torch.float32, device=x.device)
-    _launch("mccnn_conv3x3", x.device, _ptr(x), _ptr(taps), _ptr(bias),
-            _ptr(y), V, C_in, F, H, W, int(relu), int(normalize))
+    _launch("mccnn_conv3x3", x.device, _ptr(x), _ptr(taps), _ptr(packed),
+            _ptr(bias), _ptr(y), V, C_in, F, H, W, int(relu), int(normalize))
     return y
 
 

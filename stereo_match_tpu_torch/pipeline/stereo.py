@@ -15,7 +15,9 @@ the total (K3, ``num_paths`` launches), WTA with subpixel, uniqueness and
 the disp12 check (K4); then, when configured, the speckle filter's label
 sweeps (K5) and component sizes (K6), and the WLS smoother's tridiagonal
 solves (K7, two per WLS iteration). CPU tensors run the kernels' plain
-versions; CUDA tensors run the kernels.
+versions; CUDA tensors run the kernels. The entry points run on the card
+(``device="cuda"``) unless the caller passes ``device="cpu"``; without a
+card they raise.
 
 The slice covers census costs with a single-word window (at most 33
 pixels) or a ``cost_fn`` volume, 2, 4 or 8 paths, any
@@ -48,6 +50,7 @@ from stereo_match_tpu_torch.ops.speckle import speckle_filter
 from stereo_match_tpu_torch.ops.wls import (wls_confidence_cv2,
                                             wls_filter_disparity)
 from stereo_match_tpu_torch.ops.wta import to_fixed_point
+from stereo_match_tpu_torch.utils.backend import entry_device
 
 
 @dataclass
@@ -156,11 +159,11 @@ class StereoMatcher:
     """
 
     def __init__(self, config: DisparityConfig | None = None, cost_fn=None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.config = config or DisparityConfig()
         check_slice(self.config, cost_fn)
         self.cost_fn = cost_fn
-        self.device = torch.device(device)
+        self.device = entry_device(device)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float32, device=self.device)
@@ -186,7 +189,7 @@ _MATCHER_CACHE: OrderedDict[tuple[str, str, str], Any] = OrderedDict()
 
 def compute_disparity(gray_l, gray_r, config: DisparityConfig | None = None,
                       method: str = "SGBM",
-                      device: torch.device | str = "cpu"):
+                      device: torch.device | str = "cuda"):
     """Reference-parity surface: (displ16, filtered16) int16 disparity*16.
 
     ``method``: "SGBM" (census + SGM); "BM" (StereoBM) is not ported yet.
@@ -198,7 +201,7 @@ def compute_disparity(gray_l, gray_r, config: DisparityConfig | None = None,
         raise NotImplementedError("method='BM' (StereoBM) is not ported yet "
                                   "(ROADMAP.md, queue 1: other costs and "
                                   "matchers)")
-    key = (repr(cfg), method, str(torch.device(device)))
+    key = (repr(cfg), method, str(entry_device(device)))
     matcher = _MATCHER_CACHE.get(key)
     if matcher is None:
         matcher = StereoMatcher(cfg, device=device)
@@ -220,7 +223,7 @@ def run_pipeline(pose_l, pose_r, K_l, K_r, image_l, image_r,
                  q_override: np.ndarray | None = None,
                  disparity_band: tuple[float, float] | None = None,
                  matcher=None,
-                 device: torch.device | str = "cpu") -> StereoResult:
+                 device: torch.device | str = "cuda") -> StereoResult:
     """Full flagship flow on one pair (``disparity_calculation.py`` parity).
 
     Rectify from camera-to-world poses, match, refine, reproject the
@@ -232,6 +235,7 @@ def run_pipeline(pose_l, pose_r, K_l, K_r, image_l, image_r,
     the result holds numpy arrays.
     """
     cfg = config or DisparityConfig()
+    device = entry_device(device)
     rect_l, rect_r, rectification = rectify_pair(
         pose_l, pose_r, K_l, K_r, np.asarray(image_l), np.asarray(image_r),
         alpha=alpha, device=device)

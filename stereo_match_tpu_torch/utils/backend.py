@@ -10,6 +10,24 @@ from __future__ import annotations
 import torch
 
 
+def entry_device(device: torch.device | str | int = "cuda") -> torch.device:
+    """The device of an entry point: the card unless the caller asks for
+    the CPU.
+
+    Entry points (``StereoMatcher``, ``compute_disparity``,
+    ``run_pipeline``, ``rectify_pair``, ``rectification_maps``,
+    ``external_volume_to_disparity``) default to ``"cuda"``; without a
+    CUDA device that raises ``RuntimeError`` instead of running on the CPU.
+    """
+    dev = torch.device("cuda", device) if isinstance(device, int) \
+        else torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card by "
+                           "default; pass device='cpu' to run the plain "
+                           "versions on the CPU")
+    return dev
+
+
 def require_hopper(device: torch.device | str | int = 0) -> torch.device:
     """Return ``device`` as a CUDA device, raising unless it is a Hopper card.
 

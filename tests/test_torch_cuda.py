@@ -11,16 +11,16 @@ float operations in the same order, so even non-integer costs agree); K4
 must give the same NaN mask and values within 1e-6. K5 and K6 are integer
 label arithmetic and a copy, so the speckle filter must be bit-equal; K7
 rounds every operation as the plain solve does, so it must be bit-equal
-too. K8 (a tower layer) and K9 (the MC-CNN volume) sum in another order
-than cuDNN and the plain channel sum: K8 within 1e-5 of the plain layer
-(cuDNN in full float32), K9 within 1e-4 with the 1e4 mask exactly equal;
-the MC-CNN matcher must agree with its plain path on at least 99.5 % of
-the pixels, since a rounding difference can flip a WTA decision. The int16
-volumes (K2, K3, K4), the transposed K2, K3's carries, K4's wta_stats,
-right_wta and lr_mask entries and K10 (census-fused scan) are integer or
-K3-ordered float arithmetic and must be bit-equal; so must the row-sharded
-exact total and the 4-stage stream on one card against the single-card
-path.
+too. K8 (a tower layer; 3xTF32 on the tensor cores for C_in > 1) and K9
+(the MC-CNN volume) sum in another order than cuDNN and the plain channel
+sum: K8 within 1e-5 of the plain layer (cuDNN in full float32), K9 within
+1e-4 with the 1e4 mask exactly equal; the MC-CNN matcher must agree with
+its plain path on at least 99.5 % of the pixels, since a rounding
+difference can flip a WTA decision. The int16 volumes (K2, K3, K4), the
+transposed K2, K3's carries, K4's wta_stats, right_wta and lr_mask entries
+and K10 (census-fused scan) are integer or K3-ordered float arithmetic and
+must be bit-equal; so must the row-sharded exact total and the 4-stage
+stream on one card against the single-card path.
 """
 
 import numpy as np
@@ -106,6 +106,72 @@ def test_sgm_path_scan_kernel(dev, direction, D):
                                      40.0, accumulate)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+def _scan_inputs(D, H, W, dtype, dev, seed):
+    """Costs and a starting total: non-integer float32 costs, or int16
+    census-range costs (the int16 sums stay far below 2^15)."""
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int16:
+        cost = rng.integers(0, 61, (D, H, W)).astype(np.int16)
+        start = rng.integers(0, 999, (D, H, W)).astype(np.int16)
+    else:
+        cost = rng.uniform(0, 24, (D, H, W)).astype(np.float32)
+        start = rng.uniform(0, 99, (D, H, W)).astype(np.float32)
+    return torch.from_numpy(cost).to(dev), torch.from_numpy(start).to(dev)
+
+
+@pytest.mark.parametrize("H,W", [(37, 150), (83, 29)])
+@pytest.mark.parametrize("D", [16, 48, 128, 160])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("direction", PATH_DIRECTIONS_8)
+def test_sgm_path_scan_warp_lines(dev, direction, dtype, D, H, W):
+    """The warp-per-line K3: D not a multiple of 32 (16, 48, 160: idle
+    lanes hold big), W not a multiple of 8 or 32, W > H and H > W (the
+    diagonal strips enter from the side and leave on the other)."""
+    cost, start = _scan_inputs(D, H, W, dtype, dev, seed=D + H)
+    for accumulate in (False, True):
+        got = K.sgm_path_scan(cost, start.clone(), *direction, 8 / 3, 40.0,
+                              accumulate)
+        want = K.sgm_path_scan_plain(cost, start.clone(), *direction, 8 / 3,
+                                     40.0, accumulate)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("D", [300, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("direction", [(0, 1), (1, 0), (-1, 1)])
+def test_sgm_path_scan_deep_disparities(dev, direction, dtype, D):
+    """Up to 1024 disparities: 10 or 32 registers a lane, the shallowest
+    ring of staged steps."""
+    cost, start = _scan_inputs(D, 21, 45, dtype, dev, seed=D)
+    got = K.sgm_path_scan(cost, start.clone(), *direction, 5.0, 40.0, True)
+    want = K.sgm_path_scan_plain(cost, start.clone(), *direction, 5.0, 40.0,
+                                 True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("direction", PATH_DIRECTIONS_8)
+def test_sgm_path_scan_int16_views_off_a_word(dev, direction):
+    """int16 cost and total views starting 2 bytes past a 4-byte boundary:
+    K3 stages whole words, so it shifts its segments by the element."""
+    D, H, W = 32, 19, 47
+    cost, start = _scan_inputs(D, H, W, torch.int16, dev, seed=5)
+    n = D * H * W
+    cbuf = torch.zeros(n + 1, dtype=torch.int16, device=dev)
+    tbuf = torch.zeros(n + 3, dtype=torch.int16, device=dev)
+    cv = cbuf[1:].view(D, H, W)
+    tv = tbuf[1:n + 1].view(D, H, W)
+    cv.copy_(cost)
+    tv.copy_(start)
+    got = K.sgm_path_scan(cv, tv, *direction, 8.0, 32.0, True)
+    want = K.sgm_path_scan_plain(cost, start.clone(), *direction, 8.0, 32.0,
+                                 True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(tbuf[0]) == 0 and not tbuf[n + 1:].any()   # nothing around
 
 
 def test_sgm_path_scan_kitti_totals(dev):
@@ -299,9 +365,10 @@ def test_post_stack_on_card_matches_cpu(dev, kw):
 @pytest.mark.parametrize("relu,normalize", [(True, False), (False, True),
                                             (False, False)])
 @pytest.mark.parametrize("first", [True, False])
-@pytest.mark.parametrize("F", [64, 112])
+@pytest.mark.parametrize("F", [32, 64, 112, 128])
 def test_mccnn_conv3x3_kernel(dev, F, first, relu, normalize, H, W):
-    """C_in = 1 (the first layer) and C_in = F, unit-scale activations."""
+    """C_in = 1 (the first layer, FP32 body) and C_in = F (3xTF32 tensor
+    cores), unit-scale activations; the norm of the last layer."""
     rng = np.random.default_rng(F + H)
     C_in = 1 if first else F
     x = rng.normal(size=(2, C_in, H, W)).astype(np.float32)
@@ -401,13 +468,14 @@ def test_sgm_path_scan_int16(dev, direction):
         assert got.dtype == torch.int16 and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("D", [20, 48, 160])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
 @pytest.mark.parametrize("direction", [d for d in PATH_DIRECTIONS_8 if d[0]])
-def test_sgm_path_scan_carry_chain(dev, direction, dtype):
+def test_sgm_path_scan_carry_chain(dev, direction, dtype, D):
     """Shards of 16/16/5 rows chained through the carries equal the whole
     frame, on the card and in the plain version."""
     rng = np.random.default_rng(10)
-    cost = torch.from_numpy(rng.uniform(0, 24, (20, 37, 150)).astype(
+    cost = torch.from_numpy(rng.uniform(0, 24, (D, 37, 150)).astype(
         np.float32)).to(dev)
     if dtype == torch.int16:
         cost = cost.to(torch.int16)

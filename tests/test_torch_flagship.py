@@ -96,7 +96,8 @@ def test_rectification_maps_match_jax(distorted):
     dist = np.array([-0.12, 0.03, 0.001, -0.002, 0.0]) if distorted else None
     res = trectify.stereo_rectify(K, K, (160, 120), R, t, dist, dist, 0.0)
     for Rk, Pk in ((res.R1, res.P1), (res.R2, res.P2)):
-        got = trectify.rectification_maps(K, Rk, Pk, (160, 120), dist)
+        got = trectify.rectification_maps(K, Rk, Pk, (160, 120), dist,
+                                           device="cpu")
         want = jrectify.rectification_maps(K, Rk, Pk, (160, 120), dist)
         for g, w in zip(got, want):
             assert g.dtype == torch.float32 and g.shape == (120, 160)
@@ -197,7 +198,8 @@ def test_run_pipeline_matches_jax(tmp_path):
                                 ply_path=str(tmp_path / "jax.ply"))
     got = tstereo.run_pipeline(pose_l, pose_r, K, K, rgb_l, rgb_r,
                                config=cfg,
-                               ply_path=str(tmp_path / "port.ply"))
+                               ply_path=str(tmp_path / "port.ply"),
+                               device="cpu")
     assert isinstance(got.disparity, np.ndarray)
     np.testing.assert_array_equal(got.rectification.Q, want.rectification.Q)
     np.testing.assert_array_equal(got.rect_left, np.asarray(want.rect_left))
@@ -221,7 +223,7 @@ def test_run_pipeline_q_override_band_and_matcher(tmp_path):
                   [0, 0, 0, 120.0], [0, 0, 1 / 22.0, 0]])
     cfg = DisparityConfig(num_disparities=32, wls_iters=1)
     res = tstereo.run_pipeline(pose_l, pose_r, K, K, left, right,
-                               config=cfg, q_override=Q,
+                               config=cfg, q_override=Q, device="cpu",
                                ply_path=str(tmp_path / "band.ply"),
                                disparity_band=(10.0, 20.0))
     band = (res.disparity_filtered > 10) & (res.disparity_filtered < 20)
@@ -233,10 +235,11 @@ def test_run_pipeline_q_override_band_and_matcher(tmp_path):
 
     def matcher(l, r):
         calls.append(l.shape)
-        return tstereo.StereoMatcher(cfg)(l, r)
+        return tstereo.StereoMatcher(cfg, device="cpu")(l, r)
 
     res2 = tstereo.run_pipeline(pose_l, pose_r, K, K, left, right,
-                                matcher=matcher, reproject=False)
+                                matcher=matcher, reproject=False,
+                                device="cpu")
     assert calls == [(32, 96)] and res2.points is None
     np.testing.assert_array_equal(res2.disparity, res.disparity)
 
@@ -247,4 +250,5 @@ def test_rectify_pair_rejects_forward_motion():
     pose_r[:3, 3] = [0.0, 0.0, 0.5]
     img = np.zeros((48, 64), np.float32)
     with pytest.raises(ValueError, match="epipole"):
-        trectify.rectify_pair(np.eye(4), pose_r, K, K, img, img)
+        trectify.rectify_pair(np.eye(4), pose_r, K, K, img, img,
+                              device="cpu")

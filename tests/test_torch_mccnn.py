@@ -153,10 +153,17 @@ def test_port_mccnn_imports_no_jax():
         "cfg = DisparityConfig(num_disparities=16, cost='mccnn', wls=False)\n"
         "rng = np.random.default_rng(0)\n"
         "l, r = rng.uniform(0, 255, (2, 10, 40)).astype(np.float32)\n"
-        "raw, _ = StereoMatcher(cfg, cost_fn=MCCNNCost(model, cfg))(l, r)\n"
+        "raw, _ = StereoMatcher(cfg, cost_fn=MCCNNCost(model, cfg), "
+        "device='cpu')(l, r)\n"
         "assert raw.shape == (10, 40)\n"
-        "for name in ('jax', 'flax', 'optax', 'stereo_match_tpu.models'):\n"
+        "got = external_volume_to_disparity(rng.uniform(0, 24, (16, 10, 40)), "
+        "device='cpu')\n"
+        "assert got.shape == (10, 40)\n"
+        "for name in ('jax', 'flax', 'optax'):\n"
         "    assert name not in sys.modules, name\n"
+        "ref = [m for m in sys.modules if m == 'stereo_match_tpu' or "
+        "m.startswith('stereo_match_tpu.')]\n"
+        "assert not ref, ref\n"
         "print('ok')\n")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -284,11 +291,12 @@ def test_slice_matches_jax(shipped):
     jit_volume = jax.jit(lambda l, r: provider(l, r))
     jvol = np.array(jit_volume(jnp.asarray(left), jnp.asarray(right)))
     on_jax_volume, _ = tstereo.StereoMatcher(
-        cfg, cost_fn=lambda l, r: torch.from_numpy(jvol))(left, right)
+        cfg, cost_fn=lambda l, r: torch.from_numpy(jvol),
+        device="cpu")(left, right)
     _assert_same_disparity(on_jax_volume, want)
 
     own, _ = tstereo.StereoMatcher(
-        cfg, cost_fn=tcosts.MCCNNCost(model, cfg))(left, right)
+        cfg, cost_fn=tcosts.MCCNNCost(model, cfg), device="cpu")(left, right)
     share = _agreement(own.numpy(), want)
     print(f"port's own MC-CNN volume: {share} of the pixels agree with JAX "
           "(same NaN state, |diff| <= 0.01)")
@@ -302,9 +310,10 @@ def test_shipped_checkpoint_beats_census(shipped, arch):
     model = shipped[arch][2]
     cfg_c = DisparityConfig(num_disparities=32, cost="census", **HEADLINE)
     cfg_m = cfg_c.replace(cost="mccnn")
-    m_census = tstereo.StereoMatcher(cfg_c)
+    m_census = tstereo.StereoMatcher(cfg_c, device="cpu")
     m_mccnn = tstereo.StereoMatcher(cfg_m,
-                                    cost_fn=tcosts.MCCNNCost(model, cfg_m))
+                                    cost_fn=tcosts.MCCNNCost(model, cfg_m),
+                                    device="cpu")
     gt = tsynthetic.rough_scene(96, 160, 999, 2, 24)
     results = {}
     for noise in (0.0, 25.0):
@@ -329,9 +338,9 @@ def test_make_cost_provider(shipped):
     assert isinstance(mc, tcosts.MCCNNCost) and mc.scale == 24.0
     left, right = (torch.from_numpy(im) for im in _images(10, 40, seed=8))
     census, _ = tstereo.StereoMatcher(
-        cfg, cost_fn=tcosts.ClassicCost(cfg))(left, right)
-    _assert_same_disparity(census, tstereo.StereoMatcher(cfg)(left, right)[0],
-                           atol=0)
+        cfg, cost_fn=tcosts.ClassicCost(cfg), device="cpu")(left, right)
+    plain, _ = tstereo.StereoMatcher(cfg, device="cpu")(left, right)
+    _assert_same_disparity(census, plain, atol=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcosts.ClassicCost(cfg.replace(cost="sad"))(left, right)
 
@@ -345,7 +354,7 @@ def test_mccnn_path_raises_outside_the_slice(shipped):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmccnn.mccnn_cost_volume(model, left, right, 16, min_disparity=-2)
     with pytest.raises(ValueError, match="unknown cost family: mccnn"):
-        tstereo.StereoMatcher(cfg)
+        tstereo.StereoMatcher(cfg, device="cpu")
     with pytest.raises(ValueError, match="unknown cost family: mccnn"):
         tstereo._match_core(left, right, cfg)
     with pytest.raises(ValueError):
@@ -358,7 +367,8 @@ def test_mccnn_path_raises_outside_the_slice(shipped):
                       ValueError),
                      (vol.numpy(), TypeError)):
         with pytest.raises(exc):
-            tstereo.StereoMatcher(cfg, cost_fn=lambda l, r: bad)(left, right)
+            tstereo.StereoMatcher(cfg, cost_fn=lambda l, r: bad,
+                                  device="cpu")(left, right)
 
 
 # --------------------------------------------------- external volumes ----
@@ -386,7 +396,8 @@ def test_external_volume_to_disparity_matches_jax(shipped, with_guide):
         jmodel, params, jnp.asarray(left), jnp.asarray(right), 32,
         use_bf16=False))
     guide = left if with_guide else None
-    got = tcostbin.external_volume_to_disparity(vol, guide=guide)
+    got = tcostbin.external_volume_to_disparity(vol, guide=guide,
+                                                device="cpu")
     want = jcostbin.external_volume_to_disparity(vol, guide=guide)
     assert isinstance(got, np.ndarray) and got.shape == (24, 96)
     if with_guide:

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from stereo_match_tpu.config import DisparityConfig
+from stereo_match_tpu.config import DisparityConfig as JaxDisparityConfig
 from stereo_match_tpu.data.synthetic import box_scene, random_dot_pair
 from stereo_match_tpu.ops.cost_volume import build_cost_volume
 from stereo_match_tpu.parallel.mesh import make_mesh as jax_make_mesh
@@ -29,6 +29,7 @@ from stereo_match_tpu.parallel.tiling import \
     sgm_aggregate_sharded as jax_sgm_aggregate_sharded
 from stereo_match_tpu.pipeline.stereo import StereoMatcher as JaxMatcher
 from stereo_match_tpu.pipeline.stereo import _match_core as jax_match_core
+from stereo_match_tpu_torch.config import DisparityConfig
 from stereo_match_tpu_torch.ops import cuda_kernels as K
 from stereo_match_tpu_torch.ops.cost_volume import \
     build_cost_volume as torch_build_cost_volume
@@ -58,11 +59,20 @@ def _frames(k, seed0=7):
     return out
 
 
+def _cfg_kw(**kw):
+    return {**dict(num_disparities=D, cost="census", uniqueness_ratio=15,
+                   disp12_max_diff=1, wls=False, speckle_window_size=0),
+            **kw}
+
+
 def _cfg(**kw):
-    base = dict(num_disparities=D, cost="census", uniqueness_ratio=15,
-                disp12_max_diff=1, wls=False, speckle_window_size=0)
-    base.update(kw)
-    return DisparityConfig(**base)
+    """The port's config."""
+    return DisparityConfig(**_cfg_kw(**kw))
+
+
+def _cfgs(**kw):
+    """(the port's config, the JAX package's), from the same kwargs."""
+    return _cfg(**kw), JaxDisparityConfig(**_cfg_kw(**kw))
 
 
 def _jax_core(frame, cfg):
@@ -164,14 +174,14 @@ def test_batched_matcher_matches_single_pair():
     pairs = [random_dot_pair(32, 64, gt, blur=0.8, seed=s) for s in range(4)]
     lefts = np.stack([p[0] for p in pairs])
     rights = np.stack([p[1] for p in pairs])
-    cfg = _cfg(uniqueness_ratio=0)
+    cfg, jcfg = _cfgs(uniqueness_ratio=0)
     fn = batched_matcher(cfg, make_mesh(2, 2, devices=_cpus(4)))
     raw, filtered = fn(lefts, rights)
     assert raw.shape == filtered.shape == (4, 32, 64)
     for i in (0, 2):
-        single, _ = StereoMatcher(cfg)(lefts[i], rights[i])
+        single, _ = StereoMatcher(cfg, device="cpu")(lefts[i], rights[i])
         np.testing.assert_array_equal(raw[i].numpy(), single.numpy())
-        want, _ = JaxMatcher(cfg)(lefts[i], rights[i])
+        want, _ = JaxMatcher(jcfg)(lefts[i], rights[i])
         np.testing.assert_array_equal(raw[i].numpy(), np.asarray(want))
     with pytest.raises(ValueError, match="divisible"):
         fn(lefts[:3], rights[:3])
@@ -182,14 +192,14 @@ def test_batched_matcher_matches_single_pair():
 @pytest.mark.parametrize("mode", ["volume", "census"])
 @pytest.mark.parametrize("n_stages", [2, 4])
 def test_stream_matches_jax_match_core(n_stages, mode):
-    cfg = _cfg()
+    cfg, jcfg = _cfgs()
     pipe = StreamingPipeline(cfg, make_stage_mesh(n_stages, _cpus(n_stages)),
                              image_shape=(H, W), payload_mode=mode)
     frames = _frames(n_stages + 2)
     results = pipe.run(frames)
     assert len(results) == len(frames)
     for frame, (raw, filt) in zip(frames, results):
-        ref_raw, ref_filt = _jax_core(frame, cfg)
+        ref_raw, ref_filt = _jax_core(frame, jcfg)
         np.testing.assert_array_equal(raw.numpy(), ref_raw)
         np.testing.assert_array_equal(filt.numpy(), ref_filt)
 
@@ -263,12 +273,12 @@ def test_census_wire_is_smaller():
 
 def test_stream_with_post_stack():
     """Speckle + WLS run in the last stage on that frame's left image."""
-    cfg = _cfg(wls=True, wls_iters=2, speckle_window_size=12,
-               speckle_range=2)
+    cfg, jcfg = _cfgs(wls=True, wls_iters=2, speckle_window_size=12,
+                      speckle_range=2)
     pipe = StreamingPipeline(cfg, make_stage_mesh(4, _cpus(4)), (H, W))
     frames = _frames(5, seed0=21)
     for frame, (raw, filt) in zip(frames, pipe.run(frames)):
-        ref_raw, ref_filt = _jax_core(frame, cfg)
+        ref_raw, ref_filt = _jax_core(frame, jcfg)
         np.testing.assert_allclose(raw.numpy(), ref_raw, atol=1e-5)
         np.testing.assert_allclose(filt.numpy(), ref_filt, atol=5e-3)
         assert not np.array_equal(raw.numpy(), filt.numpy())
@@ -303,6 +313,9 @@ def test_parallel_imports_no_jax():
         "(12, 40), payload_mode='census', payload_dtype='int16')\n"
         "assert len(pipe.run([(l, r)])) == 1\n"
         "assert 'jax' not in sys.modules, 'the port imported jax'\n"
+        "ref = [m for m in sys.modules if m == 'stereo_match_tpu' or "
+        "m.startswith('stereo_match_tpu.')]\n"
+        "assert not ref, ref\n"
         "print('ok')\n")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

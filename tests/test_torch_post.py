@@ -379,12 +379,12 @@ def test_default_config_matches_jax():
     within one sixteenth of a pixel."""
     left, right, _ = _scene(24, 192, 40.0, seed=2)
     want = jstereo.compute_disparity(left, right)
-    got = tstereo.compute_disparity(left, right)
+    got = tstereo.compute_disparity(left, right, device="cpu")
     np.testing.assert_array_equal(got[0], want[0])
     assert got[1].dtype == np.int16
     assert np.abs(got[1].astype(int) - want[1].astype(int)).max() <= 1
-    raw, filtered = tstereo.StereoMatcher()(left, right)
-    assert (tstereo.StereoMatcher().config == DisparityConfig()
+    raw, filtered = tstereo.StereoMatcher(device="cpu")(left, right)
+    assert (tstereo.StereoMatcher(device="cpu").config == DisparityConfig()
             and DisparityConfig().wls)
     np.testing.assert_array_equal(raw.isnan().numpy(), got[0] == -16)
     assert torch.isfinite(filtered).all()
@@ -394,7 +394,7 @@ def test_batched_with_post_stack():
     left, right, _ = _scene(32, 96, 20.0)
     cfg = DisparityConfig(num_disparities=32, speckle_window_size=20,
                           wls_iters=2)
-    matcher = tstereo.StereoMatcher(cfg)
+    matcher = tstereo.StereoMatcher(cfg, device="cpu")
     raw, filtered = matcher.batched(np.stack([left, left]),
                                     np.stack([right, right]))
     one_raw, one_filtered = matcher(left, right)

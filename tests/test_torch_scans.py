@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from stereo_match_tpu.config import DisparityConfig
+from stereo_match_tpu.config import DisparityConfig as JaxDisparityConfig
 from stereo_match_tpu.data.synthetic import random_dot_pair, slanted_scene
 from stereo_match_tpu.ops import cost_volume as jcv
 from stereo_match_tpu.ops import sgm as jsgm
@@ -27,6 +27,7 @@ from stereo_match_tpu.ops.pallas_kernels import (census_volume_pallas,
                                                  sgm_scan_pallas,
                                                  wta_stats_pallas)
 from stereo_match_tpu.pipeline.stereo import _match_core as jax_match_core
+from stereo_match_tpu_torch.config import DisparityConfig
 from stereo_match_tpu_torch.ops import cost_volume as tcv
 from stereo_match_tpu_torch.ops import cuda_kernels as K
 from stereo_match_tpu_torch.ops import sgm as tsgm
@@ -283,12 +284,12 @@ def test_match_core_int16_matches_jax(window, min_d):
     H, W, D = 40, 120, 32
     gt = slanted_scene(H, W, 3.0 + min_d, 20.0)
     left, right = random_dot_pair(H, W, gt, blur=1.0, seed=1)
-    cfg = DisparityConfig(num_disparities=D, census_window=window,
-                          min_disparity=min_d, uniqueness_ratio=15,
-                          disp12_max_diff=1, wls=False,
-                          speckle_window_size=0, dtype="int16")
+    kw = dict(num_disparities=D, census_window=window, min_disparity=min_d,
+              uniqueness_ratio=15, disp12_max_diff=1, wls=False,
+              speckle_window_size=0, dtype="int16")
+    cfg = DisparityConfig(**kw)
     want = np.asarray(jax_match_core(jnp.asarray(left), jnp.asarray(right),
-                                     cfg)[0])
+                                     JaxDisparityConfig(**kw))[0])
     got, _ = _match_core(torch.from_numpy(left), torch.from_numpy(right), cfg)
     np.testing.assert_array_equal(_np(got), want)
     if cfg.P1 == int(cfg.P1):
