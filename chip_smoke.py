@@ -610,9 +610,8 @@ def main() -> int:
         for i in range(model.num_layers):
             last = i == model.num_layers - 1
             args = (h, model.weights[i], model.biases[i], not last, last)
-            layouts = dict(taps=getattr(model, f"taps{i}"),
-                           packed=getattr(model, f"packed{i}"))
-            y = K.mccnn_conv3x3(*args, **layouts)
+            layout = getattr(model, f"layout{i}")
+            y = K.mccnn_conv3x3(*args, layout=layout)
             y_ref = K.mccnn_conv3x3_plain(*args)
             e = float((y - y_ref).abs().max())
             y64 = K.mccnn_conv3x3_plain(*(a.double() for a in args[:3]),
@@ -634,7 +633,7 @@ def main() -> int:
             err["mccnn_conv3x3"] = max(err["mccnn_conv3x3"], e)
             if i < 2:
                 k8_args[arch, "C_in=1" if i == 0 else "C_in=F"] = (
-                    args, layouts)
+                    args, layout)
             h = y
             del y_ref, y64
         k9_args[arch, label(KITTI)] = (h[0], h[1], KITTI["D"], 0)
@@ -1080,8 +1079,8 @@ def main() -> int:
             return torch.nn.functional.conv2d(x, w, b, padding=1)
 
     k8_layer = {}    # (arch, kind) -> (kernel, plain, library, bound) ms
-    for (arch, kind), (args, layouts) in k8_args.items():
-        t = cuda_ms(lambda: K.mccnn_conv3x3(*args, **layouts), 10)
+    for (arch, kind), (args, layout) in k8_args.items():
+        t = cuda_ms(lambda: K.mccnn_conv3x3(*args, layout=layout), 10)
         t_plain = cuda_ms(lambda: K.mccnn_conv3x3_plain(*args), 10)
         t_lib = cuda_ms(lambda: conv_cudnn(*args[:3]), 10)
         x, w = args[0], args[1]

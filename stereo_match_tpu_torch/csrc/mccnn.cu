@@ -47,9 +47,12 @@
 //
 // C_in = 1 (the first layer): K = 9, so it is bound by the output write
 // (238 MB at F = 64), not by arithmetic, and stays on the FP32 pipes: a
-// block owns an 8x32 tile of output pixels and all F channels of it in
-// registers (256 threads, each 4 pixels x F/4 channels), reading the
-// (3, 3, C_in, F) tap-major copy of the weights that the module makes once.
+// block stages its 10 x 34 halo and the 9 x F taps (the (3, 3, 1, F)
+// tap-major copy the module makes once) and owns an 8x32 tile of output
+// pixels, a thread one pixel and all F channels of it in registers, so
+// each store of a warp is a whole 128-B line of one channel plane. (A map
+// of four pixels x F/4 channels a thread makes each warp store four 32-B
+// pieces of four planes, which the card writes more slowly.)
 //
 // K9 replaces mccnn_volume_pallas (_mccnn_vol_kernel), mccnn_volume_mxu_
 // pallas (_mccnn_vol_mxu_kernel), mccnn_volume_flat_pallas
@@ -81,136 +84,86 @@ constexpr float kInvalid = 1e4f;
 constexpr int kConvTH = 8;
 constexpr int kConvTW = 32;
 constexpr int kConvThreads = 256;
-constexpr int kConvCC = 8;  // input channels per stage
 constexpr int kHaloH = kConvTH + 2;
 constexpr int kHaloW = kConvTW + 2;
 constexpr int kHaloSize = kHaloH * kHaloW;
-static_assert((kConvCC * kHaloSize) % 4 == 0, "weights must stay float4-aligned");
 
-// FG channels per thread (a multiple of 4); the block covers FP = 4 * FG.
-template <int FG>
-__global__ void __launch_bounds__(kConvThreads, 1)
+// A thread owns one pixel and all FP >= F channels of it (FP a multiple of
+// 4), so a warp writes 32 consecutive pixels of a channel: whole 128-B
+// lines.
+template <int FP>
+__global__ void __launch_bounds__(kConvThreads)
 conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ taps,
-               const float* __restrict__ bias, float* __restrict__ y,
-               int C_in, int F, int H, int W, int relu, int normalize) {
-  constexpr int FP = 4 * FG;
-  constexpr int KQ = FG / 4;  // float4 channel quads per thread
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                       // [kConvCC][kHaloH][kHaloW]
-  float* ws = smem + kConvCC * kHaloSize;  // [kConvCC][9][FP]
+               const float* __restrict__ bias, float* __restrict__ y, int F,
+               int H, int W, int relu, int normalize) {
+  __shared__ float xs[kHaloSize];                // [kHaloH][kHaloW]
+  __shared__ __align__(16) float ws[9 * FP];     // [9][FP]
 
   const int t = threadIdx.x;
-  const int cg = t & 3;         // channel group: quads cg, cg + 4, ...
-  const int pg = t >> 2;        // pixel group 0..63
-  const int r = pg >> 3;        // tile row
-  const int c = pg & 7;         // first tile column; then c + 8, +16, +24
+  const int c = t & 31;         // tile column
+  const int r = t >> 5;         // tile row
   const int ty0 = blockIdx.y * kConvTH;
   const int tx0 = blockIdx.x * kConvTW;
   const int view = blockIdx.z;
-  const float* xv = x + (size_t)view * C_in * H * W;
+  const float* xv = x + (size_t)view * H * W;
 
-  float acc[4][FG];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int q = 0; q < FG; ++q) acc[j][q] = 0.f;
+  for (int i = t; i < kHaloSize; i += kConvThreads) {
+    const int hy = i / kHaloW;
+    const int gy = ty0 + hy - 1;
+    const int gx = tx0 + i - hy * kHaloW - 1;
+    xs[i] = gy >= 0 && gy < H && gx >= 0 && gx < W ? xv[(size_t)gy * W + gx]
+                                                   : 0.f;
+  }
+  for (int i = t; i < 9 * FP; i += kConvThreads) {
+    const int f = i % FP;
+    ws[i] = f < F ? taps[(size_t)(i / FP) * F + f] : 0.f;
+  }
+  __syncthreads();
 
-  for (int c0 = 0; c0 < C_in; c0 += kConvCC) {
-    const int cc = min(kConvCC, C_in - c0);
-    __syncthreads();  // the previous stage has been consumed
-    for (int i = t; i < cc * kHaloSize; i += kConvThreads) {
-      const int ci = i / kHaloSize;
-      const int rem = i - ci * kHaloSize;
-      const int hy = rem / kHaloW;
-      const int gy = ty0 + hy - 1;
-      const int gx = tx0 + rem - hy * kHaloW - 1;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = xv[((size_t)(c0 + ci) * H + gy) * W + gx];
-      xs[i] = v;
-    }
-    for (int i = t; i < cc * 9 * FP; i += kConvThreads) {
-      const int f = i % FP;
-      const int rest = i / FP;  // ci * 9 + tap
-      const int ci = rest / 9;
-      const int tap = rest - ci * 9;
-      ws[i] = f < F ? taps[((size_t)tap * C_in + c0 + ci) * F + f] : 0.f;
-    }
-    __syncthreads();
-    for (int ci = 0; ci < cc; ++ci) {
-      const float* xr = xs + ci * kHaloSize + r * kHaloW + c;
-      const float4* wr = reinterpret_cast<const float4*>(ws + ci * 9 * FP);
+  float in[9];
 #pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
+  for (int k = 0; k < 9; ++k) in[k] = xs[(r + k / 3) * kHaloW + c + k % 3];
+  float acc[FP];
 #pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          float in[4];
+  for (int f = 0; f < FP; ++f) acc[f] = 0.f;
+  const float4* wr = reinterpret_cast<const float4*>(ws);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) in[j] = xr[ky * kHaloW + kx + 8 * j];
-          const float4* wt = wr + (ky * 3 + kx) * (FP / 4);
+  for (int k = 0; k < 9; ++k) {
 #pragma unroll
-          for (int k = 0; k < KQ; ++k) {
-            const float4 w4 = wt[k * 4 + cg];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              acc[j][4 * k + 0] = fmaf(in[j], w4.x, acc[j][4 * k + 0]);
-              acc[j][4 * k + 1] = fmaf(in[j], w4.y, acc[j][4 * k + 1]);
-              acc[j][4 * k + 2] = fmaf(in[j], w4.z, acc[j][4 * k + 2]);
-              acc[j][4 * k + 3] = fmaf(in[j], w4.w, acc[j][4 * k + 3]);
-            }
-          }
-        }
-      }
+    for (int q = 0; q < FP / 4; ++q) {
+      const float4 w4 = wr[k * (FP / 4) + q];   // the same for every lane
+      acc[4 * q + 0] = fmaf(in[k], w4.x, acc[4 * q + 0]);
+      acc[4 * q + 1] = fmaf(in[k], w4.y, acc[4 * q + 1]);
+      acc[4 * q + 2] = fmaf(in[k], w4.z, acc[4 * q + 2]);
+      acc[4 * q + 3] = fmaf(in[k], w4.w, acc[4 * q + 3]);
     }
   }
 
+  float ss = 0.f;
+#pragma unroll
+  for (int f = 0; f < FP; ++f) {
+    float v = acc[f] + (f < F ? bias[f] : 0.f);
+    if (relu) v = fmaxf(v, 0.f);
+    acc[f] = v;
+    ss = fmaf(v, v, ss);
+  }
+  const float norm = sqrtf(ss + 1e-12f);
   const int gy = ty0 + r;
+  const int gx = tx0 + c;
+  if (gy >= H || gx >= W) return;
+  float* out = y + ((size_t)view * F * H + gy) * W + gx;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float ss = 0.f;
-#pragma unroll
-    for (int k = 0; k < KQ; ++k) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ch = (k * 4 + cg) * 4 + e;
-        float v = acc[j][4 * k + e] + (ch < F ? bias[ch] : 0.f);
-        if (relu) v = fmaxf(v, 0.f);
-        acc[j][4 * k + e] = v;
-        ss = fmaf(v, v, ss);
-      }
-    }
-    float norm = 1.f;
-    if (normalize) {  // the pixel's four channel groups are lanes t ^ 1, 2
-      ss += __shfl_xor_sync(0xffffffffu, ss, 1);
-      ss += __shfl_xor_sync(0xffffffffu, ss, 2);
-      norm = sqrtf(ss + 1e-12f);
-    }
-    const int gx = tx0 + c + 8 * j;
-    if (gy >= H || gx >= W) continue;
-#pragma unroll
-    for (int k = 0; k < KQ; ++k) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ch = (k * 4 + cg) * 4 + e;
-        if (ch < F) {
-          const float v = acc[j][4 * k + e];
-          y[(((size_t)view * F + ch) * H + gy) * W + gx] =
-              normalize ? v / norm : v;
-        }
-      }
-    }
-  }
+  for (int f = 0; f < FP; ++f)
+    if (f < F) out[(size_t)f * H * W] = normalize ? acc[f] / norm : acc[f];
 }
 
-template <int FG>
+template <int FP>
 int launch_conv3x3(const float* x, const float* taps, const float* bias,
-                   float* y, int V, int C_in, int F, int H, int W, int relu,
+                   float* y, int V, int F, int H, int W, int relu,
                    int normalize, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(kConvCC * kHaloSize + kConvCC * 9 * 4 * FG) * sizeof(float);
   dim3 grid((W + kConvTW - 1) / kConvTW, (H + kConvTH - 1) / kConvTH, V);
-  conv3x3_kernel<FG><<<grid, kConvThreads, smem, stream>>>(
-      x, taps, bias, y, C_in, F, H, W, relu, normalize);
+  conv3x3_kernel<FP><<<grid, kConvThreads, 0, stream>>>(
+      x, taps, bias, y, F, H, W, relu, normalize);
   return (int)cudaGetLastError();
 }
 
@@ -438,14 +391,11 @@ int launch_tf32x3(const float* x, const float* packed, const float* bias,
   constexpr int FP = 8 * NT + 8;
   const size_t smem =
       2 * (size_t)(kTcCC * kTcHaloPitch + 2 * 9 * kTcCC * FP) * sizeof(float);
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        conv3x3_tf32x3_kernel<NT, NS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  // The attribute belongs to the current device: set it at every launch.
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_tf32x3_kernel<NT, NS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   const int C8 = (C_in + kTcCC - 1) / kTcCC * kTcCC;
   dim3 grid((W + kTcTW - 1) / kTcTW, (H + kTcTH - 1) / kTcTH, V);
   conv3x3_tf32x3_kernel<NT, NS><<<grid, kTcThreads * NS, smem, stream>>>(
@@ -536,41 +486,41 @@ mccnn_volume_kernel(const float* __restrict__ fl,
 
 }  // namespace
 
-// x: (V, C_in, H, W); taps: (3, 3, C_in, F), the flax kernel layout, read
-// when C_in = 1; packed: (2, 3, 3, C8, F8), the TF32 hi and lo parts of the
-// taps with C_in padded to C8 (a multiple of 8) and F to F8 (32, 64, 112 or
-// 128) by zeros, read when C_in > 1; bias: (F,); y: (V, F, H, W). F <= 128.
-extern "C" int smt_mccnn_conv3x3(const float* x, const float* taps,
-                                 const float* packed, const float* bias,
-                                 float* y, int V, int C_in, int F, int H,
-                                 int W, int relu, int normalize,
+// x: (V, C_in, H, W); layout: K8's copy of the weights, chosen by C_in:
+// for C_in = 1 the (3, 3, 1, F) taps (the flax kernel layout), for C_in > 1
+// the (2, 3, 3, C8, F8) TF32 hi and lo parts of the taps with C_in padded to
+// C8 (a multiple of 8) and F to F8 (32, 64, 112 or 128) by zeros; bias:
+// (F,); y: (V, F, H, W). F <= 128.
+extern "C" int smt_mccnn_conv3x3(const float* x, const float* layout,
+                                 const float* bias, float* y, int V, int C_in,
+                                 int F, int H, int W, int relu, int normalize,
                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (F < 1 || F > 128 || C_in < 1) return (int)cudaErrorInvalidValue;
   if (C_in > 1) {
     if (F <= 32)
-      return launch_tf32x3<4, 1>(x, packed, bias, y, V, C_in, F, H, W, relu,
+      return launch_tf32x3<4, 1>(x, layout, bias, y, V, C_in, F, H, W, relu,
                               normalize, st);
     if (F <= 64)
-      return launch_tf32x3<8, 1>(x, packed, bias, y, V, C_in, F, H, W, relu,
+      return launch_tf32x3<8, 1>(x, layout, bias, y, V, C_in, F, H, W, relu,
                               normalize, st);
     if (F <= 112)
-      return launch_tf32x3<14, 2>(x, packed, bias, y, V, C_in, F, H, W, relu,
+      return launch_tf32x3<14, 2>(x, layout, bias, y, V, C_in, F, H, W, relu,
                                normalize, st);
-    return launch_tf32x3<16, 2>(x, packed, bias, y, V, C_in, F, H, W, relu,
+    return launch_tf32x3<16, 2>(x, layout, bias, y, V, C_in, F, H, W, relu,
                              normalize, st);
   }
   if (F <= 32)
-    return launch_conv3x3<8>(x, taps, bias, y, V, C_in, F, H, W, relu,
-                             normalize, st);
+    return launch_conv3x3<32>(x, layout, bias, y, V, F, H, W, relu, normalize,
+                             st);
   if (F <= 64)
-    return launch_conv3x3<16>(x, taps, bias, y, V, C_in, F, H, W, relu,
+    return launch_conv3x3<64>(x, layout, bias, y, V, F, H, W, relu,
                               normalize, st);
   if (F <= 112)
-    return launch_conv3x3<28>(x, taps, bias, y, V, C_in, F, H, W, relu,
+    return launch_conv3x3<112>(x, layout, bias, y, V, F, H, W, relu,
                               normalize, st);
-  return launch_conv3x3<32>(x, taps, bias, y, V, C_in, F, H, W, relu,
-                            normalize, st);
+  return launch_conv3x3<128>(x, layout, bias, y, V, F, H, W, relu, normalize,
+                            st);
 }
 
 // fl, fr: (F, H, W) features of the two views; out: (D, H, W).

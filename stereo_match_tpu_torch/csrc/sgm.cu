@@ -462,14 +462,11 @@ int launch_dpl(const void* cost, void* total, const void* init_carry,
   }
   const size_t smem = R * slot_bytes;
   if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sgm_path_scan_kernel<T, DPL>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  // The attribute belongs to the current device: set it at every launch.
+  const cudaError_t err = cudaFuncSetAttribute(
+      sgm_path_scan_kernel<T, DPL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (err != cudaSuccess) return (int)err;
   sgm_path_scan_kernel<T, DPL>
       <<<blocks, (lines + helpers) * 32, smem, stream>>>(
           static_cast<const T*>(cost), static_cast<T*>(total),

@@ -24,10 +24,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from stereo_match_tpu_torch.ops.cuda_kernels import (conv_taps,
-                                                     mccnn_conv3x3,
-                                                     mccnn_pack_weights,
-                                                     mccnn_volume)
+from stereo_match_tpu_torch.ops.cuda_kernels import (mccnn_conv3x3,
+                                                     mccnn_volume,
+                                                     mccnn_weight_layout)
 
 ARCHS = {"fast": (64, 4), "accurate": (112, 5)}   # arch -> (F, layers)
 
@@ -43,12 +42,12 @@ class MCCNNFeatures(nn.Module):
     """Siamese feature tower: ``num_layers`` 3x3 convs, L2-normalized.
 
     Weights ``weights[i]`` (F, C_in, 3, 3) and biases ``biases[i]`` (F,)
-    are float32 parameters without gradients (inference only). ``taps{i}``
-    is their (3, 3, C_in, F) copy in the layout of K8's FP32 body (the first
-    layer) and ``packed{i}`` their TF32 hi/lo parts in the layout of its
-    3xTF32 tensor-core body (``mccnn_pack_weights``), made when the weights
-    are set (construction, ``load_state_dict``) and moved with the module;
-    after changing a weight in place, call :meth:`relayout`.
+    are float32 parameters without gradients (inference only). ``layout{i}``
+    is the copy of layer i's weights that K8 reads
+    (``mccnn_weight_layout``: the (3, 3, 1, F) taps of the first layer, the
+    TF32 hi/lo parts of the others), made when the weights are set
+    (construction, ``load_state_dict``) and moved with the module; after
+    changing a weight in place, call :meth:`relayout`.
     """
 
     def __init__(self, features: int = 64, num_layers: int = 4,
@@ -67,18 +66,16 @@ class MCCNNFeatures(nn.Module):
             nn.Parameter(torch.zeros(features), requires_grad=False)
             for _ in range(num_layers))
         for i in range(num_layers):
-            self.register_buffer(f"taps{i}", torch.empty(0), persistent=False)
-            self.register_buffer(f"packed{i}", torch.empty(0),
+            self.register_buffer(f"layout{i}", torch.empty(0),
                                  persistent=False)
         self.relayout()
         self.register_load_state_dict_post_hook(
             lambda module, _: module.relayout())
 
     def relayout(self) -> None:
-        """Rebuild K8's two copies of the weights (taps and TF32 parts)."""
+        """Rebuild K8's copy of each layer's weights."""
         for i, w in enumerate(self.weights):
-            setattr(self, f"taps{i}", conv_taps(w.detach()))
-            setattr(self, f"packed{i}", mccnn_pack_weights(w.detach()))
+            setattr(self, f"layout{i}", mccnn_weight_layout(w.detach()))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(V, H, W) normalized images -> (V, F, H, W) unit features."""
@@ -87,8 +84,7 @@ class MCCNNFeatures(nn.Module):
             last = i == self.num_layers - 1
             h = mccnn_conv3x3(h, self.weights[i], self.biases[i],
                               relu=not last, normalize=last,
-                              taps=getattr(self, f"taps{i}"),
-                              packed=getattr(self, f"packed{i}"))
+                              layout=getattr(self, f"layout{i}"))
         return h
 
 

@@ -183,7 +183,7 @@ def _library() -> ctypes.CDLL:
             "smt_speckle_sweep": [p, p, i, i, i, p, p],
             "smt_speckle_count_keep": [p, p, p, p, i, i, i, i, p],
             "smt_fgs_solve": [p, p, p, p, p, i, i, i, f, p],
-            "smt_mccnn_conv3x3": [p, p, p, p, p, i, i, i, i, i, i, i, p],
+            "smt_mccnn_conv3x3": [p, p, p, p, i, i, i, i, i, i, i, p],
             "smt_mccnn_volume": [p, p, p, i, i, i, i, i, f, p],
         }
         for name, argtypes in signatures.items():
@@ -807,6 +807,14 @@ def mccnn_pack_weights(weight: torch.Tensor) -> torch.Tensor:
     return packed
 
 
+def mccnn_weight_layout(weight: torch.Tensor) -> torch.Tensor:
+    """(F, C_in, 3, 3) OIHW -> the one copy of the weights K8 reads, chosen
+    by C_in: ``conv_taps`` for C_in = 1 (the FP32 body),
+    ``mccnn_pack_weights`` otherwise (the 3xTF32 tensor-core body)."""
+    return conv_taps(weight) if weight.shape[1] == 1 else \
+        mccnn_pack_weights(weight)
+
+
 def mccnn_conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
                         bias: torch.Tensor, relu: bool,
                         normalize: bool) -> torch.Tensor:
@@ -828,17 +836,15 @@ def mccnn_conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
 
 def mccnn_conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   relu: bool, normalize: bool,
-                  taps: torch.Tensor | None = None,
-                  packed: torch.Tensor | None = None) -> torch.Tensor:
+                  layout: torch.Tensor | None = None) -> torch.Tensor:
     """One MC-CNN tower layer: (V, C_in, H, W) -> (V, F, H, W) (K8).
 
     ``weight`` (F, C_in, 3, 3) and ``bias`` (F,) float32, F <= 128. The
-    kernel reads one of two weight layouts: ``taps`` (``conv_taps(weight)``)
-    in the FP32 body that runs C_in = 1, ``packed``
-    (``mccnn_pack_weights(weight)``, the TF32 hi/lo parts) in the 3xTF32
+    kernel reads ``layout``, ``mccnn_weight_layout(weight)``: the taps in
+    the FP32 body that runs C_in = 1, the TF32 hi/lo parts in the 3xTF32
     tensor-core body that runs C_in > 1. A caller that runs every frame
-    (``models/mccnn.py::MCCNNFeatures``) passes the copies it made once;
-    otherwise the one the body reads is made here.
+    (``models/mccnn.py::MCCNNFeatures``) passes the copy it made once;
+    otherwise it is made here.
     """
     _check(x, "x", torch.float32, 4)
     _check(weight, "weight", torch.float32, 4)
@@ -852,22 +858,17 @@ def mccnn_conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if F > MCCNN_MAX_FEATURES:
         raise ValueError(f"{F} features: K8 holds at most "
                          f"{MCCNN_MAX_FEATURES} per pixel")
-    if C_in == 1:
-        name, layout = "taps", conv_taps(weight) if taps is None else taps
-        want = (3, 3, C_in, F)
-    else:
-        name = "packed"
-        layout = mccnn_pack_weights(weight) if packed is None else packed
-        want = (2, 3, 3, *_mccnn_padded(C_in, F))
-    _check(layout, name, torch.float32, len(want))
+    if layout is None:
+        layout = mccnn_weight_layout(weight)
+    want = (3, 3, 1, F) if C_in == 1 else (2, 3, 3, *_mccnn_padded(C_in, F))
+    _check(layout, "layout", torch.float32, len(want))
     if tuple(layout.shape) != want:
-        raise ValueError(f"{name} {tuple(layout.shape)}: expected {want}")
+        raise ValueError(f"layout {tuple(layout.shape)}: expected {want}")
     if _on_cpu(x, weight, bias, layout):
         return mccnn_conv3x3_plain(x, weight, bias, relu, normalize)
-    taps, packed = (layout, None) if C_in == 1 else (None, layout)
     y = torch.empty((V, F, H, W), dtype=torch.float32, device=x.device)
-    _launch("mccnn_conv3x3", x.device, _ptr(x), _ptr(taps), _ptr(packed),
-            _ptr(bias), _ptr(y), V, C_in, F, H, W, int(relu), int(normalize))
+    _launch("mccnn_conv3x3", x.device, _ptr(x), _ptr(layout), _ptr(bias),
+            _ptr(y), V, C_in, F, H, W, int(relu), int(normalize))
     return y
 
 

@@ -602,3 +602,77 @@ def test_stream_on_one_card(dev, mode, wire):
                                 _invalid_clamp=1024.0).run(frames)
         for (raw, _), (want, _) in zip(got, ref):
             _assert_same_disparity(raw, want)
+
+
+# ------------------------------------------------------ several cards ----
+
+@pytest.fixture(scope="module")
+def cards(dev):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more cards, {n} visible: a kernel's "
+                    "shared-memory size is set on each card it runs on")
+    return [require_hopper(i) for i in range(n)]
+
+
+def test_kernels_on_every_card(cards):
+    """K3 (every direction takes more than 48 KB of shared memory at D =
+    128) and both bodies of K8 on each card in turn, against their plain
+    versions on that card."""
+    rng = np.random.default_rng(16)
+    cost = rng.uniform(0, 24, (128, 37, 150)).astype(np.float32)
+    x = rng.normal(size=(2, 112, 17, 70)).astype(np.float32)
+    w = (rng.normal(size=(112, 112, 3, 3)) / np.sqrt(9 * 112)).astype(
+        np.float32)
+    b = rng.normal(0, 0.1, 112).astype(np.float32)
+    for card in cards:
+        c = torch.from_numpy(cost).to(card)
+        for dtype in (torch.float32, torch.int16):
+            for direction in PATH_DIRECTIONS_8:
+                got = K.sgm_path_scan(c.to(dtype), torch.empty_like(
+                    c, dtype=dtype), *direction, 8.0, 96.0, False)
+                want = K.sgm_path_scan_plain(c.to(dtype), torch.empty_like(
+                    c, dtype=dtype), *direction, 8.0, 96.0, False)
+                assert got.device == card and torch.equal(got, want)
+        for F, C_in in ((64, 1), (64, 64), (112, 112)):
+            args = [torch.from_numpy(np.ascontiguousarray(a)).to(card)
+                    for a in (x[:, :C_in], w[:F, :C_in], b[:F])]
+            got = K.mccnn_conv3x3(*args, True, False)
+            want = K.mccnn_conv3x3_plain(*args, True, False)
+            assert got.device == card
+            assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["exact", "halo"])
+def test_sharded_sgm_over_cards(cards, mode):
+    """The row shards on distinct cards (the mesh's default device list)
+    equal the same shards on one card."""
+    n = len(cards)
+    words = K.census_words(_images(53, 150, cards[0], seed=14))
+    vol = K.census_volume(words[0], words[1], 64)
+    got = sgm_aggregate_sharded(vol, 8.0, 96.0, make_mesh(1, n), 8, mode,
+                                halo=8)
+    want = sgm_aggregate_sharded(vol, 8.0, 96.0,
+                                 make_mesh(1, n, devices=[cards[0]] * n), 8,
+                                 mode, halo=8)
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("mode", ["volume", "census"])
+def test_stream_over_cards(cards, mode):
+    """The stage pipeline with a stage on each card (4, or 2 on two cards)
+    equals the single-card path frame for frame."""
+    stages = 4 if len(cards) >= 4 else 2
+    cfg = DisparityConfig(num_disparities=32, wls=False,
+                          speckle_window_size=0)
+    frames = []
+    for seed in range(5):
+        gt = slanted_scene(40, 120, 3.0, 20.0 + seed)
+        frames.append(random_dot_pair(40, 120, gt, blur=1.0, seed=seed))
+    got = StreamingPipeline(cfg, make_stage_mesh(stages), (40, 120),
+                            payload_mode=mode).run(frames)
+    assert len(got) == len(frames)
+    for (raw, _), (l, r) in zip(got, frames):
+        want, _ = _match_core(torch.from_numpy(l).to(cards[0]),
+                              torch.from_numpy(r).to(cards[0]), cfg)
+        _assert_same_disparity(raw.to(cards[0]), want)

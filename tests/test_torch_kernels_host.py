@@ -112,24 +112,29 @@ def test_packed_weights_round_trip_to_oihw(F, C_in):
 def test_model_keeps_packed_weights_in_step():
     model = tmccnn.make_model("fast")
     for i in range(model.num_layers):
-        assert torch.equal(getattr(model, f"packed{i}"),
-                           K.mccnn_pack_weights(model.weights[i]))
+        want = (K.conv_taps if i == 0 else K.mccnn_pack_weights)(
+            model.weights[i])
+        assert torch.equal(getattr(model, f"layout{i}"), want)
+        assert torch.equal(getattr(model, f"layout{i}"),
+                           K.mccnn_weight_layout(model.weights[i]))
     other = tmccnn.make_model("fast")
     other.load_state_dict(model.state_dict())
     with torch.no_grad():
         other.weights[1].mul_(2.0)
     other.relayout()
-    assert torch.equal(other.packed1, K.mccnn_pack_weights(other.weights[1]))
-    assert not torch.equal(other.packed1, model.packed1)
+    assert torch.equal(other.layout1, K.mccnn_pack_weights(other.weights[1]))
+    assert not torch.equal(other.layout1, model.layout1)
 
 
 def test_conv3x3_checks_the_packed_layout():
     x = torch.zeros(2, 64, 8, 40)
     w = torch.zeros(64, 64, 3, 3)
     b = torch.zeros(64)
-    with pytest.raises(ValueError, match="packed"):
+    with pytest.raises(ValueError, match="layout"):
         K.mccnn_conv3x3(x, w, b, True, False,
-                        packed=torch.zeros(2, 3, 3, 64, 112))
+                        layout=torch.zeros(2, 3, 3, 64, 112))
+    with pytest.raises(ValueError, match="layout"):     # the C_in = 1 copy
+        K.mccnn_conv3x3(x, w, b, True, False, layout=K.conv_taps(w))
     y = K.mccnn_conv3x3(x, w, b, True, False,
-                        packed=K.mccnn_pack_weights(w))
+                        layout=K.mccnn_pack_weights(w))
     assert y.shape == (2, 64, 8, 40) and not y.any()

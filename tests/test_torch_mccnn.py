@@ -101,8 +101,8 @@ def test_converter_loads_shipped_checkpoint(shipped, arch):
         kernel = np.asarray(params["params"][f"conv{i}"]["kernel"])
         np.testing.assert_array_equal(
             model.weights[i].numpy(), np.transpose(kernel, (3, 2, 0, 1)))
-        np.testing.assert_array_equal(getattr(model, f"taps{i}").numpy(),
-                                      kernel)
+        if i == 0:       # K8's C_in = 1 body reads the flax layout as is
+            np.testing.assert_array_equal(model.layout0.numpy(), kernel)
         np.testing.assert_array_equal(
             model.biases[i].numpy(),
             np.asarray(params["params"][f"conv{i}"]["bias"]))
@@ -135,8 +135,8 @@ def test_load_state_dict_refreshes_taps(shipped):
     model = tmccnn.make_model("fast")
     model.load_state_dict(shipped["fast"][2].state_dict())
     for i in range(model.num_layers):
-        assert torch.equal(getattr(model, f"taps{i}"),
-                           K.conv_taps(model.weights[i]))
+        assert torch.equal(getattr(model, f"layout{i}"),
+                           K.mccnn_weight_layout(model.weights[i]))
 
 
 def test_port_mccnn_imports_no_jax():
@@ -265,7 +265,8 @@ def test_kernel_wrappers_reject_bad_input():
         K.mccnn_conv3x3(x, torch.zeros(130, 1, 3, 3), torch.zeros(130),
                         True, False)
     with pytest.raises(ValueError):
-        K.mccnn_conv3x3(x, w, b, True, False, taps=torch.zeros(3, 3, 16, 1))
+        K.mccnn_conv3x3(x, w, b, True, False,
+                        layout=torch.zeros(3, 3, 16, 1))
     f = torch.zeros(4, 6, 9)
     with pytest.raises(ValueError):
         K.mccnn_volume(f, f, 8, -1)
