@@ -24,6 +24,10 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
 3c. K3 (one warp per path line) direction by direction, written and added
    onto a nonzero total, bit-equal to its plain version: float32 and int16
    at KITTI, float32 at 720p D=160, float32 and int16 at 1243x377 D=48.
+3d. the multiword census and the float disp12 tolerance at KITTI: K1 with
+   a 7x9 window (62 bits, two words), K2 on those words (float32, int16,
+   transposed) and K4 ``lr_mask`` at the tolerances 1.5 and 2.0 (ELAS's
+   ``lr_tol``), each bit-equal to its plain version.
 4. main path: ``StereoMatcher`` with the headline config, launch counts
    reset just before the run and read just after; the result against the
    plain path on the card (same NaN mask, values within 1e-6) and against
@@ -77,6 +81,24 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    exactly what its stages run (6 frames: volume stream K1 6, K2 6, K3 48,
    K4 6; census stream K1 6, K10 12, K2 12, K3 36, K4 6; tiling K3 32;
    int16 matcher K1 1, K2 1, K3 8, K4 1).
+4f. the reference's other matchers at KITTI D=128 on the seed-1 scene, each
+   through its entry point with its launch counts (exact), its agreement
+   with the same path on the plain versions on the card, and its bad-3px
+   and density against the ground truth: ``StereoMatcher`` with a 7x9
+   census (K1 1, K2 1, K3 8, K4 1; equal to the plain path within 1e-6,
+   the same NaN mask), with the Birchfield-Tomasi cost (``bench.py``'s
+   ``bt_sgm8``: K3 8, K4 1, no K1 or K2) and with SAD on 2 paths
+   (``sad_bm_wta``: K3 2, K4 1), the sad and bt volumes being plain torch
+   on the card as they are XLA in the JAX package; ``block_match`` (block
+   21, disp12 -1: ``stereobm_true``; K4 1); ``elas_match`` with
+   ``ElasConfig()`` (K1 1, K2 1 + D, K4 ``wta_stats`` 1, ``right_wta`` 1,
+   ``lr_mask`` 2), with the native library built by g++, the same support
+   points as its plain path and at least 99.5 % of the pixels agreeing;
+   the 4-stage volume stream with the 7x9 window over 3 frames, bit-equal
+   to the plain scans added in the stream's order and agreeing with
+   ``_match_core`` on at least 99.9 % of the pixels (P1 = 62/3 is
+   fractional, so the total depends on the order of the paths and a
+   near-tie may flip).
 5. timing with CUDA events after a warm-up: frames/s of the main path with
    the kernels and with the plain versions at KITTI shape, and with the
    kernels at 720p; each kernel's time beside its plain version's and its
@@ -92,7 +114,9 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    entries, K3 per row shard, the exact and halo tiling beside the
    whole-frame aggregation, the stream's frames/s in both payload modes
    and wires beside ``_match_core``'s, and the peak memory of the float32
-   and int16 frames.
+   and int16 frames; the frame time of each 4f path beside one frame of its
+   plain path, and K1 and K2 at 7x9 and the float-tolerance ``lr_mask``
+   beside their bounds.
 
 The last lines are the per-kernel JSON record (with ``bound_ms``,
 ``bound_by`` and ``library_ms``), the card's name and power limit from
@@ -101,11 +125,13 @@ nvidia-smi, and the result line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -125,6 +151,7 @@ K8_TOL = 1e-5
 K8_F64_RATIO = 2.0
 K9_TOL = 1e-4      # a 64- or 112-term dot product, times scale 24
 MC_AGREE = 0.995   # share of pixels the MC-CNN path must share with plain
+STREAM_AGREE = 0.999   # the 7x9 stream against _match_core (path order)
 # The JAX package's XLA path in float32 on a CPU, KITTI D=128, seed-1
 # scene, headline WTA settings: (bad-3px, density)
 JAX_CPU = {"mccnn fast": (0.0013987, 0.99550),
@@ -132,6 +159,8 @@ JAX_CPU = {"mccnn fast": (0.0013987, 0.99550),
            "census": (0.0012966, 0.99447),
            "census noise=25": (0.0039023, 0.73009)}
 SPECKLE = dict(T=100, range=2)
+WIDE = (7, 9)      # a census window of 62 bits: two words
+LR_TOLS = (1.5, 2.0)   # fractional disp12 tolerances; 2.0 is ELAS's lr_tol
 PALLAS = "stereo_match_tpu/ops/pallas_kernels.py"
 MAIN_PATH = ("census_words", "census_volume", "sgm_path_scan", "wta_lr")
 KERNELS = {   # name -> (source, the TPU kernel(s) it replaces)
@@ -161,6 +190,14 @@ KERNELS = {   # name -> (source, the TPU kernel(s) it replaces)
                      f"{PALLAS}:1712"),
     "census_scan": ("stereo_match_tpu_torch/csrc/census_scan.cu",
                     f"{PALLAS}:1924"),
+    # the multiword and float-tolerance variants (a 7x9 window, ELAS)
+    "census_words 7x9": ("stereo_match_tpu_torch/csrc/census.cu",
+                         "stereo_match_tpu/pipeline/stereo.py:87; "
+                         f"{PALLAS}:750"),
+    "census_volume 7x9": ("stereo_match_tpu_torch/csrc/cost_volume.cu",
+                          f"{PALLAS}:892; {PALLAS}:970"),
+    "lr_mask lr_tol=2.0": ("stereo_match_tpu_torch/csrc/wta.cu",
+                           f"{PALLAS}:825"),
 }
 
 
@@ -209,8 +246,10 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from stereo_match_tpu_torch import native
     from stereo_match_tpu_torch.config import DisparityConfig
-    from stereo_match_tpu_torch.costs import MCCNNCost
+    from stereo_match_tpu_torch.costs import (ClassicCost, MCCNNCost,
+                                              census_cost)
     from stereo_match_tpu_torch.data.ply import read_ply
     from stereo_match_tpu_torch.data.synthetic import (random_dot_pair,
                                                        slanted_scene)
@@ -224,10 +263,12 @@ def main() -> int:
     from stereo_match_tpu_torch.ops.speckle import (connectivity,
                                                     speckle_filter)
     from stereo_match_tpu_torch.ops.wta import disparity_from_stats
+    from stereo_match_tpu_torch.parallel.pipeline_stage import DOWN, UP
     from stereo_match_tpu_torch.parallel import (StreamingPipeline, make_mesh,
                                                  make_stage_mesh,
                                                  sgm_aggregate_sharded,
                                                  volume_sharding)
+    from stereo_match_tpu_torch.pipeline import block_matching, elas
     from stereo_match_tpu_torch.pipeline.stereo import (StereoMatcher,
                                                         _match_core,
                                                         run_pipeline)
@@ -262,16 +303,34 @@ def main() -> int:
         return K.aggregate_paths(vol, cfg.P1, cfg.P2, cfg.num_paths, scan)
 
     def plain_path(left, right, cfg, both_views=False):
-        """The main path with every kernel replaced by its plain version."""
-        words = K.census_words_plain(torch.stack([left, right]),
-                                     cfg.census_window)
-        vol = K.census_volume_plain(words[0], words[1], cfg.num_disparities,
-                                    cfg.min_disparity, cfg.dtype)
+        """The main path with every kernel replaced by its plain version
+        (sad, ssd and bt volumes are plain torch on either path)."""
+        if cfg.cost == "census":
+            words = K.census_words_plain(torch.stack([left, right]),
+                                         cfg.census_window)
+            vol = K.census_volume_plain(words[0], words[1],
+                                        cfg.num_disparities,
+                                        cfg.min_disparity, cfg.dtype)
+        else:
+            vol = ClassicCost(cfg)(left, right)
         total = aggregate(K.sgm_path_scan_plain, vol, cfg)
         del vol
         out = K.wta_lr_plain(total, cfg.min_disparity, cfg.uniqueness_ratio,
                              cfg.disp12_max_diff, cfg.subpixel)
         return out if both_views else out[0]
+
+    @contextlib.contextmanager
+    def plain_kernels(module, *names):
+        """Run ``module``'s calls of the kernel wrappers ``names`` as their
+        plain versions (same arguments, no launch)."""
+        saved = {name: getattr(module, name) for name in names}
+        try:
+            for name in names:
+                setattr(module, name, getattr(K, f"{name}_plain"))
+            yield
+        finally:
+            for name, fn in saved.items():
+                setattr(module, name, fn)
 
     def plain_speckle(d, cfg, max_iters=64):
         return speckle_filter(d, cfg.speckle_window_size, cfg.speckle_range,
@@ -489,6 +548,50 @@ def main() -> int:
     print(f"[parity] sgm_path_scan: all 8 directions, written and added, "
           f"bit-equal to the plain scan: {list(k3_cases)} ({card})")
 
+    # 3d. multiword census (7x9: two words) and the float disp12 tolerance
+    words79 = K.census_words(imgs, WIDE)
+    check(tuple(words79.shape) == (2, 2, KITTI["H"], KITTI["W"]),
+          f"K1 {WIDE} words shape {tuple(words79.shape)}")
+    words79_ref = K.census_words_plain(imgs, WIDE)
+    err["census_words 7x9"] = int((words79.long() - words79_ref.long())
+                                  .abs().max())
+    check(torch.equal(words79, words79_ref), f"K1 {WIDE} bit-equal")
+    del words79_ref
+    wT79 = words79.transpose(2, 3).contiguous()      # (2, 2, W, H)
+    err["census_volume 7x9"] = 0.0
+    for what, (cl, cr, dt, tr) in {
+            "float32": (words79[0], words79[1], torch.float32, False),
+            "int16": (words79[0], words79[1], torch.int16, False),
+            "transposed float32": (wT79[0], wT79[1], torch.float32, True)
+    }.items():
+        got = K.census_volume(cl, cr, KITTI["D"], 0, dt, tr)
+        want = K.census_volume_plain(cl, cr, KITTI["D"], 0, dt, tr)
+        err["census_volume 7x9"] = max(err["census_volume 7x9"], float(
+            (got.float() - want.float()).abs().max()))
+        check(torch.equal(got, want), f"K2 {WIDE} {what} bit-equal")
+    del got, want, wT79
+    # the headline maps, and quarter-pixel maps whose differences land on
+    # and between the fractional tolerances
+    rng = np.random.default_rng(16)
+    quarter = [torch.from_numpy(rng.integers(0, 512, disp.shape) / 4.0).to(
+        dev, torch.float32) for _ in range(2)]
+    err["lr_mask lr_tol=2.0"] = 0
+    for what, (dl, dr) in (("headline", (disp, disp_right)),
+                           ("quarter-pixel", quarter)):
+        for tol in LR_TOLS:
+            a = K.lr_mask(dl, dr, tol)
+            b = K.lr_mask_plain(dl, dr, tol)
+            err["lr_mask lr_tol=2.0"] = max(
+                err["lr_mask lr_tol=2.0"], int((a.int() - b.int()).abs().max()))
+            check(torch.equal(a, b), f"K4 lr_mask {what} tol={tol} bit-equal")
+            print(f"[parity] lr_mask {what} maps tol={tol}: bit-equal, "
+                  f"{int(a.sum())} pixels pass against "
+                  f"{int(K.lr_mask(dl, dr, int(tol)).sum())} at "
+                  f"tol={int(tol)} ({label(KITTI)}; {card})")
+    del quarter, dl, dr, a, b
+    print(f"[parity] census_words {WIDE} (2 words) and census_volume on them "
+          f"(float32, int16, transposed): bit-equal ({label(KITTI)}; {card})")
+
     # 4. main path through the user's entry point
     matcher = StereoMatcher(cfg, device=dev)
     left_np, right_np = left.cpu().numpy(), right.cpu().numpy()
@@ -699,7 +802,7 @@ def main() -> int:
     # 4e. int16 volumes, the row-tiled SGM and the stage-pipelined stream
     D = KITTI["D"]
     p1, p2 = cfg.P1, cfg.P2
-    wT = words.transpose(1, 2).contiguous()          # (2, W, H) words
+    wT = words.transpose(2, 3).contiguous()          # (2, 1, W, H) words
     vol16 = K.census_volume(words[0], words[1], D, 0, torch.int16)
     check(torch.equal(vol16, K.census_volume_plain(
         words[0], words[1], D, 0, torch.int16)), "K2 int16 bit-equal")
@@ -880,6 +983,135 @@ def main() -> int:
           f"left of x = D (the sentinel enters the subpixel parabola); "
           f"launches {int16_counts} ({card})")
     del raw16, raw32, clamped32
+
+    # 4f. the reference's other matchers at KITTI D=128, seed-1 scene
+    check(native.available(), "the native library (Delaunay, plane "
+          "rasterization) built with g++")
+    def quality(d):
+        return float(bad_pixel_rate(d, gt, 3.0, 0.0)), float(density(d))
+
+    other_cfgs = {   # name -> (config, launches of one frame)
+        "census 7x9": (cfg.replace(census_window=WIDE),
+                       {"census_words": 1, "census_volume": 1,
+                        "sgm_path_scan": 8, "wta_lr": 1}),
+        "bt_sgm8": (cfg.replace(cost="bt"),
+                    {"sgm_path_scan": 8, "wta_lr": 1}),
+        "sad_bm_wta": (cfg.replace(cost="sad", num_paths=2, p1=1.0, p2=2.0),
+                       {"sgm_path_scan": 2, "wta_lr": 1}),
+    }
+    other_counts, other_frames = {}, {}   # name -> counts; (run, plain) fns
+    for name, (ocfg, want) in other_cfgs.items():
+        matcher = StereoMatcher(ocfg, device=dev)
+        K.reset_launches()
+        o_raw, _ = matcher(left_np, right_np)
+        torch.cuda.synchronize()
+        c = other_counts[name] = dict(K.launches)
+        exact_counts(c, want, name)
+        o_ref = plain_path(left, right, ocfg)
+        e = same_disparity(o_raw, o_ref, f"{name} vs its plain path")
+        share = agreement(o_raw, o_ref)
+        print(f"[4f] {name} {label(KITTI)}: launches {c}; max |kernel - "
+              f"plain| = {e}, agreement {share}; (bad-3px, density) "
+              f"{quality(o_raw)}; JAX on a CPU: not measured ({card})")
+        check(bool(torch.isfinite(o_raw).any()), f"{name}: valid pixels")
+        other_frames[name] = (
+            lambda ocfg=ocfg: _match_core(left, right, ocfg),
+            lambda ocfg=ocfg: plain_path(left, right, ocfg))
+    del o_raw, o_ref
+
+    bm_kw = dict(num_disparities=D, block_size=21, disp12_max_diff=-1)
+    K.reset_launches()
+    bm = block_matching.block_match(left_np, right_np, device=dev, **bm_kw)
+    torch.cuda.synchronize()
+    c = other_counts["stereobm_true"] = dict(K.launches)
+    exact_counts(c, {"wta_lr": 1}, "stereobm_true")
+    with plain_kernels(block_matching, "wta_lr"):
+        bm_ref = block_matching.block_match(left, right, device=dev, **bm_kw)
+    e = same_disparity(bm, bm_ref, "stereobm_true vs its plain path")
+    print(f"[4f] stereobm_true (block 21, disp12 -1) {label(KITTI)}: launches "
+          f"{c}; max |kernel - plain| = {e}, agreement "
+          f"{agreement(bm, bm_ref)}; (bad-3px, density) {quality(bm)}; JAX on "
+          f"a CPU: not measured ({card})")
+    check(bool(torch.isfinite(bm).any()), "stereobm_true: valid pixels")
+
+    def plain_bm():
+        with plain_kernels(block_matching, "wta_lr"):
+            return block_matching.block_match(left, right, device=dev,
+                                              **bm_kw)
+    other_frames["stereobm_true"] = (
+        lambda: block_matching.block_match(left, right, device=dev, **bm_kw),
+        plain_bm)
+    del bm, bm_ref
+
+    ecfg = elas.ElasConfig()
+    elas_kernels = ("census_words", "census_volume", "wta_stats",
+                    "right_wta", "lr_mask")
+
+    def run_elas(lft, rgt):
+        return elas.elas_match(lft, rgt, D, cfg=ecfg, return_support=True,
+                               return_matched=True, device=dev)
+
+    def plain_elas(lft, rgt):
+        with plain_kernels(elas, *elas_kernels):
+            return run_elas(lft, rgt)
+    K.reset_launches()
+    e_disp, e_sup, e_matched = run_elas(left_np, right_np)
+    torch.cuda.synchronize()
+    c = other_counts["elas"] = dict(K.launches)
+    exact_counts(c, {"census_words": 1, "census_volume": 1 + D,
+                     "wta_stats": 1, "right_wta": 1, "lr_mask": 2}, "elas")
+    r_disp, r_sup, r_matched = plain_elas(left_np, right_np)
+    check(np.array_equal(e_sup, r_sup), "elas: the same support points as "
+          "its plain path")
+    e_disp, e_matched, r_disp, r_matched = (
+        torch.from_numpy(a).to(dev) for a in (e_disp, e_matched, r_disp,
+                                              r_matched))
+    share = agreement(e_disp, r_disp)
+    check(share >= MC_AGREE, f"elas: {share} of the pixels agree with its "
+          f"plain path (< {MC_AGREE})")
+    print(f"[4f] elas ElasConfig() {label(KITTI)}: launches {c}; "
+          f"{len(e_sup)} support points, equal to the plain path's; "
+          f"agreement {share} (matched map {agreement(e_matched, r_matched)}, "
+          f"max |diff| {float((e_disp - r_disp).abs().nan_to_num(0.0).max())}"
+          f"); (bad-3px, density) {quality(e_disp)}, matched map "
+          f"{quality(e_matched)}; JAX on a CPU: not measured ({card})")
+    other_frames["elas"] = (lambda: run_elas(left_np, right_np),
+                            lambda: plain_elas(left_np, right_np))
+    del e_disp, e_matched, r_disp, r_matched
+
+    cfg79 = other_cfgs["census 7x9"][0]
+    pipe = stream("volume", "float32", config=cfg79)
+    K.reset_launches()
+    outs = pipe.run(pairs[:3])
+    torch.cuda.synchronize()
+    c = other_counts["stream 7x9"] = dict(K.launches)
+    exact_counts(c, {"census_words": 3, "census_volume": 3,
+                     "sgm_path_scan": 24, "wta_lr": 3}, "7x9 volume stream")
+    # P1 = 62/3 is fractional: the total depends on the order the paths are
+    # added in, by stage in the stream, PATH_DIRECTIONS_8's in _match_core
+    stage_order = PATH_DIRECTIONS_8[:2] + DOWN + UP
+    e79, share79 = 0.0, 1.0
+    for i, ((raw, _), (lf, rf)) in enumerate(zip(outs, pairs)):
+        vol79 = census_cost(lf, rf, cfg79)
+        total79 = torch.empty_like(vol79)
+        for j, (dy, dx) in enumerate(stage_order):
+            K.sgm_path_scan_plain(vol79, total79, dy, dx, cfg79.P1, cfg79.P2,
+                                  j > 0)
+        bit_equal(raw, K.wta_lr_plain(total79, *wta_args)[0],
+                  f"7x9 volume stream frame {i} vs its paths added in its "
+                  f"order")
+        ref79 = _match_core(lf, rf, cfg79)[0]
+        share79 = min(share79, agreement(raw, ref79))
+        e79 = max(e79, float((raw - ref79).abs().nan_to_num(0.0).max()))
+    check(share79 >= STREAM_AGREE, f"7x9 volume stream: {share79} of the "
+          f"pixels agree with _match_core (< {STREAM_AGREE})")
+    print(f"[4f] StreamingPipeline 4 stages on one card, volume payload, "
+          f"census {WIDE}, 3 frames {label(KITTI)}: bit-equal to the plain "
+          f"scans added in the stream's order; against _match_core "
+          f"{share79} of the pixels agree, max |diff| {e79} (P1 = "
+          f"{cfg79.P1}); launches {c} "
+          f"({card})")
+    del outs, pipe, vol79, total79, ref79
 
     # 5. timing (CUDA events, after a warm-up)
     ms["census_words"] = cuda_ms(lambda: K.census_words(imgs), 50)
@@ -1073,6 +1305,92 @@ def main() -> int:
               f"= {1000.0 / t} frames/s; {sweeps} speckle sweeps per frame "
               f"({card})")
 
+    # 4f: the other matchers' frames beside one plain frame each; K1, K2 at
+    # 7x9 and lr_mask at ELAS's float tolerance
+    for name, (run, plain) in other_frames.items():
+        t = cuda_ms(run, 5)
+        t_plain = cuda_ms(plain, 1, warmup=0)
+        print(f"[timing] {name} {label(KITTI)}: {t} ms/frame = "
+              f"{1000.0 / t} frames/s; plain versions {t_plain} ms/frame "
+              f"({card})")
+    ms["census_words 7x9"] = cuda_ms(lambda: K.census_words(imgs, WIDE), 50)
+    plain_ms["census_words 7x9"] = cuda_ms(
+        lambda: K.census_words_plain(imgs, WIDE), 3)
+    ms["census_volume 7x9"] = cuda_ms(
+        lambda: K.census_volume(words79[0], words79[1], D), 20)
+    plain_ms["census_volume 7x9"] = cuda_ms(
+        lambda: K.census_volume_plain(words79[0], words79[1], D), 3)
+    t16 = cuda_ms(lambda: K.census_volume(words79[0], words79[1], D, 0,
+                                          torch.int16), 20)
+    wT79 = words79.transpose(2, 3).contiguous()
+    tT = cuda_ms(lambda: K.census_volume(wT79[0], wT79[1], D,
+                                         transposed=True), 20)
+    tT_plain = cuda_ms(lambda: K.census_volume_plain(wT79[0], wT79[1], D, 0,
+                                                     transposed=True), 3)
+    print(f"[timing] census_volume {WIDE} (2 words) {label(KITTI)}: float32 "
+          f"{ms['census_volume 7x9']} ms, int16 {t16} ms, transposed (D, W, "
+          f"H) float32 {tT} ms; plain float32 "
+          f"{plain_ms['census_volume 7x9']} ms, transposed {tT_plain} ms "
+          f"({card})")
+    for name in ("bt_sgm8", "sad_bm_wta"):
+        ocfg = other_cfgs[name][0]
+        t = cuda_ms(lambda: ClassicCost(ocfg)(left, right), 5)
+        print(f"[timing] {name} {label(KITTI)}: the plain torch volume "
+              f"builder {t} ms of the frame ({card})")
+    lp = block_matching.bm_prefilter_xsobel(left, 31)
+    rp = block_matching.bm_prefilter_xsobel(right, 31)
+    t = cuda_ms(lambda: block_matching.sad_volume(lp, rp, D, 0, 21), 5)
+    print(f"[timing] stereobm_true {label(KITTI)}: the plain torch SAD sums "
+          f"(block 21) {t} ms of the frame ({card})")
+    del lp, rp
+    # ELAS by stage: the device stages by CUDA events, the host stage
+    # (support selection, Delaunay, rasterisation) by the host clock
+    words_e = elas._census_pair(left, right, (5, 5))
+    scores = elas._support_scores(left, right, D, grid_step=ecfg.grid_step,
+                                  words=words_e)
+    t_sup = cuda_ms(lambda: elas._support_scores(
+        left, right, D, grid_step=ecfg.grid_step, words=words_e), 5)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        support = elas.extract_support_points(left, right, ecfg, D,
+                                              scores=scores)
+        tris = native.delaunay(support[:, :2])
+        mu_np = native.rasterize_planes(tris, support, KITTI["H"],
+                                        KITTI["W"])
+    t_host = (time.perf_counter() - t0) / 3 * 1e3
+    t_del = time.perf_counter()
+    native.delaunay(support[:, :2])
+    t_del = (time.perf_counter() - t_del) * 1e3
+    mu = elas._extend_prior(torch.from_numpy(mu_np).to(dev))
+    t_ext = cuda_ms(lambda: elas._extend_prior(
+        torch.from_numpy(mu_np).to(dev)), 5)
+    dense_kw = dict(band_radius=ecfg.band_radius,
+                    band_pool_radius=ecfg.band_pool_radius,
+                    prior_weight=ecfg.prior_weight,
+                    prior_sigma=ecfg.prior_sigma,
+                    prior_trunc=ecfg.prior_trunc, lr_tol=ecfg.lr_tol,
+                    words=words_e)
+    t_dense = cuda_ms(lambda: elas._dense_banded(left, right, mu, D,
+                                                 **dense_kw), 3)
+    dense = elas._dense_banded(left, right, mu, D, **dense_kw)
+    t_fill = cuda_ms(lambda: elas.median_filter(elas.gap_interpolate(
+        dense, ecfg.gap_max, ecfg.discont_jump, (left, right),
+        ecfg.visibility_thresh), 3), 5)
+    print(f"[timing] elas {label(KITTI)} by stage: K1 {ms.get('census_words')}"
+          f" ms; support scores (K2 on every {ecfg.grid_step}th row, K4 "
+          f"entries) {t_sup} ms; host (selection, Delaunay of "
+          f"{len(support)} points, rasterisation) {t_host} ms, of it "
+          f"Delaunay {t_del} ms; prior extension {t_ext} ms; dense banded "
+          f"stage ({D} planes, K2 a plane, K4 lr_mask) {t_dense} ms; gap "
+          f"fill + median {t_fill} ms ({card})")
+    del words_e, scores, mu, dense
+    lr_tol = ecfg.lr_tol
+    ms["lr_mask lr_tol=2.0"] = cuda_ms(
+        lambda: K.lr_mask(disp, disp_right, lr_tol), 20)
+    plain_ms["lr_mask lr_tol=2.0"] = cuda_ms(
+        lambda: K.lr_mask_plain(disp, disp_right, lr_tol), 5)
+    del words79, wT79
+
     # the MC-CNN paths, K8 per layer and K9 (KITTI shape)
     def conv_cudnn(x, w, b):
         with K._fp32_cudnn():
@@ -1134,7 +1452,8 @@ def main() -> int:
     # launches: K1-K4 from the headline run (phase 4), K5-K7 from the KITTI
     # speckle + WLS run (phase 4b), K8-K9 from the fast MC-CNN run (4d),
     # K10 from the census-payload stream and K4's wta_stats, right_wta and
-    # lr_mask entries from extract_disparity_fast (4e)
+    # lr_mask entries from extract_disparity_fast (4e); K1, K2 at 7x9 from
+    # the 7x9 matcher and lr_mask at lr_tol from the ELAS run (4f)
     path_counts = {**post_counts["speckle+wls"],
                    **{k: counts[k] for k in MAIN_PATH},
                    "mccnn_conv3x3": mc_counts["fast"]["mccnn_conv3x3"],
@@ -1142,7 +1461,12 @@ def main() -> int:
                    "census_scan": stream_counts["census"]["census_scan"],
                    "wta_stats": fast_counts["wta_stats"],
                    "right_wta": fast_counts["right_wta"],
-                   "lr_mask": fast_counts["lr_mask"]}
+                   "lr_mask": fast_counts["lr_mask"],
+                   "census_words 7x9": other_counts["census 7x9"][
+                       "census_words"],
+                   "census_volume 7x9": other_counts["census 7x9"][
+                       "census_volume"],
+                   "lr_mask lr_tol=2.0": other_counts["elas"]["lr_mask"]}
     # bounds at the shapes timed above: KITTI D=128 float32, each input
     # read once and each output written once; K3 the mean of a frame's 8
     # launches (the first writes the total without reading it); K8 the mean
@@ -1172,6 +1496,9 @@ def main() -> int:
         "mccnn_volume": bound(2 * F_fast * HW * 4 + vol_b,
                               2 * F_fast * KITTI["D"] * HW),
         "census_scan": bound(2 * HW * 4 + 2 * vol_b),
+        "census_words 7x9": bound(2 * HW * 4 + 2 * 2 * HW * 4),
+        "census_volume 7x9": bound(2 * 2 * HW * 4 + vol_b),
+        "lr_mask lr_tol=2.0": bound(2 * HW * 4 + HW),
     }
     library_ms = {name: None for name in KERNELS}
     library_ms["mccnn_conv3x3"] = (

@@ -15,6 +15,8 @@ import torch
 from stereo_match_tpu_torch.config import DisparityConfig
 from stereo_match_tpu_torch.models.mccnn import (MCCNNFeatures,
                                                  mccnn_cost_volume)
+from stereo_match_tpu_torch.ops.cost_volume import (build_cost_volume,
+                                                    check_min_disparity)
 from stereo_match_tpu_torch.ops.cuda_kernels import (census_volume,
                                                      census_words)
 
@@ -25,26 +27,36 @@ class CostProvider(Protocol):
         """Grayscale pair -> (D, H, W) cost volume."""
 
 
+def census_cost(left: torch.Tensor, right: torch.Tensor,
+                config: DisparityConfig, dtype="float32") -> torch.Tensor:
+    """Census words of both views (K1), then the Hamming volume (K2), any
+    odd window (``ceil((wh * ww - 1) / 32)`` words), float32 or int16."""
+    check_min_disparity(config.min_disparity)
+    imgs = torch.stack([left, right]).to(torch.float32).contiguous()
+    words = census_words(imgs, config.census_window)
+    return census_volume(words[0], words[1], config.num_disparities,
+                         config.min_disparity, dtype=dtype)
+
+
 @dataclass(frozen=True)
 class ClassicCost:
-    """Census words of both views (K1), then the Hamming volume (K2).
+    """census | sad | ssd | bt, as the JAX provider: always float32.
 
-    The volume is float32, or int16 with ``config.dtype == "int16"``. The
-    other classic families (sad, ssd, bt) are not ported.
+    Census runs on K1 and K2; sad, ssd and bt are plain torch
+    (``ops/cost_volume.py``), as they are XLA in the JAX package.
     """
     config: DisparityConfig
 
     def __call__(self, left: torch.Tensor,
                  right: torch.Tensor) -> torch.Tensor:
         c = self.config
-        if c.cost != "census":
-            raise NotImplementedError(
-                f"cost={c.cost!r} is not ported yet (ROADMAP.md, queue 1 "
-                "item 9: other costs and matchers)")
-        imgs = torch.stack([left, right]).to(torch.float32).contiguous()
-        words = census_words(imgs, c.census_window)
-        return census_volume(words[0], words[1], c.num_disparities,
-                             c.min_disparity, dtype=c.dtype)
+        if c.cost == "census":
+            return census_cost(left, right, c)
+        return build_cost_volume(
+            left, right, num_disparities=c.num_disparities,
+            min_disparity=c.min_disparity, cost=c.cost,
+            block_size=c.block_size, window=c.census_window,
+            pre_filter_cap=c.pre_filter_cap)
 
 
 @dataclass(frozen=True)

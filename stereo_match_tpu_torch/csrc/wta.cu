@@ -82,13 +82,15 @@ __device__ int right_argmin(const T* __restrict__ row, size_t plane, int D,
 }
 
 // The disp12 check of pixel x: rint(x - dl) in frame and
-// |dl - s_right[rint(x - dl)]| <= tol (NaN dl -> false).
+// |dl - s_right[rint(x - dl)]| <= tol (NaN dl -> false). The tolerance is a
+// float, as lr_mask_pallas takes it (ELAS's lr_tol); wta_lr passes its
+// integer disp12_max_diff.
 __device__ bool disp12_ok(float dl, const float* s_right, int x, int W,
-                          int tol) {
+                          float tol) {
   const float xr = rintf((float)x - dl);
   const bool inframe = xr >= 0.f && xr < (float)W;   // NaN -> false
   const float dr = s_right[inframe ? (int)xr : 0];
-  return inframe && fabsf(dl - dr) <= (float)tol;
+  return inframe && fabsf(dl - dr) <= tol;
 }
 
 template <typename T>
@@ -132,7 +134,7 @@ __global__ void wta_lr_kernel(const T* __restrict__ tot,
     const float dl = s_left[x];
     const bool ok = s_unique[x] && (disp12_max_diff < 0 ||
                                      disp12_ok(dl, s_right, x, W,
-                                               disp12_max_diff));
+                                               (float)disp12_max_diff));
     disp[(size_t)y * W + x] = ok ? dl : __int_as_float(0x7fc00000);
   }
 }
@@ -174,14 +176,14 @@ __global__ void right_wta_kernel(const T* __restrict__ tot,
 
 __global__ void lr_mask_kernel(const float* __restrict__ disp,
                                const float* __restrict__ disp_right,
-                               bool* __restrict__ mask, int W, int tol) {
+                               bool* __restrict__ mask, int W, float tol) {
   extern __shared__ float s_right[];           // [W] the row of disp_right
   const size_t at = (size_t)blockIdx.x * W;
   for (int x = threadIdx.x; x < W; x += blockDim.x)
     s_right[x] = disp_right[at + x];
   __syncthreads();
   for (int x = threadIdx.x; x < W; x += blockDim.x)
-    mask[at + x] = tol < 0 || disp12_ok(disp[at + x], s_right, x, W, tol);
+    mask[at + x] = tol < 0.f || disp12_ok(disp[at + x], s_right, x, W, tol);
 }
 
 // Raise the kernel's dynamic shared memory limit where it needs more than
@@ -251,10 +253,11 @@ extern "C" int smt_right_wta(const void* tot, int* ridx, int D, int H, int W,
 }
 
 // disp, disp_right: (H, W) float32 (the left map before the check, NaN
-// allowed; the right-view map); mask: (H, W) bool, the disp12 check (all
-// true for tol < 0).
+// allowed; the right-view map); mask: (H, W) bool, the disp12 check at the
+// float tolerance tol (all true for tol < 0).
 extern "C" int smt_lr_mask(const float* disp, const float* disp_right,
-                           bool* mask, int H, int W, int tol, void* stream) {
+                           bool* mask, int H, int W, float tol,
+                           void* stream) {
   const size_t smem = (size_t)W * sizeof(float);
   const cudaError_t err = allow_smem(lr_mask_kernel, smem);
   if (err != cudaSuccess) return (int)err;

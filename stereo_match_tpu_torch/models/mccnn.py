@@ -10,8 +10,8 @@ tensors.
 The TPU's weight stacks (``_tower_weight_stacks``) and its fused
 tower + volume kernel (``mccnn_cost_volume_fused``) are MXU layout and
 fusion; K8 then K9 compute what they compute. Training, the sharding
-rules and the orbax checkpoints are not ported (ROADMAP.md, queue 1 items
-14 and 16).
+rules and the orbax checkpoints are not ported (ROADMAP.md, queue 1 item
+6).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from stereo_match_tpu_torch.ops.cost_volume import check_min_disparity
 from stereo_match_tpu_torch.ops.cuda_kernels import (mccnn_conv3x3,
                                                      mccnn_volume,
                                                      mccnn_weight_layout)
@@ -116,12 +117,8 @@ def mccnn_cost_volume(model: MCCNNFeatures, left: torch.Tensor,
     if use_bf16:
         raise NotImplementedError(
             "use_bf16=True is not ported: the port's tower is float32 "
-            "(3xTF32 on the tensor cores; ROADMAP.md, queue 2: perf_opt "
-            "items for the ported MC-CNN kernels, use_bf16)")
-    if min_disparity < 0:
-        raise NotImplementedError(
-            "min_disparity < 0 is not ported (ROADMAP.md, queue 1 item 9: "
-            "other costs and matchers)")
+            "(3xTF32 on the tensor cores; ROADMAP.md, queue 2 item 3)")
+    check_min_disparity(min_disparity)
     imgs = torch.stack([normalize_image(left), normalize_image(right)])
     feats = model(imgs)
     return mccnn_volume(feats[0], feats[1], num_disparities, min_disparity,

@@ -2,8 +2,11 @@
 launch counts.
 
 =====  ======================  ===========================================
-K1     ``census_words``        csrc/census.cu       (census_words_pallas)
+K1     ``census_words``        csrc/census.cu       (census_words_pallas;
+                                                     windows over 33 pixels
+                                                     in several words)
 K2     ``census_volume``       csrc/cost_volume.cu  (census_volume_pallas,
+                                                     one or more words,
                                                      float32 or int16;
                                                      census_volume_T_pallas,
                                                      ``transposed=True``)
@@ -19,7 +22,8 @@ K4     ``wta_lr``              csrc/wta.cu          (the WTA statistics of
                                                      lr_mask_pallas fused)
        ``wta_stats``           csrc/wta.cu          (wta_stats_pallas)
        ``right_wta``           csrc/wta.cu          (right_wta_pallas)
-       ``lr_mask``             csrc/wta.cu          (lr_mask_pallas)
+       ``lr_mask``             csrc/wta.cu          (lr_mask_pallas, float
+                                                     tolerance)
 K5     ``speckle_sweep``       csrc/speckle.cu      (the labels of
                                                      speckle_filter_pallas)
 K6     ``speckle_count_keep``  csrc/speckle.cu      (the sizes and threshold
@@ -173,12 +177,12 @@ def _library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         signatures = {
             "smt_census_words": [p, p, i, i, i, i, i, p],
-            "smt_census_volume": [p, p, p, i, i, i, i, i, i, p],
+            "smt_census_volume": [p, p, p, i, i, i, i, i, i, i, p],
             "smt_sgm_path_scan": [p, p, p, p, i, i, i, i, i, f, f, i, i, p],
             "smt_wta_lr": [p, p, p, i, i, i, i, i, i, i, i, p],
             "smt_wta_stats": [p, p, p, p, p, p, i, i, i, i, p],
             "smt_right_wta": [p, p, i, i, i, i, p],
-            "smt_lr_mask": [p, p, p, i, i, i, p],
+            "smt_lr_mask": [p, p, p, i, i, f, p],
             "smt_census_scan": [p, p, p, i, i, i, i, f, f, f, i, i, p],
             "smt_speckle_sweep": [p, p, i, i, i, p, p],
             "smt_speckle_count_keep": [p, p, p, p, i, i, i, i, p],
@@ -238,33 +242,52 @@ def _check_volume(t: torch.Tensor, name: str, ndim: int = 3) -> bool:
     return t.dtype == torch.int16
 
 
+def n_census_words(window: tuple[int, int]) -> int:
+    """The int32 words of a census window: ceil((wh * ww - 1) / 32)."""
+    return -(-(window[0] * window[1] - 1) // 32)
+
+
 def _check_window(window: tuple[int, int]) -> tuple[int, int]:
     wh, ww = window
     if wh % 2 == 0 or ww % 2 == 0:
         raise ValueError("census window must be odd in both dimensions")
-    if wh * ww - 1 > 32:
-        raise ValueError(f"census window {window} needs {wh * ww - 1} bits; "
-                         "K1/K2 pack one 32-bit word")
+    if wh * ww < 2:
+        raise ValueError(f"census window {window} has no neighbour")
     return wh, ww
+
+
+def _check_words(t: torch.Tensor, name: str) -> torch.Tensor:
+    """Contiguous int32 census words, (R, C) for one word or (nw, R, C);
+    returned as (nw, R, C)."""
+    if t.dim() == 2:
+        t = t[None]
+    _check(t, name, torch.int32, 3)
+    return t
 
 
 # ------------------------------------------------------- K1 census_words ----
 
 def census_words_plain(imgs: torch.Tensor,
                        window: tuple[int, int] = (5, 5)) -> torch.Tensor:
-    """(V, H, W) float32 views -> (V, H, W) int32 single-word census."""
-    return torch.stack([census_transform(img, window)[..., 0] for img in imgs])
+    """(V, H, W) float32 views -> (V, nw, H, W) int32 census words."""
+    return torch.stack([census_transform(img, window).permute(2, 0, 1)
+                        for img in imgs]).contiguous()
 
 
 def census_words(imgs: torch.Tensor,
                  window: tuple[int, int] = (5, 5)) -> torch.Tensor:
-    """(V, H, W) float32 views -> (V, H, W) int32 single-word census (K1)."""
+    """(V, H, W) float32 views -> (V, nw, H, W) int32 census words (K1).
+
+    ``nw = n_census_words(window)``: bit k of the descriptor is bit k % 32
+    of word k // 32 (``ops/census.py::census_transform``'s packing).
+    """
     wh, ww = _check_window(window)
     _check(imgs, "imgs", torch.float32, 3)
     if _on_cpu(imgs):
         return census_words_plain(imgs, window)
     V, H, W = imgs.shape
-    out = torch.empty((V, H, W), dtype=torch.int32, device=imgs.device)
+    out = torch.empty((V, n_census_words(window), H, W), dtype=torch.int32,
+                      device=imgs.device)
     _launch("census_words", imgs.device, _ptr(imgs), _ptr(out), V, H, W,
             wh, ww)
     return out
@@ -276,39 +299,41 @@ def census_volume_plain(cl: torch.Tensor, cr: torch.Tensor,
                         num_disparities: int, min_disparity: int = 0,
                         dtype=torch.float32,
                         transposed: bool = False) -> torch.Tensor:
-    """(H, W) int32 census words of both views -> (D, H, W) volume.
+    """(H, W) or (nw, H, W) int32 census words of both views -> (D, H, W)
+    volume.
 
-    ``transposed``: (W, H) words -> the (D, W, H) volume.
+    ``transposed``: (W, H) or (nw, W, H) words -> the (D, W, H) volume.
     """
     build = census_volume_T_from_words if transposed \
         else census_volume_from_words
-    return build(cl[None], cr[None], num_disparities, min_disparity, dtype)
+    cl, cr = (w[None] if w.dim() == 2 else w for w in (cl, cr))
+    return build(cl, cr, num_disparities, min_disparity, dtype)
 
 
 def census_volume(cl: torch.Tensor, cr: torch.Tensor, num_disparities: int,
                   min_disparity: int = 0, dtype=torch.float32,
                   transposed: bool = False) -> torch.Tensor:
-    """(H, W) int32 census words of both views -> (D, H, W) volume (K2).
+    """(nw, H, W) int32 census words of both views -> (D, H, W) volume (K2).
 
-    Hamming cost of ``cl[y, x]`` against ``cr[y, x - d]``; where x < d, 1e4
-    (``dtype`` float32) or 1024 (int16). With ``transposed`` the words are
-    (W, H) and the volume is (D, W, H), as ``census_volume_T_pallas``
-    builds it for the horizontal scans.
+    Hamming cost of ``cl[:, y, x]`` against ``cr[:, y, x - d]``, summed over
+    the ``nw`` words; where x < d, 1e4 (``dtype`` float32) or 1024 (int16).
+    A single word may come as an (H, W) tensor. With ``transposed`` the
+    words are (nw, W, H) and the volume is (D, W, H), as
+    ``census_volume_T_pallas`` builds it for the horizontal scans.
     """
     if min_disparity < 0:
         raise ValueError("census_volume needs min_disparity >= 0")
     dt = volume_dtype(dtype)
-    _check(cl, "cl", torch.int32, 2)
-    _check(cr, "cr", torch.int32, 2)
+    cl, cr = _check_words(cl, "cl"), _check_words(cr, "cr")
     if cl.shape != cr.shape:
         raise ValueError(f"census images differ: {cl.shape} vs {cr.shape}")
     if _on_cpu(cl, cr):
         return census_volume_plain(cl, cr, num_disparities, min_disparity, dt,
                                    transposed)
-    R, C = cl.shape
+    nw, R, C = cl.shape
     out = torch.empty((num_disparities, R, C), dtype=dt, device=cl.device)
     _launch("census_volume", cl.device, _ptr(cl), _ptr(cr), _ptr(out), R, C,
-            num_disparities, min_disparity, int(transposed),
+            nw, num_disparities, min_disparity, int(transposed),
             int(dt == torch.int16))
     return out
 
@@ -512,18 +537,19 @@ def right_wta(total: torch.Tensor) -> torch.Tensor:
 
 
 def lr_mask_plain(disp: torch.Tensor, disp_right: torch.Tensor,
-                  disp12_max_diff: int) -> torch.Tensor:
+                  disp12_max_diff: float) -> torch.Tensor:
     """(H, W) bool disp12 check of ``ops/wta.py::lr_consistency_mask``."""
     return lr_consistency_mask(disp, disp_right, disp12_max_diff)
 
 
 def lr_mask(disp: torch.Tensor, disp_right: torch.Tensor,
-            disp12_max_diff: int) -> torch.Tensor:
+            disp12_max_diff: float) -> torch.Tensor:
     """The disp12 check of (H, W) float32 maps -> (H, W) bool (K4).
 
     True where ``xr = round(x - disp)`` (half to even) lies in the frame
     and ``|disp - disp_right[xr]| <= disp12_max_diff``; NaN ``disp`` gives
-    False; ``disp12_max_diff < 0`` gives all True.
+    False; ``disp12_max_diff < 0`` gives all True. The tolerance is a float
+    (rounded to float32), as ``lr_mask_pallas`` takes ELAS's ``lr_tol``.
     """
     _check(disp, "disp", torch.float32, 2)
     _check(disp_right, "disp_right", torch.float32, 2)
@@ -535,7 +561,7 @@ def lr_mask(disp: torch.Tensor, disp_right: torch.Tensor,
     H, W = disp.shape
     mask = torch.empty((H, W), dtype=torch.bool, device=disp.device)
     _launch("lr_mask", disp.device, _ptr(disp), _ptr(disp_right), _ptr(mask),
-            H, W, int(disp12_max_diff))
+            H, W, float(disp12_max_diff))
     return mask
 
 
@@ -928,7 +954,7 @@ def census_scan_plain(cl: torch.Tensor, cr: torch.Tensor, total: torch.Tensor,
                       accumulate: bool) -> torch.Tensor:
     """K2's volume with ``invalid_cost`` at x < d, scanned along (0, +-1)."""
     D, H, W = total.shape
-    vol = census_volume_from_words(cl[None], cr[None], D, min_disparity)
+    vol = census_volume_plain(cl, cr, D, min_disparity)
     vol.masked_fill_(_invalid_mask(W, D, min_disparity, cl.device),
                      invalid_cost)
     return sgm_path_scan_plain(vol, total, 0, -1 if reverse else 1, p1, p2,
@@ -941,7 +967,8 @@ def census_scan(cl: torch.Tensor, cr: torch.Tensor, total: torch.Tensor,
                 accumulate: bool = False) -> torch.Tensor:
     """One horizontal SGM scan with costs rebuilt from census words (K10).
 
-    ``cl``, ``cr``: (H, W) int32 single-word census of both views;
+    ``cl``, ``cr``: (H, W) or (1, H, W) int32 single-word census of both
+    views;
     ``total``: (D, H, W) float32, updated in place (added into, or with
     ``accumulate=False`` written) and returned. The cost of disparity
     ``d = min_disparity + i`` at x is ``popc(cl[y, x] ^ cr[y, x - d])``,
@@ -950,8 +977,11 @@ def census_scan(cl: torch.Tensor, cr: torch.Tensor, total: torch.Tensor,
     """
     if min_disparity < 0:
         raise ValueError("census_scan needs min_disparity >= 0")
-    _check(cl, "cl", torch.int32, 2)
-    _check(cr, "cr", torch.int32, 2)
+    cl, cr = _check_words(cl, "cl"), _check_words(cr, "cr")
+    if cl.shape[0] != 1 or cr.shape[0] != 1:
+        raise ValueError("census_scan takes single-word census (at most 33 "
+                         "pixels a window)")
+    cl, cr = cl[0], cr[0]
     _check(total, "total", torch.float32, 3)
     if cl.shape != cr.shape or tuple(total.shape[1:]) != tuple(cl.shape):
         raise ValueError(f"census images {tuple(cl.shape)}, "

@@ -11,8 +11,8 @@ the stages run one after another.
 Stage decomposition (the JAX package's):
 
 ====  =====================================================================
-  0   census words (K1) -> (D, W, H) volume (K2, transposed) + horizontal
-      forward scan (K3 along the volume's rows)
+  0   census words (K1, one or more) -> (D, W, H) volume (K2, transposed)
+      + horizontal forward scan (K3 along the volume's rows)
   1   horizontal reverse scan; transpose to the planes layout (D, H, W)
   2   vertical + diagonal downward scans (K3: S, SE, SW)
   3   upward scans (K3: N, NW, NE); WTA, uniqueness, subpixel, disp12
@@ -46,6 +46,7 @@ from stereo_match_tpu_torch.ops.cost_volume import (INVALID_COST,
 from stereo_match_tpu_torch.ops.cuda_kernels import (census_scan,
                                                      census_volume,
                                                      census_words,
+                                                     n_census_words,
                                                      sgm_path_scan, wta_lr)
 from stereo_match_tpu_torch.ops.sgm import PATH_DIRECTIONS_8
 from stereo_match_tpu_torch.ops.speckle import speckle_filter
@@ -68,7 +69,7 @@ def _check_stages(cfg: DisparityConfig, n_stages: int) -> None:
 
 
 def _words(left: torch.Tensor, right: torch.Tensor, window) -> torch.Tensor:
-    """(2, H, W) int32 single-word census of both views (K1)."""
+    """(2, nw, H, W) int32 census words of both views (K1)."""
     return census_words(torch.stack([left, right]).contiguous(), window)
 
 
@@ -114,8 +115,8 @@ def make_stage_fns(cfg: DisparityConfig, image_shape: tuple[int, int],
     D = cfg.num_disparities
 
     def build_hfwd(payload, left, right):
-        wT = _words(left, right, cfg.census_window).transpose(1, 2)
-        wT = wT.contiguous()                                 # (2, W, H)
+        wT = _words(left, right, cfg.census_window).transpose(2, 3)
+        wT = wT.contiguous()                                 # (2, nw, W, H)
         volT = census_volume(wT[0], wT[1], D, cfg.min_disparity,
                              transposed=True)
         if invalid_clamp is not None:
@@ -143,10 +144,6 @@ def make_stage_fns(cfg: DisparityConfig, image_shape: tuple[int, int],
     return units if n_stages == 4 else _compose(units)
 
 
-def _n_census_words(window) -> int:
-    return -(-(window[0] * window[1] - 1) // 32)
-
-
 def make_stage_fns_census(cfg: DisparityConfig, image_shape: tuple[int, int],
                           n_stages: int, invalid_clamp: float | None = None):
     """The census-payload stages: ``(tot, words, left, right) -> (tot,
@@ -156,7 +153,7 @@ def make_stage_fns_census(cfg: DisparityConfig, image_shape: tuple[int, int],
     on, each stage rebuilds what it needs: stages 0 and 1 run the
     census-fused horizontal scans (K10, no volume at all), stages 2 and 3
     rebuild the planes-layout volume (K2). ``tot``: (D, H, W) float32;
-    ``words``: (2, H, W) int32 (both views); both None into stage 0.
+    ``words``: (2, 1, H, W) int32 (both views); both None into stage 0.
     ``invalid_clamp`` is the x < d sentinel of the scans and the clamp of
     the rebuilt volumes.
     """
@@ -266,7 +263,7 @@ class StreamingPipeline:
         H, W = self.image_shape
         plane = self.config.num_disparities * H * W * self._wire.itemsize
         if self.payload_mode == "census":
-            words = _n_census_words(self.config.census_window)
+            words = n_census_words(self.config.census_window)
             return plane + 2 * words * H * W * 4
         return 2 * plane
 

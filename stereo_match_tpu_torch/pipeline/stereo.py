@@ -1,14 +1,17 @@
-"""The stereo pipeline (PyTorch): census or MC-CNN cost, SGM, post stack.
+"""The stereo pipeline (PyTorch): classic or MC-CNN cost, SGM, post stack.
 
 Counterpart of ``stereo_match_tpu/pipeline/stereo.py``: ``_match_core``
-(census, or the volume of any ``cost_fn`` such as ``costs.MCCNNCost``) with
-its post stack, :class:`StereoMatcher` (with ``batched``), the LRU-cached
-:func:`compute_disparity` with its int16 disparity*16 contract, and the
-flagship flow :func:`run_pipeline` (rectify from poses -> match -> WLS ->
-reproject -> PLY).
+(census, sad, ssd or bt, or the volume of any ``cost_fn`` such as
+``costs.MCCNNCost``) with its post stack, :class:`StereoMatcher` (with
+``batched``), the LRU-cached :func:`compute_disparity` with its int16
+disparity*16 contract (``method="SGBM"``, or ``"BM"`` for the true StereoBM
+of ``pipeline/block_matching.py``), and the flagship flow
+:func:`run_pipeline` (rectify from poses -> match -> WLS -> reproject ->
+PLY).
 
 The matching path runs on the kernels of ``ops/cuda_kernels.py``: census
-words of both views (K1) and the (D, H, W) Hamming volume (K2), or with
+words of both views (K1, one or more words) and the (D, H, W) Hamming
+volume (K2), or the plain torch sad, ssd or bt volume, or with
 ``costs.MCCNNCost`` the feature tower (K8, one launch per layer) and the
 feature-dot volume (K9); then one SGM scan per path direction added into
 the total (K3, ``num_paths`` launches), WTA with subpixel, uniqueness and
@@ -19,14 +22,14 @@ versions; CUDA tensors run the kernels. The entry points run on the card
 (``device="cuda"``) unless the caller passes ``device="cpu"``; without a
 card they raise.
 
-The slice covers census costs with a single-word window (at most 33
-pixels) or a ``cost_fn`` volume, 2, 4 or 8 paths, any
-``min_disparity >= 0``, float32 or (census) int16 volumes, and the speckle
-and WLS post-filters; any other configuration raises
-``NotImplementedError`` naming its ROADMAP.md entry. ``dtype="int16"``
-runs K2, K3 and K4 on int16 volumes as the JAX package's XLA path does
-(INVALID 1024, P1 and P2 truncated to integers): half the memory of the
-float32 volumes; a ``cost_fn`` volume stays float32, as in JAX.
+Every cost family of the JAX package runs, census at any odd window, with
+2, 4 or 8 paths, float32 or (census) int16 volumes, and the speckle and
+WLS post-filters. A negative ``min_disparity`` raises ``ValueError``, as
+the reference does; a volume dtype other than float32 or int16 raises
+``NotImplementedError``. ``dtype="int16"`` runs K2, K3 and K4 on int16
+census volumes as the JAX package's XLA path does (INVALID 1024, P1 and P2
+truncated to integers): half the memory of the float32 volumes; the other
+families and a ``cost_fn`` volume stay float32, as in JAX.
 """
 
 from __future__ import annotations
@@ -39,12 +42,14 @@ import numpy as np
 import torch
 
 from stereo_match_tpu_torch.config import DisparityConfig
-from stereo_match_tpu_torch.costs import ClassicCost
+from stereo_match_tpu_torch.costs import ClassicCost, census_cost
 from stereo_match_tpu_torch.core.rectify import (RectificationResult,
                                                  rectify_pair)
 from stereo_match_tpu_torch.core.reproject import reproject_image_to_3d
 from stereo_match_tpu_torch.data.image import to_grayscale
 from stereo_match_tpu_torch.data.ply import write_ply
+from stereo_match_tpu_torch.ops.cost_volume import (COST_FAMILIES,
+                                                    check_min_disparity)
 from stereo_match_tpu_torch.ops.cuda_kernels import aggregate_paths, wta_lr
 from stereo_match_tpu_torch.ops.speckle import speckle_filter
 from stereo_match_tpu_torch.ops.wls import (wls_confidence_cv2,
@@ -75,26 +80,19 @@ def check_slice(cfg: DisparityConfig, cost_fn=None) -> None:
         if cfg.cost == "mccnn":
             raise ValueError("unknown cost family: mccnn (cost='mccnn' "
                              "needs cost_fn=costs.MCCNNCost(...))")
-        if cfg.cost != "census":
-            raise NotImplementedError(
-                f"cost={cfg.cost!r} is not ported yet (ROADMAP.md, queue 1 "
-                "item 9: other costs and matchers)")
+        if cfg.cost not in COST_FAMILIES:
+            raise ValueError(f"unknown cost family: {cfg.cost}")
         wh, ww = cfg.census_window
-        if wh * ww - 1 > 32:
-            raise NotImplementedError(
-                f"census window {cfg.census_window} needs several words; "
-                "the port's K1/K2 take one (ROADMAP.md, queue 2: multiword "
-                "census)")
+        if cfg.cost == "census" and (wh % 2 == 0 or ww % 2 == 0):
+            raise ValueError("census window must be odd in both dimensions")
     if cfg.num_paths not in (2, 4, 8):
         raise ValueError("num_paths must be 2, 4 or 8")
-    if cfg.min_disparity < 0:
-        raise NotImplementedError(
-            "min_disparity < 0 is not ported (ROADMAP.md, queue 1: other "
-            "costs and matchers)")
+    check_min_disparity(cfg.min_disparity)
     if cfg.dtype not in ("float32", "int16"):
         raise NotImplementedError(
             f"dtype={cfg.dtype!r}: the port builds float32 or int16 volumes "
-            "(ROADMAP.md, queue 1 item 9: other costs and volume types)")
+            "(the JAX package's census path also takes other types; "
+            "ROADMAP.md, section 3)")
 
 
 def _check_volume(vol, cfg: DisparityConfig, like: torch.Tensor) -> None:
@@ -119,17 +117,21 @@ def _match_core(left_gray: torch.Tensor, right_gray: torch.Tensor,
     """(H, W) images -> (raw, filtered) float32 disparities, NaN invalid.
 
     ``cost_fn`` overrides the cost family (e.g. a ``costs.MCCNNCost``);
-    without it, census on K1/K2. ``raw`` is the speckle-filtered WTA map;
-    ``filtered`` its WLS refinement (dense) when ``cfg.wls``, else ``raw``.
+    without it, census on K1/K2 (float32 or, with ``cfg.dtype="int16"``,
+    int16), or the float32 sad, ssd or bt volume (``ClassicCost``).
+    ``raw`` is the speckle-filtered WTA map; ``filtered`` its WLS
+    refinement (dense) when ``cfg.wls``, else ``raw``.
     """
     check_slice(cfg, cost_fn)
     left = left_gray.to(torch.float32)
     right = right_gray.to(torch.float32)
-    if cost_fn is None:
-        vol = ClassicCost(cfg)(left, right)
-    else:
+    if cost_fn is not None:
         vol = cost_fn(left, right)
         _check_volume(vol, cfg, left)
+    elif cfg.cost == "census":
+        vol = census_cost(left, right, cfg, cfg.dtype)
+    else:
+        vol = ClassicCost(cfg)(left, right)
     total = aggregate_paths(vol, cfg.P1, cfg.P2, cfg.num_paths)
     del vol                   # free the volumes before the post stack runs
     disp, disp_right = wta_lr(total, cfg.min_disparity, cfg.uniqueness_ratio,
@@ -192,19 +194,22 @@ def compute_disparity(gray_l, gray_r, config: DisparityConfig | None = None,
                       device: torch.device | str = "cuda"):
     """Reference-parity surface: (displ16, filtered16) int16 disparity*16.
 
-    ``method``: "SGBM" (census + SGM); "BM" (StereoBM) is not ported yet.
-    Returns numpy arrays, as the JAX package does.
+    ``method``: "SGBM" (the configured cost + SGM) or "BM" (the true
+    StereoBM of :class:`~stereo_match_tpu_torch.pipeline.block_matching.
+    BlockMatcher`: x-Sobel prefilter, SAD WTA, texture threshold). Returns
+    numpy arrays, as the JAX package does.
     """
     cfg = config or DisparityConfig()
     method = method.upper()
-    if method == "BM":
-        raise NotImplementedError("method='BM' (StereoBM) is not ported yet "
-                                  "(ROADMAP.md, queue 1: other costs and "
-                                  "matchers)")
     key = (repr(cfg), method, str(entry_device(device)))
     matcher = _MATCHER_CACHE.get(key)
     if matcher is None:
-        matcher = StereoMatcher(cfg, device=device)
+        if method == "BM":
+            from stereo_match_tpu_torch.pipeline.block_matching import \
+                BlockMatcher
+            matcher = BlockMatcher(cfg, device=device)
+        else:
+            matcher = StereoMatcher(cfg, device=device)
         _MATCHER_CACHE[key] = matcher
         while len(_MATCHER_CACHE) > _MATCHER_CACHE_CAP:
             _MATCHER_CACHE.popitem(last=False)

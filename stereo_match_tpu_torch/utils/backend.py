@@ -16,7 +16,8 @@ def entry_device(device: torch.device | str | int = "cuda") -> torch.device:
 
     Entry points (``StereoMatcher``, ``compute_disparity``,
     ``run_pipeline``, ``rectify_pair``, ``rectification_maps``,
-    ``external_volume_to_disparity``) default to ``"cuda"``; without a
+    ``external_volume_to_disparity``, ``BlockMatcher``, ``block_match``,
+    ``elas_match``) default to ``"cuda"``; without a
     CUDA device that raises ``RuntimeError`` instead of running on the CPU.
     """
     dev = torch.device("cuda", device) if isinstance(device, int) \

@@ -20,7 +20,11 @@ difference can flip a WTA decision. The int16 volumes (K2, K3, K4), the
 transposed K2, K3's carries, K4's wta_stats, right_wta and lr_mask entries
 and K10 (census-fused scan) are integer or K3-ordered float arithmetic and
 must be bit-equal; so must the row-sharded exact total and the 4-stage
-stream on one card against the single-card path.
+stream on one card against the single-card path, K1 and K2 on 2, 3 and 4
+census words and K4's lr_mask at fractional tolerances. The sad, ssd and
+bt volumes, StereoBM's sums and ELAS's dense stage are plain torch on both
+devices, whose float32 cumulative sums may round apart, so those matchers
+must agree with their CPU run on at least 99.5 % of the pixels.
 """
 
 import numpy as np
@@ -444,7 +448,7 @@ def test_census_volume_int16_and_transposed(dev, H, W, D, min_d, dtype,
                                             transposed):
     words = K.census_words(_images(H, W, dev, seed=1))
     if transposed:
-        words = words.transpose(1, 2).contiguous()
+        words = words.transpose(2, 3).contiguous()
     got = K.census_volume(words[0], words[1], D, min_d, dtype, transposed)
     want = K.census_volume_plain(words[0], words[1], D, min_d, dtype,
                                  transposed)
@@ -551,6 +555,90 @@ def test_lr_mask_kernel(dev, H, W, tol):
     torch.cuda.synchronize()
     assert got.dtype == torch.bool
     assert torch.equal(got, K.lr_mask_plain(dl, dr, tol))
+
+
+@pytest.mark.parametrize("tol", [1.0, 1.5, 2.0, 0.25])
+@pytest.mark.parametrize("H,W", [(20, 90), KITTI])
+def test_lr_mask_kernel_float_tolerance(dev, H, W, tol):
+    """ELAS's lr_tol is a float: quarter-pixel maps make |dl - dr| land on
+    and between the fractional tolerances."""
+    rng = np.random.default_rng(16)
+    dl = rng.integers(0, 512, (H, W)) / 4.0
+    dl[rng.random((H, W)) < 0.1] = np.nan
+    dr = rng.integers(0, 512, (H, W)) / 4.0
+    dl = torch.from_numpy(dl.astype(np.float32)).to(dev)
+    dr = torch.from_numpy(dr.astype(np.float32)).to(dev)
+    got = K.lr_mask(dl, dr, tol)
+    torch.cuda.synchronize()
+    want = K.lr_mask_plain(dl, dr, tol)
+    assert torch.equal(got, want)
+    assert not torch.equal(want, K.lr_mask_plain(dl, dr, int(tol))) \
+        or tol == int(tol)
+
+
+@pytest.mark.parametrize("window,nw", [((7, 9), 2), ((9, 9), 3),
+                                       ((9, 11), 4)])
+@pytest.mark.parametrize("H,W", [(37, 150), KITTI])
+def test_census_words_kernel_multiword(dev, H, W, window, nw):
+    imgs = _images(H, W, dev, seed=2)
+    got = K.census_words(imgs, window)
+    torch.cuda.synchronize()
+    assert got.shape == (2, nw, H, W)
+    assert torch.equal(got, K.census_words_plain(imgs, window))
+
+
+@pytest.mark.parametrize("window", [(7, 9), (9, 9)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("H,W,D,min_d", [(36, 150, 64, 3), (*KITTI, 128, 0)])
+def test_census_volume_kernel_multiword(dev, H, W, D, min_d, window, dtype,
+                                        transposed):
+    words = K.census_words(_images(H, W, dev, seed=3), window)
+    if transposed:
+        words = words.transpose(2, 3).contiguous()
+    got = K.census_volume(words[0], words[1], D, min_d, dtype, transposed)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert torch.equal(got, K.census_volume_plain(words[0], words[1], D,
+                                                  min_d, dtype, transposed))
+
+
+@pytest.mark.parametrize("kw", [dict(cost="bt"), dict(cost="sad"),
+                                dict(cost="ssd"), dict(census_window=(7, 9)),
+                                dict(census_window=(7, 9), dtype="int16")])
+def test_other_costs_on_card(dev, kw):
+    """The sad, ssd and bt volumes are plain torch on both devices (their
+    cumulative sums may round differently), the 7x9 census is K1/K2."""
+    gt = slanted_scene(48, 160, 3.0, 30.0)
+    left, right = random_dot_pair(48, 160, gt, blur=1.0, seed=1)
+    cfg = DisparityConfig(num_disparities=32, wls=False,
+                          speckle_window_size=0, **kw)
+    raw, _ = StereoMatcher(cfg, device=dev)(left, right)
+    want, _ = StereoMatcher(cfg, device="cpu")(left, right)
+    got = raw.cpu()
+    same = torch.isnan(got) == torch.isnan(want)
+    close = (got - want).abs().nan_to_num(0.0) <= 0.01
+    assert float((same & close).float().mean()) >= 0.995
+    if "census_window" in kw:
+        _assert_same_disparity(got, want)
+
+
+def test_block_matcher_and_elas_on_card(dev):
+    from stereo_match_tpu_torch.pipeline.block_matching import BlockMatcher
+    from stereo_match_tpu_torch.pipeline.elas import elas_match
+    gt = slanted_scene(64, 192, 3.0, 30.0)
+    left, right = random_dot_pair(64, 192, gt, blur=1.0, seed=1)
+    cfg = DisparityConfig(num_disparities=32, block_size=9, wls=False,
+                          speckle_window_size=0)
+    for got, want in ((BlockMatcher(cfg, device=dev)(left, right)[0].cpu(),
+                       BlockMatcher(cfg, device="cpu")(left, right)[0]),
+                      (torch.from_numpy(elas_match(left, right, 32,
+                                                   device=dev)),
+                       torch.from_numpy(elas_match(left, right, 32,
+                                                   device="cpu")))):
+        same = torch.isnan(got) == torch.isnan(want)
+        close = (got - want).abs().nan_to_num(0.0) <= 0.01
+        assert float((same & close).float().mean()) >= 0.995
 
 
 def test_int16_matcher_on_card(dev):

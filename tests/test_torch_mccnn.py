@@ -24,7 +24,9 @@ import numpy as np
 import pytest
 import torch
 
+import stereo_match_tpu.costs as jcosts
 import stereo_match_tpu.pipeline.stereo as jstereo
+from stereo_match_tpu import config as jconfig
 from stereo_match_tpu.costs import MCCNNCost as JaxMCCNNCost
 from stereo_match_tpu.data import costbin as jcostbin
 from stereo_match_tpu.data import synthetic as jsynthetic
@@ -342,8 +344,26 @@ def test_make_cost_provider(shipped):
         cfg, cost_fn=tcosts.ClassicCost(cfg), device="cpu")(left, right)
     plain, _ = tstereo.StereoMatcher(cfg, device="cpu")(left, right)
     _assert_same_disparity(census, plain, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcosts.ClassicCost(cfg.replace(cost="sad"))(left, right)
+    sad = tcosts.ClassicCost(cfg.replace(cost="sad"))(left, right)
+    assert sad.shape == (16, 10, 40) and sad.dtype == torch.float32
+
+
+def test_classic_cost_is_float32_on_an_int16_config():
+    """ClassicCost and make_cost_provider give JAX's float32 volume on an
+    int16 config; the matcher takes it as a cost_fn."""
+    kw = dict(num_disparities=16, dtype="int16", wls=False,
+              speckle_window_size=0)
+    cfg, jcfg = DisparityConfig(**kw), jconfig.DisparityConfig(**kw)
+    left, right = _images(12, 48, seed=11)
+    want = np.asarray(jcosts.make_cost_provider(jcfg)(jnp.asarray(left),
+                                                      jnp.asarray(right)))
+    for provider in (tcosts.ClassicCost(cfg), tcosts.make_cost_provider(cfg)):
+        got = provider(torch.from_numpy(left), torch.from_numpy(right))
+        assert got.dtype == torch.float32 and want.dtype == np.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+    raw, _ = tstereo.StereoMatcher(cfg, cost_fn=tcosts.ClassicCost(cfg),
+                                   device="cpu")(left, right)
+    assert raw.shape == (12, 48)
 
 
 def test_mccnn_path_raises_outside_the_slice(shipped):
@@ -352,7 +372,7 @@ def test_mccnn_path_raises_outside_the_slice(shipped):
     left, right = (torch.from_numpy(im) for im in _images(10, 40, seed=9))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmccnn.mccnn_cost_volume(model, left, right, 16, use_bf16=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="does not support"):
         tmccnn.mccnn_cost_volume(model, left, right, 16, min_disparity=-2)
     with pytest.raises(ValueError, match="unknown cost family: mccnn"):
         tstereo.StereoMatcher(cfg, device="cpu")

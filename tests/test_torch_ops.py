@@ -91,7 +91,8 @@ def test_census_words_plain_matches_pallas(H, W, window):
     want = np.asarray(census_words_pallas(jnp.stack([left, right]), window,
                                           interpret=True))
     got = K.census_words(torch.from_numpy(np.stack([left, right])), window)
-    np.testing.assert_array_equal(_np(got), want)
+    assert got.shape == (2, 1, H, W)                 # one word
+    np.testing.assert_array_equal(_np(got[:, 0]), want)
 
 
 def test_census_words_plain_32_bit_window():
@@ -103,7 +104,7 @@ def test_census_words_plain_32_bit_window():
     for v, img in ((0, left), (1, right)):
         want = np.asarray(jcensus.census_transform(jnp.asarray(img),
                                                    (3, 11)))[..., 0]
-        np.testing.assert_array_equal(got[v], want)
+        np.testing.assert_array_equal(got[v, 0], want)
     assert (got < 0).any()
 
 
@@ -136,10 +137,17 @@ def test_build_cost_volume_matches_jax(min_d, window):
 
 
 def test_build_cost_volume_other_costs_not_ported():
+    """Every family of the JAX package is ported (sad, ssd and bt are held
+    to it in tests/test_torch_matchers.py); an unknown family and a
+    negative min_disparity raise ValueError, as in the JAX package."""
     img = torch.zeros(8, 16)
     for cost in ("sad", "ssd", "bt"):
-        with pytest.raises(NotImplementedError):
-            tcv.build_cost_volume(img, img, 16, cost=cost)
+        vol = tcv.build_cost_volume(img, img, 16, cost=cost)
+        assert vol.shape == (16, 8, 16) and vol.dtype == torch.float32
+    with pytest.raises(ValueError, match="unknown cost family"):
+        tcv.build_cost_volume(img, img, 16, cost="mccnn")
+    with pytest.raises(ValueError, match="does not support"):
+        tcv.build_cost_volume(img, img, 16, min_disparity=-1)
 
 
 # ------------------------------------------------------------------ SGM ----
@@ -190,9 +198,9 @@ def test_sgm_aggregate_and_plain_k3_match_jax(window, num_paths):
 
 def _pallas_main_path(vol, words_l, words_r, D, min_d, p1, p2):
     """The TPU main path's aggregation (census-fused horizontal pair, scan3,
-    scan3 + stats) in interpret mode."""
-    clT = jnp.swapaxes(jnp.asarray(words_l)[None], 1, 2)
-    crT = jnp.swapaxes(jnp.asarray(words_r)[None], 1, 2)
+    scan3 + stats) in interpret mode; ``words_*``: (nw, H, W) K1 words."""
+    clT = jnp.swapaxes(jnp.asarray(words_l), 1, 2)
+    crT = jnp.swapaxes(jnp.asarray(words_r), 1, 2)
     return sgm_aggregate_wta_pallas(jnp.asarray(_np(vol)), p1, p2, 8,
                                     census_T=(clT, crT), min_disparity=min_d,
                                     interpret=True)
@@ -363,7 +371,7 @@ def test_wrappers_validate_inputs():
     with pytest.raises(ValueError):
         K.census_words(imgs.double())
     with pytest.raises(ValueError):
-        K.census_words(imgs, (7, 7))                  # 48 bits
+        K.census_words(imgs, (4, 5))                  # even window
     with pytest.raises(ValueError):
         K.census_words(imgs.transpose(1, 2))          # not contiguous
     words = torch.zeros(8, 16, dtype=torch.int32)

@@ -40,7 +40,7 @@ from stereo_match_tpu_torch.parallel import (StreamingPipeline,
                                              sgm_aggregate_sharded,
                                              volume_sharding)
 from stereo_match_tpu_torch.parallel.pipeline_stage import (
-    _n_census_words, make_stage_fns, make_stage_fns_census)
+    make_stage_fns, make_stage_fns_census)
 from stereo_match_tpu_torch.pipeline.stereo import StereoMatcher
 
 H, W, D = 32, 64, 16
@@ -268,7 +268,7 @@ def test_census_wire_is_smaller():
         pipe.step(*_frames(1)[0])
         held = sum(t.numel() * t.element_size() for t in pipe._state[1])
         assert held == pipe.wire_bytes()
-    assert _n_census_words((5, 5)) == 1 and _n_census_words((7, 7)) == 2
+    assert K.n_census_words((5, 5)) == 1 and K.n_census_words((7, 7)) == 2
 
 
 def test_stream_with_post_stack():

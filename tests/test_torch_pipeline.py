@@ -145,17 +145,20 @@ def test_config_rejects_what_jax_rejects():
         load_settings("/nonexistent/settings.ini")
 
 
-@pytest.mark.parametrize("kw", [
-    dict(cost="sad"), dict(cost="bt"), dict(cost="mccnn"),
-    dict(census_window=(7, 7)), dict(min_disparity=-2),
-    dict(dtype="float16")])
-def test_configs_outside_the_slice_raise(kw):
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(cost="mccnn"), ValueError, "unknown cost family: mccnn"),
+    (dict(cost="orb"), ValueError, "unknown cost family: orb"),
+    (dict(census_window=(4, 5)), ValueError, "odd"),
+    (dict(min_disparity=-2), ValueError, "does not support"),
+    (dict(cost="bt", min_disparity=-2), ValueError, "does not support"),
+    (dict(dtype="float16"), NotImplementedError, "ROADMAP")],
+    ids=[f"kw{i}" for i in range(6)])
+def test_configs_outside_the_slice_raise(kw, exc, match):
+    """cost="mccnn" needs a cost_fn; without one it is an unknown family,
+    as in JAX's build_cost_volume. A negative min_disparity raises as in
+    the reference."""
     cfg = DisparityConfig(num_disparities=16, **{**HEADLINE, **kw})
     img = torch.zeros(8, 32)
-    # cost="mccnn" needs a cost_fn; without one it is an unknown family, as
-    # in JAX's build_cost_volume
-    exc, match = (ValueError, "unknown cost family: mccnn") \
-        if cfg.cost == "mccnn" else (NotImplementedError, "ROADMAP")
     with pytest.raises(exc, match=match):
         tstereo.StereoMatcher(cfg, device="cpu")
     with pytest.raises(exc, match=match):
@@ -163,12 +166,14 @@ def test_configs_outside_the_slice_raise(kw):
 
 
 def test_default_config_and_bm_raise():
-    # DisparityConfig() (WLS on) is in the slice; BM and 3 paths are not
+    # DisparityConfig() (WLS on) and BM are in the slice; BM with a
+    # negative min_disparity and 3 paths are not
     assert tstereo.StereoMatcher(device="cpu").config == DisparityConfig()
     img = np.zeros((8, 32), np.float32)
-    with pytest.raises(NotImplementedError):
-        tstereo.compute_disparity(img, img, DisparityConfig(**HEADLINE),
-                                  method="BM", device="cpu")
+    with pytest.raises(ValueError, match="does not support"):
+        tstereo.compute_disparity(
+            img, img, DisparityConfig(min_disparity=-1, **HEADLINE),
+            method="BM", device="cpu")
     with pytest.raises(ValueError):
         tstereo.StereoMatcher(DisparityConfig(num_paths=3, **HEADLINE),
                               device="cpu")
@@ -176,8 +181,8 @@ def test_default_config_and_bm_raise():
 
 def test_port_imports_no_jax():
     """Every submodule of the port, then the census, MC-CNN (random
-    weights) and flagship paths on the CPU: neither JAX nor any module of
-    the JAX package gets loaded."""
+    weights), BT, BM, ELAS and flagship paths on the CPU: neither JAX nor
+    any module of the JAX package gets loaded."""
     code = (
         "import importlib, pkgutil, sys, numpy as np\n"
         "import stereo_match_tpu_torch as pkg\n"
@@ -189,7 +194,11 @@ def test_port_imports_no_jax():
         "'stereo_match_tpu_torch.models.mccnn', "
         "'stereo_match_tpu_torch.data.costbin', "
         "'stereo_match_tpu_torch.parallel.tiling', "
-        "'stereo_match_tpu_torch.parallel.pipeline_stage'}\n"
+        "'stereo_match_tpu_torch.parallel.pipeline_stage', "
+        "'stereo_match_tpu_torch.pipeline.block_matching', "
+        "'stereo_match_tpu_torch.pipeline.elas', "
+        "'stereo_match_tpu_torch.ops.filters', "
+        "'stereo_match_tpu_torch.native'}\n"
         "assert need <= set(names), need - set(names)\n"
         "from stereo_match_tpu_torch.config import DisparityConfig\n"
         "from stereo_match_tpu_torch.costs import MCCNNCost\n"
@@ -206,6 +215,15 @@ def test_port_imports_no_jax():
         "mc_cost = MCCNNCost(make_model('fast'), mc)\n"
         "raw, _ = StereoMatcher(mc, cost_fn=mc_cost, device='cpu')(l, r)\n"
         "assert raw.shape == (12, 40)\n"
+        "raw, _ = StereoMatcher(cfg.replace(cost='bt'), device='cpu')(l, r)\n"
+        "assert raw.shape == (12, 40)\n"
+        "from stereo_match_tpu_torch.pipeline.block_matching import "
+        "BlockMatcher\n"
+        "from stereo_match_tpu_torch.pipeline.elas import elas_match\n"
+        "raw, _ = BlockMatcher(cfg.replace(block_size=5), device='cpu')(l, r)\n"
+        "assert raw.shape == (12, 40)\n"
+        "e = rng.uniform(0, 255, (40, 64)).astype(np.float32)\n"
+        "assert elas_match(e, e, 16, device='cpu').shape == (40, 64)\n"
         "l, r = (rng.uniform(0, 255, (12, 176)).astype(np.float32) "
         "for _ in range(2))\n"
         "raw, filtered = StereoMatcher(device='cpu')(l, r)\n"
@@ -229,12 +247,16 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("entry", ["StereoMatcher", "compute_disparity",
                                    "run_pipeline", "rectify_pair",
                                    "rectification_maps",
-                                   "external_volume_to_disparity"])
+                                   "external_volume_to_disparity",
+                                   "BlockMatcher", "block_match",
+                                   "compute_disparity_bm", "elas_match"])
 def test_entry_points_default_to_the_card(entry):
     """Called without a device, each entry point asks for the card and,
     without one, raises instead of running on the CPU."""
     from stereo_match_tpu_torch.core import rectify as trectify
     from stereo_match_tpu_torch.data import costbin as tcostbin
+    from stereo_match_tpu_torch.pipeline import block_matching as tbm
+    from stereo_match_tpu_torch.pipeline import elas as telas
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     img = np.zeros((8, 32), np.float32)
@@ -253,6 +275,11 @@ def test_entry_points_default_to_the_card(entry):
         "external_volume_to_disparity":
             lambda: tcostbin.external_volume_to_disparity(
                 np.zeros((16, 8, 32), np.float32)),
+        "BlockMatcher": lambda: tbm.BlockMatcher(),
+        "block_match": lambda: tbm.block_match(img, img, 16),
+        "compute_disparity_bm": lambda: tstereo.compute_disparity(
+            img, img, method="BM"),
+        "elas_match": lambda: telas.elas_match(img, img, 16),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
