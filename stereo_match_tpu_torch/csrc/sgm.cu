@@ -60,6 +60,20 @@
 // that the rows of a 720p frame run in one wave.
 // Each (d, y, x) is visited once per direction, so nothing needs atomics
 // or an order between blocks.
+//
+// K10 census_scan is this walk too: it replaces
+// stereo_match_tpu/ops/pallas_kernels.py::sgm_census_scan_pallas
+// (_census_scan_padded, _sgm_scan_census_kernel), the horizontal scan of
+// the streaming pipeline's census-payload stages, whose costs are rebuilt
+// from the census words of both views. With CENSUS the row block stages
+// the row's words of both views in shared memory at the start, and the
+// staging warps fill each group's cost slot from them (the popcounts K2
+// would write) where they would copy K2's volume; they still move the
+// total. The line warp walks exactly as in K3's horizontal direction, on
+// two thirds of its device-memory traffic. The TPU kernel's ring
+// of right-view rows, its anti-identity reversal matmul and the <= 24-bit
+// word gate that matmul needed are Mosaic mechanics with no counterpart
+// here.
 
 #include <cuda_runtime.h>
 
@@ -267,14 +281,49 @@ __device__ void write_back(const Walk& w, int k, const T* slot,
   }
 }
 
-template <typename T, int DPL>
-__global__ void __launch_bounds__(DPL <= 6 ? 1024 : 384)
+// K10's costs: the census words of a row of both views, from which a
+// horizontal walk rebuilds C(d, y, x) = popc(cl[y, x] ^ cr[y, x - min_d - d])
+// as K2 computes it, or `invalid` where x < min_d + d.
+struct CensusCost {
+  const int* cl;
+  const int* cr;
+  int min_d;
+  float invalid;
+};
+
+// Fill the cost slot of group k (a horizontal walk, float) from the row's
+// census words staged in shared memory, by the n staging threads, t the
+// caller's index among them: the slot then holds what stage() copies from
+// K2's volume, and the line warp reads it as it reads a volume's.
+__device__ void fill_census(const Walk& w, int k, const CensusCost& census,
+                            const int* row_l, const int* row_r, float* slot,
+                            int t, int n) {
+  int y, xs;
+  if (!w.outer(k, 0, y, xs)) return;
+  for (int i = t; i < w.D * w.seg; i += n) {
+    const int d = i / w.seg, e = i % w.seg;
+    const int x = xs + e;
+    if (x < 0 || x >= w.W) continue;
+    const int xr = x - census.min_d - d;
+    slot[d * w.pitch + e] =
+        xr >= 0 ? (float)__popc((unsigned)(row_l[x] ^ row_r[xr]))
+                : census.invalid;
+  }
+}
+
+// CENSUS: the costs come from `census` (float, horizontal only; K10), not
+// from a volume; the block stages the row's words of both views (2 x 4 x W
+// bytes) beside the rings, and the staging warps fill the cost slots from
+// them instead of copying a volume's, and move the total.
+template <typename T, int DPL, bool CENSUS>
+__global__ void __launch_bounds__(CENSUS ? (kRowLines + kRowHelpers) * 32
+                                         : (DPL <= 6 ? 1024 : 384))
 sgm_path_scan_kernel(const T* __restrict__ cost, T* __restrict__ total,
                      const T* __restrict__ init_carry,
                      T* __restrict__ carry_out, int D, int H, int W, int dy,
                      int dx, typename Arith<T>::V p1,
                      typename Arith<T>::V p2, int accumulate, int G, int R,
-                     int lines) {
+                     int lines, CensusCost census) {
   using A = Arith<T>;
   using V = typename A::V;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -303,6 +352,16 @@ sgm_path_scan_kernel(const T* __restrict__ cost, T* __restrict__ total,
   const int slot_elems = w.outers() * D * w.pitch * per_word<T>();
   T* cost_ring = reinterpret_cast<T*>(smem_raw);
   T* total_ring = cost_ring + (size_t)R * slot_elems;
+  int* row_l = reinterpret_cast<int*>(total_ring + (size_t)R * slot_elems);
+  int* row_r = row_l + W;
+  if constexpr (CENSUS) {   // read by the staging warps' first fills
+    const size_t row = (size_t)w.base * W;
+    for (int i = threadIdx.x; i < W; i += blockDim.x) {
+      row_l[i] = census.cl[row + i];
+      row_r[i] = census.cr[row + i];
+    }
+    __syncthreads();
+  }
 
   // This line's position at step s; `in` when it is inside the frame.
   auto where = [&](int s, int& y, int& x) {
@@ -342,7 +401,10 @@ sgm_path_scan_kernel(const T* __restrict__ cost, T* __restrict__ total,
   auto stage_group = [&](int k) {
     if (k < groups) {
       const size_t at = (size_t)(k % R) * slot_elems;
-      stage<T>(w, k, cost, cost_ring + at, ht, hn);
+      if constexpr (CENSUS)
+        fill_census(w, k, census, row_l, row_r, cost_ring + at, ht, hn);
+      else
+        stage<T>(w, k, cost, cost_ring + at, ht, hn);
       if (accumulate) stage<T>(w, k, total, total_ring + at, ht, hn);
     }
     cp_async_commit();
@@ -432,11 +494,11 @@ sgm_path_scan_kernel(const T* __restrict__ cost, T* __restrict__ total,
   }
 }
 
-template <typename T, int DPL>
+template <typename T, int DPL, bool CENSUS>
 int launch_dpl(const void* cost, void* total, const void* init_carry,
                void* carry_out, int D, int H, int W, int dy, int dx,
                typename Arith<T>::V p1, typename Arith<T>::V p2,
-               int accumulate, cudaStream_t stream) {
+               int accumulate, CensusCost census, cudaStream_t stream) {
   using A = Arith<T>;
   int lines, helpers, blocks, G, R;
   size_t slot_bytes;
@@ -460,31 +522,32 @@ int launch_dpl(const void* cost, void* total, const void* init_carry,
     R = (int)(kRowSmemBudget / slot_bytes);
     R = R < 2 ? 2 : (R > 6 ? 6 : R);     // at most 4 groups in flight
   }
-  const size_t smem = R * slot_bytes;
+  const size_t smem = R * slot_bytes + (CENSUS ? 2 * (size_t)W * 4 : 0);
   if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
   // The attribute belongs to the current device: set it at every launch.
   const cudaError_t err = cudaFuncSetAttribute(
-      sgm_path_scan_kernel<T, DPL>,
+      sgm_path_scan_kernel<T, DPL, CENSUS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
   if (err != cudaSuccess) return (int)err;
-  sgm_path_scan_kernel<T, DPL>
+  sgm_path_scan_kernel<T, DPL, CENSUS>
       <<<blocks, (lines + helpers) * 32, smem, stream>>>(
           static_cast<const T*>(cost), static_cast<T*>(total),
           static_cast<const T*>(init_carry), static_cast<T*>(carry_out), D,
-          H, W, dy, dx, p1, p2, accumulate, G, R, lines);
+          H, W, dy, dx, p1, p2, accumulate, G, R, lines, census);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool CENSUS = false>
 int launch(const void* cost, void* total, const void* init_carry,
            void* carry_out, int D, int H, int W, int dy, int dx,
            typename Arith<T>::V p1, typename Arith<T>::V p2, int accumulate,
-           cudaStream_t stream) {
+           cudaStream_t stream, CensusCost census = {}) {
   const int need = (D + 31) / 32;
-#define SMT_DPL(N)                                                         \
-  if (need <= N)                                                           \
-    return launch_dpl<T, N>(cost, total, init_carry, carry_out, D, H, W,   \
-                            dy, dx, p1, p2, accumulate, stream);
+#define SMT_DPL(N)                                                          \
+  if (need <= N)                                                            \
+    return launch_dpl<T, N, CENSUS>(cost, total, init_carry, carry_out, D,  \
+                                    H, W, dy, dx, p1, p2, accumulate,       \
+                                    census, stream);
   SMT_DPL(1) SMT_DPL(2) SMT_DPL(3) SMT_DPL(4) SMT_DPL(5) SMT_DPL(6)
   SMT_DPL(8) SMT_DPL(12) SMT_DPL(16) SMT_DPL(24) SMT_DPL(32)
 #undef SMT_DPL
@@ -509,4 +572,21 @@ extern "C" int smt_sgm_path_scan(const void* cost, void* total,
                          (int)p1, (int)p2, accumulate, (cudaStream_t)stream);
   return launch<float>(cost, total, init_carry, carry_out, D, H, W, dy, dx,
                        p1, p2, accumulate, (cudaStream_t)stream);
+}
+
+// K10: cl, cr: (H, W) int32 single-word census of the left and right views;
+// total: (D, H, W) float32. One horizontal walk, dx = +1 or -1, with the
+// costs rebuilt from the words (invalid where x < min_d + d); accumulate =
+// 0 writes total = L. At invalid = 1e4 the totals equal K2's volume scanned
+// by K3 along (0, dx), bit for bit.
+extern "C" int smt_census_scan(const int* cl, const int* cr, float* total,
+                               int D, int H, int W, int min_d, float p1,
+                               float p2, float invalid, int dx,
+                               int accumulate, void* stream) {
+  if (D < 1 || D > kMaxD || H < 1 || W < 1 || min_d < 0 ||
+      (dx != 1 && dx != -1))
+    return (int)cudaErrorInvalidValue;
+  return launch<float, true>(nullptr, total, nullptr, nullptr, D, H, W, 0,
+                             dx, p1, p2, accumulate, (cudaStream_t)stream,
+                             CensusCost{cl, cr, min_d, invalid});
 }

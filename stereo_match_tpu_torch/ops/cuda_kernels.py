@@ -28,7 +28,10 @@ K5     ``speckle_sweep``       csrc/speckle.cu      (the labels of
                                                      speckle_filter_pallas)
 K6     ``speckle_count_keep``  csrc/speckle.cu      (the sizes and threshold
                                                      of speckle_filter_pallas)
-K7     ``fgs_solve``           csrc/wls.cu          (fgs_solve_pallas)
+K7     ``fgs_solve``           csrc/wls.cu          (fgs_solve_pallas; rows
+                                                     or columns of the slab
+                                                     as it lies, each line
+                                                     split into segments)
 K8     ``mccnn_conv3x3``       csrc/mccnn.cu        (mccnn_tower_pallas, the
                                                      tower of
                                                      mccnn_fused_volume_pallas;
@@ -40,7 +43,10 @@ K9     ``mccnn_volume``        csrc/mccnn.cu        (mccnn_volume_pallas,
                                                      mccnn_volume_flat_pallas,
                                                      the volume of
                                                      mccnn_fused_volume_pallas)
-K10    ``census_scan``         csrc/census_scan.cu  (sgm_census_scan_pallas)
+K10    ``census_scan``         csrc/sgm.cu          (sgm_census_scan_pallas;
+                                                     K3's horizontal walk on
+                                                     costs rebuilt from the
+                                                     census words)
 =====  ======================  ===========================================
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
@@ -87,7 +93,7 @@ from stereo_match_tpu_torch.ops.wta import (disparity_from_stats,
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("census.cu", "cost_volume.cu", "sgm.cu", "wta.cu",
-           "speckle.cu", "wls.cu", "mccnn.cu", "census_scan.cu")
+           "speckle.cu", "wls.cu", "mccnn.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
     "stereo_match_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -186,7 +192,7 @@ def _library() -> ctypes.CDLL:
             "smt_census_scan": [p, p, p, i, i, i, i, f, f, f, i, i, p],
             "smt_speckle_sweep": [p, p, i, i, i, p, p],
             "smt_speckle_count_keep": [p, p, p, p, i, i, i, i, p],
-            "smt_fgs_solve": [p, p, p, p, p, i, i, i, f, p],
+            "smt_fgs_solve": [p, p, p, p, p, i, i, i, i, f, p],
             "smt_mccnn_conv3x3": [p, p, p, p, i, i, i, i, i, i, i, p],
             "smt_mccnn_volume": [p, p, p, i, i, i, i, i, f, p],
         }
@@ -703,7 +709,15 @@ def speckle_count_keep(d: torch.Tensor, labels: torch.Tensor, threshold: int,
 
 # ---------------------------------------------------------- K7 fgs_solve ----
 
-def _check_solve(f: torch.Tensor, wp: torch.Tensor, wn: torch.Tensor) -> None:
+# The segments K7 splits a line into: the 32 lanes of a warp along a row
+# (axis 1), the 16 warps of a block along a column (axis 0); csrc/wls.cu's
+# kRowSegments and kColWarps.
+FGS_SEGMENTS = {0: 16, 1: 32}
+SMEM_MAX = 232448   # dynamic shared memory a block may take (H100)
+
+
+def _check_solve(f: torch.Tensor, wp: torch.Tensor, wn: torch.Tensor,
+                 axis: int) -> None:
     _check(f, "f", torch.float32, 3)
     _check(wp, "wp", torch.float32, 2)
     _check(wn, "wn", torch.float32, 2)
@@ -712,54 +726,201 @@ def _check_solve(f: torch.Tensor, wp: torch.Tensor, wn: torch.Tensor) -> None:
                          f"not match the slab {tuple(f.shape)}")
     if f.shape[0] not in (1, 2):
         raise ValueError("fgs_solve takes one or two right-hand sides")
+    if axis not in (0, 1):
+        raise ValueError(f"fgs_solve solves along axis 0 or 1, not {axis}")
 
 
-def fgs_solve_plain(f: torch.Tensor, wp: torch.Tensor, wn: torch.Tensor,
-                    lam: float) -> torch.Tensor:
-    """Solve (I + lam*A) u = f along axis 1 of the (C, S, N) slab ``f``.
+def _along_axis0(solve, f, wp, wn, lam, axis, *extra):
+    """Run ``solve`` (which solves along axis 0) along ``axis``."""
+    if axis == 0:
+        return solve(f, wp, wn, lam, *extra)
+    u = solve(f.transpose(1, 2).contiguous(), wp.T.contiguous(),
+              wn.T.contiguous(), lam, *extra)
+    return u.transpose(1, 2).contiguous()
 
-    ``wp``/``wn`` (S, N): edge weights to the scan-order predecessor /
-    successor (``wp[0] = wn[S-1] = 0``). The Thomas algorithm of
-    ``ops/wls.py::_tridiagonal_smooth_rows``, vectorised over the N lines,
-    in the reference's operation order.
-    """
-    C, S, N = f.shape
-    lam = torch.tensor(lam, dtype=torch.float32, device=f.device)
+
+def _tridiagonal(wp: torch.Tensor, wn: torch.Tensor, lam: float):
+    """The rows (a, b, c) of I + lam*A, in the reference's operations."""
+    lam = torch.tensor(lam, dtype=wp.dtype, device=wp.device)
     a = -lam * wp
     c = -lam * wn
-    b = (1.0 - a) - c
+    return a, (1.0 - a) - c, c
+
+
+def _thomas(f, wp, wn, lam):
+    C, S, N = f.shape
+    a, b, c = _tridiagonal(wp, wn, lam)
     cp = torch.empty_like(wp)
     u = torch.empty_like(f)
-    cp_prev = torch.zeros(N, dtype=torch.float32, device=f.device)
-    dp_prev = torch.zeros((C, N), dtype=torch.float32, device=f.device)
+    cp_prev = torch.zeros(N, dtype=f.dtype, device=f.device)
+    dp_prev = torch.zeros((C, N), dtype=f.dtype, device=f.device)
     for s in range(S):
         denom = b[s] - a[s] * cp_prev
         cp_prev = c[s] / denom
         dp_prev = (f[:, s] - a[s] * dp_prev) / denom
         cp[s] = cp_prev
         u[:, s] = dp_prev
-    u_next = torch.zeros((C, N), dtype=torch.float32, device=f.device)
+    u_next = torch.zeros((C, N), dtype=f.dtype, device=f.device)
     for s in range(S - 1, -1, -1):
         u_next = u[:, s] - cp[s] * u_next
         u[:, s] = u_next
     return u
 
 
-def fgs_solve(f: torch.Tensor, wp: torch.Tensor, wn: torch.Tensor,
-              lam: float) -> torch.Tensor:
-    """Tridiagonal solves along axis 1 of a (C, S, N) slab (K7).
+def fgs_solve_plain(f: torch.Tensor, wp: torch.Tensor, wn: torch.Tensor,
+                    lam: float, axis: int) -> torch.Tensor:
+    """Solve (I + lam*A) u = f along ``axis`` of the (H, W) planes of ``f``.
 
-    ``lam`` is a float32 value (the smoother's lambda schedule is computed
-    in float32); C = 1 or 2 right-hand sides share one elimination.
+    ``f`` (C, H, W); ``wp``/``wn`` (H, W): edge weights to the predecessor /
+    successor along ``axis`` (zero at each line's two ends, the Neumann
+    boundary). The sequential Thomas algorithm of
+    ``ops/wls.py::_tridiagonal_smooth_rows``, vectorised over the lines, in
+    the reference's operation order, in the dtype of ``f`` (float64 gives
+    the reference of the card checks). Along axis 1 it solves the
+    transposed slab.
     """
-    _check_solve(f, wp, wn)
-    if _on_cpu(f, wp, wn):
-        return fgs_solve_plain(f, wp, wn, lam)
+    return _along_axis0(_thomas, f, wp, wn, lam, axis)
+
+
+def _shifted(x: torch.Tensor, k: int, fill) -> torch.Tensor:
+    """x[..., i + k, :] along dim -2, ``fill`` (a number, or a tensor that
+    broadcasts) where i + k leaves it."""
+    n = x.shape[-2]
+    pad = torch.zeros_like(x[..., :min(abs(k), n), :]) + fill
+    if k > 0:
+        return torch.cat([x[..., k:, :], pad], -2)[..., :n, :]
+    return torch.cat([pad, x[..., :max(n + k, 0), :]], -2)[..., -n:, :]
+
+
+def _partitioned(f, wp, wn, lam, segments):
     C, S, N = f.shape
-    cp = torch.empty_like(wp)
+    P = segments
+    m = max(2, -(-S // P))
+    pad = P * m - S                  # identity rows: zero weights and data
+    wp, wn = (Fn.pad(w, (0, 0, 0, pad)) for w in (wp, wn))
+    a, b, c = _tridiagonal(wp, wn, lam)
+    # one more right-hand side, of ones: A is a Laplacian, so I + lam*A
+    # maps all ones to all ones, and every pivot below is that side's value
+    # plus its row's off-diagonal magnitudes, never a cancelling difference
+    f = torch.cat([Fn.pad(f, (0, 0, 0, pad)), torch.ones_like(a)[None]])
+    f = f.reshape(C + 1, P, m, N)
+    a, b, c = (t.reshape(P, m, N) for t in (a, b, c))
+    # forward: row j of a segment becomes a'_j x_s + x_j + c'_j x_(j+1) =
+    # d'_j (rows 0 and 1 only normalised; row 0's a' couples to the
+    # previous segment's last unknown)
+    ap, cp, dp = torch.empty_like(a), torch.empty_like(c), torch.empty_like(f)
+    for j in range(m):
+        if j < 2:
+            den = b[:, j]
+            ap[:, j] = a[:, j] / den
+            dp[:, :, j] = f[:, :, j] / den
+        else:
+            g = f[:, :, j] - a[:, j] * dp[:, :, j - 1]
+            spike = -(a[:, j] * ap[:, j - 1])
+            den = (g[C] - spike) - c[:, j]
+            ap[:, j] = spike / den
+            dp[:, :, j] = g / den
+        cp[:, j] = c[:, j] / den
+    # backward, for row 0 only: A x_(e-1) + x_s + B x_e = D, x_e the
+    # segment's last unknown and x_(e-1) the previous segment's
+    A, B, D = ap[:, 0], cp[:, 0], dp[:, :, 0]
+    if m > 2:
+        app, cpp, dpp = ap[:, m - 2], cp[:, m - 2], dp[:, :, m - 2]
+        for j in range(m - 3, 0, -1):
+            dpp = dp[:, :, j] - cp[:, j] * dpp
+            app = ap[:, j] - cp[:, j] * app
+            cpp = -(cp[:, j] * cpp)
+        g = D - B * dpp
+        Bn = -(B * cpp)
+        den = (g[C] - A) - Bn
+        A, B, D = A / den, Bn / den, g / den
+    F, G, R = ap[:, m - 1], cp[:, m - 1], dp[:, :, m - 1]
+    # the reduced system in the segments' last unknowns: eliminate the
+    # first ones (one step of cyclic reduction) ...
+    A1, B1, D1 = (_shifted(t, 1, 0.0) for t in (A, B, D))
+    ea, ec = -(F * A), -(G * B1)
+    ed = (R - F * D) - G * D1
+    eb = (ed[C] - ea) - ec
+    # ... then parallel cyclic reduction, identity rows (ones side 1) past
+    # either end
+    identity_d = torch.zeros((C + 1, 1, 1), dtype=f.dtype, device=f.device)
+    identity_d[C] = 1.0
+    s = 1
+    while s < P:
+        (am, bm, cm, dm), (aq, bq, cq, dq) = (
+            [_shifted(t, k, v) for t, v in ((ea, 0.0), (eb, 1.0), (ec, 0.0),
+                                            (ed, identity_d))]
+            for k in (-s, s))
+        k1, k2 = ea / bm, ec / bq
+        ea, ec = -(k1 * am), -(k2 * cq)
+        ed = (ed - k1 * dm) - k2 * dq
+        eb = (ed[C] - ea) - ec
+        s *= 2
+    xe = ed[:C] / eb
+    xs = (D[:C] - A * _shifted(xe, -1, 0.0)) - B * xe
+    # back substitution inside each segment
+    u = torch.empty_like(f[:C])
+    u[:, :, 0], u[:, :, m - 1] = xs, xe
+    x = xe
+    for j in range(m - 2, 0, -1):
+        x = (dp[:C, :, j] - ap[:, j] * xs) - cp[:, j] * x
+        u[:, :, j] = x
+    return u.reshape(C, P * m, N)[:, :S].contiguous()
+
+
+def fgs_solve_partitioned_plain(f: torch.Tensor, wp: torch.Tensor,
+                                wn: torch.Tensor, lam: float, axis: int,
+                                segments: int | None = None) -> torch.Tensor:
+    """K7's partitioned algorithm in plain torch, in the kernel's operations.
+
+    The same solve as :func:`fgs_solve_plain`. Each line is padded with
+    identity rows to ``segments`` segments of m = max(2, ceil(S / segments))
+    unknowns (``segments`` defaults to K7's for ``axis``). Each segment
+    eliminates locally, keeping the coupling ("spike") columns to its first
+    unknown and to its neighbours'; the segments' first and last unknowns
+    form a reduced tridiagonal system, solved by one step of cyclic
+    reduction and parallel cyclic reduction; then each segment
+    back-substitutes. Every pivot is taken from a right-hand side of ones,
+    carried along (I + lam*A maps ones to ones), rather than by a
+    subtraction that cancels (Grassmann, Taksar and Heyman's rule for
+    M-matrices), so it is far closer to a float64 solve than the
+    sequential float32 one. For the tests and ``chip_smoke.py``: the kernel
+    is held to it bit for bit, and it is held to the float64 plain solve.
+    """
+    P = FGS_SEGMENTS[axis] if segments is None else segments
+    if P < 1:
+        raise ValueError(f"segments must be positive, not {P}")
+    return _along_axis0(_partitioned, f, wp, wn, lam, axis, P)
+
+
+def _fgs_len(S: int, axis: int) -> int:
+    """Unknowns a segment of a line of S along ``axis`` (at least 2)."""
+    return max(2, -(-S // FGS_SEGMENTS[axis]))
+
+
+def fgs_solve(f: torch.Tensor, wp: torch.Tensor, wn: torch.Tensor,
+              lam: float, axis: int) -> torch.Tensor:
+    """Tridiagonal solves along ``axis`` of the (C, H, W) slab ``f`` (K7).
+
+    ``axis=1`` solves the rows (along W), ``axis=0`` the columns. ``wp``,
+    ``wn`` (H, W) as :func:`fgs_solve_plain` takes them; ``lam`` is a
+    float32 value (the smoother's lambda schedule is computed in float32);
+    C = 1 or 2 right-hand sides share one elimination. On the card the
+    kernel runs :func:`fgs_solve_partitioned_plain`'s algorithm.
+    """
+    _check_solve(f, wp, wn, axis)
+    if _on_cpu(f, wp, wn):
+        return fgs_solve_plain(f, wp, wn, lam, axis)
+    C, H, W = f.shape
+    if axis == 1 and (3 + C) * 32 * (_fgs_len(W, 1) | 1) * 4 > SMEM_MAX:
+        raise ValueError(f"fgs_solve: rows of {W} do not fit one warp's "
+                         f"shared memory on the card")
+    Hp = FGS_SEGMENTS[0] * _fgs_len(H, 0)
+    scratch = torch.empty((3 + C, Hp, -(-W // 32) * 32), dtype=f.dtype,
+                          device=f.device) if axis == 0 else None
     u = torch.empty_like(f)
-    _launch("fgs_solve", f.device, _ptr(f), _ptr(wp), _ptr(wn), _ptr(cp),
-            _ptr(u), C, S, N, float(lam))
+    _launch("fgs_solve", f.device, _ptr(f), _ptr(wp), _ptr(wn),
+            _ptr(scratch), _ptr(u), C, H, W, axis, float(lam))
     return u
 
 
@@ -988,8 +1149,8 @@ def census_scan(cl: torch.Tensor, cr: torch.Tensor, total: torch.Tensor,
                          f"{tuple(cr.shape)} and total "
                          f"{tuple(total.shape)} do not fit")
     if total.shape[0] > 1024:
-        raise ValueError("census_scan runs one thread per disparity: at "
-                         "most 1024")
+        raise ValueError("census_scan holds a line's disparities in one "
+                         "warp's registers: at most 1024")
     if _on_cpu(cl, cr, total):
         return census_scan_plain(cl, cr, total, min_disparity, p1, p2,
                                  reverse, invalid_cost, accumulate)

@@ -9,7 +9,8 @@ by alternating exact 1-D tridiagonal solves along rows and columns, with
 guide weights w = exp(-|I_p - I_q| / sigma) and a per-pass lambda
 lambda_t = 1.5 * lambda * 4^(T-t-1) / (4^T - 1), computed in float32 as the
 reference does. Every solve is K7 (``ops/cuda_kernels.fgs_solve``; its plain
-version on CPU tensors). The confidence-weighted filter runs both of its
+version on CPU tensors), along the rows (axis 1) or the columns (axis 0) of
+the (C, H, W) slab as it lies. The confidence-weighted filter runs both of its
 right-hand sides (c*d and c) through one solve, as the JAX package's
 accelerator path does: they share the elimination, and each is computed as
 a solve of its own would compute it.
@@ -34,14 +35,20 @@ def _edge_weights(guide: torch.Tensor, axis: int,
     return torch.exp(-torch.diff(g, dim=axis).abs() / sigma)
 
 
-def _scan_weights(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(S-1, N) between-line weights -> (S, N) wp and wn.
+def _scan_weights(w: torch.Tensor,
+                  axis: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Edge weights between neighbours along ``axis`` -> wp and wn.
 
-    ``wp[s]`` weighs the edge to line s - 1 and ``wn[s]`` the edge to line
-    s + 1; ``wp[0] = wn[S-1] = 0`` is the Neumann boundary.
+    ``w`` is (H-1, W) along axis 0 or (H, W-1) along axis 1; ``wp[i]``
+    weighs the edge to unknown i - 1 of the line and ``wn[i]`` the edge to
+    unknown i + 1, both (H, W), zero at each line's two ends (the Neumann
+    boundary).
     """
-    z = torch.zeros_like(w[:1])
-    return (torch.cat([z, w]).contiguous(), torch.cat([w, z]).contiguous())
+    shape = list(w.shape)
+    shape[axis] = 1
+    z = w.new_zeros(shape)
+    return (torch.cat([z, w], axis).contiguous(),
+            torch.cat([w, z], axis).contiguous())
 
 
 def _tridiagonal_smooth_rows(f: torch.Tensor, w: torch.Tensor,
@@ -50,8 +57,8 @@ def _tridiagonal_smooth_rows(f: torch.Tensor, w: torch.Tensor,
 
     ``f``: (H, W); ``w``: (H, W-1) edge weights between columns x and x+1.
     """
-    wp, wn = _scan_weights(w.T)
-    return fgs_solve(f.T[None].contiguous(), wp, wn, lam)[0].T
+    wp, wn = _scan_weights(w, 1)
+    return fgs_solve(f[None].contiguous(), wp, wn, lam, 1)[0]
 
 
 def _lambda_schedule(lmbda: float, num_iter: int) -> list[float]:
@@ -66,15 +73,13 @@ def _fgs_stack(srcs: torch.Tensor, guide: torch.Tensor, lmbda: float,
                sigma_color: float, num_iter: int,
                solve=fgs_solve) -> torch.Tensor:
     """Smooth C stacked (C, H, W) maps sharing one guide: rows then columns
-    per iteration. The row solve runs on the (C, W, H) transpose."""
-    u = srcs.to(torch.float32)
-    wx = _edge_weights(guide, 1, sigma_color)          # (H, W-1)
-    wy = _edge_weights(guide, 0, sigma_color)          # (H-1, W)
-    wxp, wxn = _scan_weights(wx.T)                     # (W, H)
-    wyp, wyn = _scan_weights(wy)                       # (H, W)
+    per iteration, each solve on the slab as it lies."""
+    u = srcs.to(torch.float32).contiguous()
+    wxp, wxn = _scan_weights(_edge_weights(guide, 1, sigma_color), 1)
+    wyp, wyn = _scan_weights(_edge_weights(guide, 0, sigma_color), 0)
     for lam in _lambda_schedule(lmbda, num_iter):
-        u = solve(u.transpose(1, 2).contiguous(), wxp, wxn, lam)
-        u = solve(u.transpose(1, 2).contiguous(), wyp, wyn, lam)
+        u = solve(u, wxp, wxn, lam, 1)
+        u = solve(u, wyp, wyn, lam, 0)
     return u
 
 
@@ -95,7 +100,8 @@ def wls_filter_disparity(disparity: torch.Tensor, guide: torch.Tensor,
     ``disparity``: (H, W) float with NaN invalids; ``guide``: the left
     image; ``confidence``: optional [0, 1] weights, times validity. The
     output is dense: u = FGS(c * d) / max(FGS(c), 1e-6). ``solve`` is K7 by
-    default; ``fgs_solve_plain`` gives the plain version on any device.
+    default; ``fgs_solve_plain`` gives the plain version on any device,
+    ``fgs_solve_partitioned_plain`` the kernel's algorithm.
     """
     d = disparity.to(torch.float32)
     valid = torch.isfinite(d)

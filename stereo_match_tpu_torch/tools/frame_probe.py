@@ -1,0 +1,105 @@
+"""Time whole frames of the post-stack paths and the census stream, on the card.
+
+The paths whose time K7 (WLS) and K10 (census-fused scan) carry, on the
+seed-1 KITTI scene (1242x375, D=128) and the seed-3 720p one (1280x720):
+the headline (no post stack), ``DisparityConfig()`` at 720p (settings.ini:
+WLS), KITTI speckle 100 + WLS with and without LR confidence, each through
+``_match_core``, and the 4-stage census-payload ``StreamingPipeline`` on
+one card. Each time is the mean of 10 frames (12 stream steps after the
+fill) by CUDA events after 2 warm-up frames.
+
+    python -m stereo_match_tpu_torch.tools.frame_probe [--tree DIR]...
+
+With ``--tree`` the probe runs once per tree, in the order given, each in
+a process that imports that checkout's package (and builds its kernels),
+so two commits compare in one call: ``--tree OLD --tree . --tree .
+--tree OLD``. Each run prints one JSON line. Needs one Hopper card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+
+def _probe() -> dict:
+    import torch
+
+    from stereo_match_tpu_torch.config import DisparityConfig
+    from stereo_match_tpu_torch.data.synthetic import (random_dot_pair,
+                                                       slanted_scene)
+    from stereo_match_tpu_torch.ops import cuda_kernels as K
+    from stereo_match_tpu_torch.parallel import (StreamingPipeline,
+                                                 make_stage_mesh)
+    from stereo_match_tpu_torch.pipeline.stereo import _match_core
+    from stereo_match_tpu_torch.utils.backend import require_hopper
+
+    dev = require_hopper(0)
+    K.build()
+
+    def scene(H, W, d_max, seed):
+        gt = slanted_scene(H, W, 5.0, d_max)
+        pair = random_dot_pair(H, W, gt, blur=1.0, seed=seed)
+        return tuple(torch.from_numpy(im).to(dev, torch.float32)
+                     for im in pair)
+
+    def ms(fn, reps):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    kitti, p720 = scene(375, 1242, 90.0, 1), scene(720, 1280, 110.0, 3)
+    head = DisparityConfig(num_disparities=128, cost="census",
+                           uniqueness_ratio=15, disp12_max_diff=1, wls=False,
+                           speckle_window_size=0)
+    spk = head.replace(wls=True, wls_iters=3, speckle_window_size=100,
+                       speckle_range=2)
+    out = {}
+    for name, pair, cfg in (
+            ("headline", kitti, head),
+            ("settings.ini 720p", p720, DisparityConfig()),
+            ("speckle+wls", kitti, spk),
+            ("speckle+wls+lr_confidence", kitti,
+             spk.replace(wls_lr_confidence=True))):
+        out[name] = ms(lambda: _match_core(*pair, cfg), 10)
+    pipe = StreamingPipeline(head, make_stage_mesh(4, devices=[dev] * 4),
+                             (375, 1242), payload_mode="census",
+                             payload_dtype="float32")
+    pipe.reset()
+    for _ in range(3):
+        pipe.step(*kitti)                      # fill
+    out["census stream"] = ms(lambda: pipe.step(*kitti), 12)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    return {"ms_per_frame": out, "card": card}
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--tree", action="append", default=[],
+                        help="a checkout to time (repeatable, in order)")
+    args = parser.parse_args()
+    if not args.tree:
+        print(json.dumps({"tree": os.getcwd(), **_probe()}))
+        return
+    for tree in args.tree:
+        root = str(Path(tree).resolve())
+        subprocess.run([sys.executable, str(Path(__file__).resolve())],
+                       cwd=root, env={**os.environ, "PYTHONPATH": root},
+                       check=True)
+
+
+if __name__ == "__main__":
+    main()

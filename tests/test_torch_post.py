@@ -188,16 +188,16 @@ def test_fgs_solve_shares_elimination_exactly():
     rng = np.random.default_rng(1)
     f = torch.from_numpy(rng.normal(size=(2, 30, 17)).astype(np.float32))
     wp, wn = twls._scan_weights(torch.from_numpy(
-        rng.uniform(0, 1, (29, 17)).astype(np.float32)))
+        rng.uniform(0, 1, (29, 17)).astype(np.float32)), 0)
     lam = twls._lambda_schedule(80000.0, 3)[0]
-    both = K.fgs_solve(f, wp, wn, lam)
+    both = K.fgs_solve(f, wp, wn, lam, 0)
     for c in range(2):
         assert torch.equal(both[c], K.fgs_solve(f[c:c + 1].contiguous(), wp,
-                                                wn, lam)[0])
+                                                wn, lam, 0)[0])
     with pytest.raises(ValueError):
-        K.fgs_solve(f, wp[:-1].contiguous(), wn, lam)
+        K.fgs_solve(f, wp[:-1].contiguous(), wn, lam, 0)
     with pytest.raises(ValueError):
-        K.fgs_solve(torch.cat([f, f[:1]]), wp, wn, lam)
+        K.fgs_solve(torch.cat([f, f[:1]]), wp, wn, lam, 0)
 
 
 @pytest.mark.parametrize("lmbda,num_iter", [(80000.0, 3), (500.0, 2),
