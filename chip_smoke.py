@@ -14,7 +14,11 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
 3. kernel parity at KITTI shape (1242x375, D=128, slanted random-dot scene,
    seed 1): each kernel against its plain PyTorch version on the same CUDA
    tensors. K1, K2 and the K3 totals must be bit-equal; K4 must give the
-   same NaN mask and values within 1e-6.
+   same NaN mask and values within 1e-6. Then K4's three entries on a
+   tie-heavy float32 total (``K.tie_heavy_total``: constant planes, minima
+   at d = 0 and D - 1, equal minima over idx -+ 1, equal right-view
+   diagonals) at KITTI and at 720p D=160: wta_stats and right_wta
+   bit-equal, wta_lr as above, at three settings.
 3b. post-stack kernel parity at full size: K5 + K6 on the KITTI disparity
    map with injected 2x2 and 4x4 speckles (T=100, range 2) must give the
    plain filter's labels, unconverged flag and output bit for bit, and
@@ -28,7 +32,9 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
 3d. the multiword census and the float disp12 tolerance at KITTI: K1 with
    a 7x9 window (62 bits, two words), K2 on those words (float32, int16,
    transposed) and K4 ``lr_mask`` at the tolerances 1.5 and 2.0 (ELAS's
-   ``lr_tol``), each bit-equal to its plain version.
+   ``lr_tol``), each bit-equal to its plain version; K2 at an odd width
+   (1241), D = 1 and 128, min_d 0, 37 and 5, on one and two words, float32
+   and int16, planes and transposed, bit-equal.
 4. main path: ``StereoMatcher`` with the headline config, launch counts
    reset just before the run and read just after; the result against the
    plain path on the card (same NaN mask, values within 1e-6) and against
@@ -66,7 +72,8 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    KITTI on the seed-1 scene: K2 int16 and transposed, K3 int16 totals,
    K10 (forward and reverse, invalid 1e4 and 1024, min_d 0 and 5) and K4's
    int16, wta_stats, right_wta and lr_mask entries bit-equal to their plain
-   versions, K10 at 1e4 equal to K2 + K3's horizontal pair;
+   versions, K10 at 1e4 equal to K2 + K3's horizontal pair; K4's entries on
+   tie-heavy int16 totals at KITTI and 720p as in phase 3;
    ``extract_disparity_fast`` launching wta_stats, right_wta and lr_mask
    once each and equal to wta_lr's map;
    ``sgm_aggregate_sharded`` over 4 row shards of 96/96/96/87 rows on a
@@ -122,7 +129,10 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    and wires beside ``_match_core``'s, and the peak memory of the float32
    and int16 frames; the frame time of each 4f path beside one frame of its
    plain path, and K1 and K2 at 7x9 and the float-tolerance ``lr_mask``
-   beside their bounds.
+   beside their bounds; K2 (float32, int16, transposed, 7x9, D = 1 in one
+   CUDA graph) and K4's entries (float32, int16) at KITTI and at 720p
+   beside their bounds, and two streaming yardsticks over the same bytes
+   (a write of the volume, ``total.amin(0)``).
 
 The last lines are the per-kernel JSON record (with ``bound_ms``,
 ``bound_by`` and ``library_ms``), the card's name and power limit from
@@ -255,6 +265,18 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, n: int) -> float:
+    """Mean milliseconds of ``fn()`` on the card, n calls captured in one
+    CUDA graph: the kernels' time without the host's between launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph.replay, 5) / n
 
 
 def main() -> int:
@@ -449,6 +471,34 @@ def main() -> int:
     for name, e in err.items():
         print(f"[parity] {name}: max_abs_err={e} ({label(KITTI)})")
 
+    def k4_ties(spec, dtype, seed):
+        """K4's three entries on a tie-heavy total (K.tie_heavy_total:
+        constant planes, minima at d = 0 and D - 1, equal minima over
+        idx -+ 1, equal right-view diagonals), each against its plain
+        version: wta_stats and right_wta bit-equal, wta_lr's NaN mask equal
+        and values within K4_TOL."""
+        tie = torch.from_numpy(K.tie_heavy_total(
+            spec["D"], spec["H"], spec["W"], seed)).to(dev).to(dtype)
+        for a, b in zip(K.wta_stats(tie), K.wta_stats_plain(tie)):
+            check(torch.equal(a, b), f"K4 wta_stats tie-heavy {dtype} "
+                  f"{label(spec)} bit-equal")
+        check(torch.equal(K.right_wta(tie), K.right_wta_plain(tie)),
+              f"K4 right_wta tie-heavy {dtype} {label(spec)} bit-equal")
+        for args in (wta_args, (3, 5, 2, True), (0, 0, -1, False)):
+            d_k, r_k = K.wta_lr(tie, *args)
+            d_p, r_p = K.wta_lr_plain(tie, *args)
+            same_disparity(d_k, d_p, f"K4 wta_lr tie-heavy {dtype} "
+                           f"{label(spec)} {args}")
+            check(torch.equal(r_k, r_p), f"K4 wta_lr tie-heavy right view "
+                  f"{dtype} {label(spec)} {args}")
+        print(f"[parity] K4 wta_lr, wta_stats, right_wta on a tie-heavy "
+              f"{dtype} total {label(spec)}: equal to their plain versions "
+              f"({card})")
+        del tie, d_k, r_k, d_p, r_p
+
+    for spec in (KITTI, ARKIT_720P):
+        k4_ties(spec, torch.float32, seed=8)
+
     # 3b. post-stack kernel parity at full size
     speckled = disp.clone()
     rng = torch.Generator(device="cpu").manual_seed(5)
@@ -615,6 +665,27 @@ def main() -> int:
     del quarter, dl, dr, a, b
     print(f"[parity] census_words {WIDE} (2 words) and census_volume on them "
           f"(float32, int16, transposed): bit-equal ({label(KITTI)}; {card})")
+    # K2 at D = 1 (ELAS's plane a launch), min_d > 0 and an odd width
+    odd_words = {n: K.census_words(imgs[:, :, :KITTI["W"] - 1].contiguous(), w)
+                 for n, w in (("5x5", cfg.census_window), ("7x9", WIDE))}
+    k2_odd = []
+    for name, ow in odd_words.items():
+        owT = ow.transpose(2, 3).contiguous()
+        for D_, min_d in ((1, 0), (1, 37), (KITTI["D"], 5)):
+            for dt in (torch.float32, torch.int16):
+                for tr, w in ((False, ow), (True, owT)):
+                    got = K.census_volume(w[0], w[1], D_, min_d, dt, tr)
+                    want = K.census_volume_plain(w[0], w[1], D_, min_d, dt,
+                                                 tr)
+                    check(torch.equal(got, want), f"K2 {name} D={D_} "
+                          f"min_d={min_d} {dt} transposed={tr} at W="
+                          f"{KITTI['W'] - 1} bit-equal")
+                    k2_odd.append((name, D_, min_d, str(dt), tr))
+    del odd_words, ow, owT, got, want
+    print(f"[parity] census_volume at W={KITTI['W'] - 1} (odd), D = 1 and "
+          f"{KITTI['D']}, min_d 0, 37 and 5, 5x5 and {WIDE}, float32 and "
+          f"int16, planes and transposed: {len(k2_odd)} cases bit-equal "
+          f"({card})")
 
     # 4. main path through the user's entry point
     matcher = StereoMatcher(cfg, device=dev)
@@ -922,6 +993,8 @@ def main() -> int:
         a, b = K.right_wta(t), K.right_wta_plain(t)
         err["right_wta"] = max(err["right_wta"], int((a - b).abs().max()))
         check(torch.equal(a, b), f"K4 right_wta {t.dtype} bit-equal")
+    for spec in (KITTI, ARKIT_720P):
+        k4_ties(spec, torch.int16, seed=9)
     K.reset_launches()
     fast = K.extract_disparity_fast(total, *wta_args)
     torch.cuda.synchronize()
@@ -1204,13 +1277,72 @@ def main() -> int:
     t4_16 = cuda_ms(lambda: K.wta_lr(total16, *wta_args), 20)
     print(f"[timing] int16 {label(KITTI)}: K3 8 directions {t3_16} ms "
           f"({t3_16 / 8} per direction), K4 wta_lr {t4_16} ms ({card})")
+    k4_int16 = {"wta_lr": t4_16}
     for name, fn, plain in (("wta_stats", K.wta_stats, K.wta_stats_plain),
                             ("right_wta", K.right_wta, K.right_wta_plain)):
         ms[name] = cuda_ms(lambda: fn(total), 20)
         plain_ms[name] = cuda_ms(lambda: plain(total), 3)
-        t = cuda_ms(lambda: fn(total16), 20)
+        t = k4_int16[name] = cuda_ms(lambda: fn(total16), 20)
         print(f"[timing] {name} {label(KITTI)}: float32 {ms[name]} ms, "
               f"int16 {t} ms, plain {plain_ms[name]} ms ({card})")
+    # K2 and K4 at the main path's shapes beside their bounds (each input
+    # read once, each output written once), and two streaming passes over
+    # the same bytes as yardsticks: a write of the float32 volume and a read
+    # of the total. Neither computes the kernels' function (no library_ms).
+    hw = KITTI["H"] * KITTI["W"]
+    vol_f32 = KITTI["D"] * hw * 4
+    t_zero = cuda_ms(lambda: torch.empty_like(vol).zero_(), 20)
+    t_amin = cuda_ms(lambda: total.amin(0), 20)
+    print(f"[yardstick] {label(KITTI)} float32, {vol_f32} B: "
+          f"torch.empty_like(vol).zero_() {t_zero} ms ({vol_f32 / t_zero / 1e6}"
+          f" GB/s); total.amin(0) {t_amin} ms ({vol_f32 / t_amin / 1e6} GB/s)"
+          f" ({card})")
+    k2_d1 = graph_ms(lambda: K.census_volume(words[0], words[1], 1, 64), 128)
+    k24_rows = {   # name -> (ms, (bound_ms, bound_by))
+        "census_volume float32": (ms["census_volume"],
+                                  bound(2 * hw * 4 + vol_f32)),
+        "census_volume int16": (t16, bound(2 * hw * 4 + vol_f32 / 2)),
+        "census_volume transposed float32": (tT,
+                                             bound(2 * hw * 4 + vol_f32)),
+        "census_volume transposed int16": (
+            cuda_ms(lambda: K.census_volume(wT[0], wT[1], D, 0, torch.int16,
+                                            True), 20),
+            bound(2 * hw * 4 + vol_f32 / 2)),
+        "census_volume 7x9 float32": (
+            cuda_ms(lambda: K.census_volume(words79[0], words79[1], D), 20),
+            bound(2 * 2 * hw * 4 + vol_f32)),
+        "census_volume D=1 min_d=64 (one CUDA graph of 128 launches)": (
+            k2_d1, bound(2 * hw * 4 + hw * 4)),
+        "wta_lr float32": (ms["wta_lr"], bound(vol_f32 + 2 * hw * 4)),
+        "wta_lr int16": (t4_16, bound(vol_f32 / 2 + 2 * hw * 4)),
+        "wta_stats float32": (ms["wta_stats"], bound(vol_f32 + 5 * hw * 4)),
+        "wta_stats int16": (k4_int16["wta_stats"],
+                            bound(vol_f32 / 2 + 5 * hw * 4)),
+        "right_wta float32": (ms["right_wta"], bound(vol_f32 + hw * 4)),
+        "right_wta int16": (k4_int16["right_wta"],
+                            bound(vol_f32 / 2 + hw * 4)),
+    }
+    for name, (t, (b_ms, b_by)) in k24_rows.items():
+        print(f"[k2k4] {name} {label(KITTI)}: {t} ms, bound {b_ms} ms "
+              f"({b_by}) = {b_ms / t} of it ({card})")
+    words7 = K.census_words(torch.stack([left7, right7]).contiguous())
+    hw7 = ARKIT_720P["H"] * ARKIT_720P["W"]
+    vol7_f32 = ARKIT_720P["D"] * hw7 * 4
+    for dt, size in ((torch.float32, 1.0), (torch.int16, 0.5)):
+        vol7 = K.census_volume(words7[0], words7[1], ARKIT_720P["D"], 0, dt)
+        total7 = aggregate(K.sgm_path_scan, vol7, cfg7)
+        for name, fn, maps in (   # maps: (H, W) words read or maps written
+                ("census_volume", lambda: K.census_volume(
+                    words7[0], words7[1], ARKIT_720P["D"], 0, dt), 2),
+                ("wta_lr", lambda: K.wta_lr(total7, *wta_args), 2),
+                ("wta_stats", lambda: K.wta_stats(total7), 5),
+                ("right_wta", lambda: K.right_wta(total7), 1)):
+            t = cuda_ms(fn, 10)
+            b_ms, b_by = bound(vol7_f32 * size + maps * hw7 * 4)
+            print(f"[k2k4] {name} {dt} {label(ARKIT_720P)}: {t} ms, bound "
+                  f"{b_ms} ms ({b_by}) = {b_ms / t} of it ({card})")
+        del vol7, total7
+    del words7
     tol = cfg.disp12_max_diff
     ms["lr_mask"] = cuda_ms(lambda: K.lr_mask(fast_disp, fast_right, tol), 20)
     plain_ms["lr_mask"] = cuda_ms(

@@ -79,6 +79,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as Fn
 
@@ -301,6 +302,8 @@ def census_words(imgs: torch.Tensor,
 
 # ------------------------------------------------------ K2 census_volume ----
 
+MAX_CENSUS_WORDS = 8   # K2 holds a pixel's words in registers
+
 def census_volume_plain(cl: torch.Tensor, cr: torch.Tensor,
                         num_disparities: int, min_disparity: int = 0,
                         dtype=torch.float32,
@@ -337,6 +340,9 @@ def census_volume(cl: torch.Tensor, cr: torch.Tensor, num_disparities: int,
         return census_volume_plain(cl, cr, num_disparities, min_disparity, dt,
                                    transposed)
     nw, R, C = cl.shape
+    if nw > MAX_CENSUS_WORDS:
+        raise ValueError(f"census_volume takes at most {MAX_CENSUS_WORDS} "
+                         f"words a pixel on the card, got {nw}")
     out = torch.empty((num_disparities, R, C), dtype=dt, device=cl.device)
     _launch("census_volume", cl.device, _ptr(cl), _ptr(cr), _ptr(out), R, C,
             nw, num_disparities, min_disparity, int(transposed),
@@ -469,6 +475,100 @@ def right_wta_plain(total: torch.Tensor) -> torch.Tensor:
         rbest[:, :W - d] = torch.where(better, v, rbest[:, :W - d])
         ridx[:, :W - d] = torch.where(better, d, ridx[:, :W - d])
     return ridx
+
+
+WTA_TILE = 64   # K4's widest staged tile, in columns
+
+
+def wta_walk_plain(total: torch.Tensor, tile: int = WTA_TILE):
+    """K4's walk of a (D, H, W) total, in the kernel's order of visits.
+
+    Returns ``(best, idx, c0, c2, second, ridx)``, which must equal
+    ``wta_stats_plain`` and ``right_wta_plain`` bit for bit. Left
+    statistics: S d-phases a column (S = 4 for 64-column tiles, else 8;
+    phase s takes d = s, s + S, ...), each walked once for its first
+    minimum b1 at i1 and b2, the minimum of its other costs; the first
+    argmin is the (cost, d) lexicographic min of the b1, and the best cost
+    outside idx +- 1 the min over the phases of b2 where i1 is within 1 of
+    idx, else b1 (idx - 1, idx, idx + 1 lie in distinct phases). Right
+    view: tile by tile of ``tile`` columns, each diagonal's cells in
+    increasing d with strict <, from the running (minimum, argmin) of
+    xr = x - d (3e9 and 0 at the start); a later tile holds larger d of the
+    same xr. (``right_wta`` stages 32 planes by 256 columns a tile, plane
+    block after plane block within a column block: a diagonal meets its
+    cells in the same increasing d.)
+    """
+    total = total.to(torch.float32)
+    D, H, W = total.shape
+    dev = total.device
+    S = 4 if tile > 32 else 8
+    inf = torch.full((H, W), float("inf"), device=dev)
+    b1s, i1s, b2s = [], [], []
+    for s in range(S):
+        sub = total[s::S]
+        if sub.shape[0] == 0:
+            b1s.append(inf)
+            i1s.append(torch.full((H, W), D, device=dev))
+            b2s.append(inf)
+            continue
+        d_iota = torch.arange(s, D, S, device=dev)[:, None, None]
+        b1 = sub.amin(dim=0)
+        first = torch.where(sub == b1[None], d_iota, D).amin(dim=0)
+        b1s.append(b1)
+        i1s.append(first)
+        b2s.append(torch.where(d_iota == first[None], float("inf"), sub)
+                   .amin(dim=0) if sub.shape[0] > 1 else inf)
+    b1s, i1s, b2s = torch.stack(b1s), torch.stack(i1s), torch.stack(b2s)
+    best = b1s.amin(dim=0)
+    idx = torch.where(b1s == best[None], i1s, D).amin(dim=0)
+    near = (i1s - idx[None]).abs() <= 1
+    second = torch.where(near, b2s, b1s).amin(dim=0).clamp(max=WTA_BIG)
+    edge = torch.full_like(total[:1], WTA_BIG)
+    c0 = torch.cat([edge, total[:-1]]).gather(0, idx[None])[0]
+    c2 = torch.cat([total[1:], edge]).gather(0, idx[None])[0]
+    rbest = torch.full((H, W), WTA_BIG, device=dev)
+    ridx = torch.zeros((H, W), dtype=torch.int32, device=dev)
+    for x0 in range(0, W, tile):
+        x1 = min(x0 + tile, W)
+        for d in range(D):
+            lo = max(x0, d)                      # x - d >= 0
+            if lo >= x1:
+                continue
+            v = total[d, :, lo:x1]
+            r = slice(lo - d, x1 - d)
+            better = v < rbest[:, r]
+            rbest[:, r] = torch.where(better, v, rbest[:, r])
+            ridx[:, r] = torch.where(better, d, ridx[:, r])
+    return best, idx.to(torch.int32), c0, c2, second, ridx
+
+
+def tie_heavy_total(D: int, H: int, W: int, seed: int = 0):
+    """A (D, H, W) float32 numpy total made to stress K4's ties.
+
+    Small integer costs (exact in int16 too), the rows cycling through:
+    random costs 0..3; constant planes; the minimum at d = 0; at d = D - 1;
+    a run of equal minima over idx - 1 .. idx + 1; equal costs along every
+    right-view diagonal C(d, y, xr + d).
+    """
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 4, (D, H, W)).astype(np.float32)
+    for y in range(H):
+        kind = y % 6
+        if kind == 1:
+            t[:, y] = float(rng.integers(0, 4))
+        elif kind in (2, 3):
+            t[:, y] += 2.0
+            t[0 if kind == 2 else D - 1, y] = rng.integers(0, 2, W)
+        elif kind == 4:
+            t[:, y] += 2.0
+            at = rng.integers(0, D, W)
+            for k in (-1, 0, 1):
+                d = np.clip(at + k, 0, D - 1)
+                t[d, y, np.arange(W)] = 1.0
+        elif kind == 5:
+            x = np.arange(W)[None, :] - np.arange(D)[:, None]   # xr
+            t[:, y] = 1.0 + (x % 3 == 0)
+    return t
 
 
 def wta_lr_plain(total: torch.Tensor, min_disparity: int = 0,

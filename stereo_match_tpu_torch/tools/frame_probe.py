@@ -1,12 +1,17 @@
-"""Time whole frames of the post-stack paths and the census stream, on the card.
+"""Time whole frames and the main path's K2 and K4 on the card.
 
-The paths whose time K7 (WLS) and K10 (census-fused scan) carry, on the
-seed-1 KITTI scene (1242x375, D=128) and the seed-3 720p one (1280x720):
-the headline (no post stack), ``DisparityConfig()`` at 720p (settings.ini:
-WLS), KITTI speckle 100 + WLS with and without LR confidence, each through
-``_match_core``, and the 4-stage census-payload ``StreamingPipeline`` on
-one card. Each time is the mean of 10 frames (12 stream steps after the
-fill) by CUDA events after 2 warm-up frames.
+Frames, on the seed-1 KITTI scene (1242x375, D=128) and the seed-3 720p
+one (1280x720): the headline (no post stack) in float32 and int16,
+MC-CNN fast (the shipped checkpoint) at the headline's WTA settings,
+``DisparityConfig()`` at 720p (settings.ini: WLS), KITTI speckle 100 + WLS
+with and without LR confidence, each through ``_match_core``, and the
+4-stage census-payload ``StreamingPipeline`` on one card. Each frame time
+is the mean of 10 frames (12 stream steps after the fill) by CUDA events
+after 2 warm-up frames. Kernels, at KITTI on the headline's volume and
+total: K2 ``census_volume`` (float32, int16, transposed, 7x9, and one
+plane at D = 1 as ELAS launches it) and K4's ``wta_lr``, ``wta_stats`` and
+``right_wta`` (float32 and int16), each the mean of 64 calls captured in
+one CUDA graph, so no host time lies between the launches.
 
     python -m stereo_match_tpu_torch.tools.frame_probe [--tree DIR]...
 
@@ -30,8 +35,11 @@ def _probe() -> dict:
     import torch
 
     from stereo_match_tpu_torch.config import DisparityConfig
+    from stereo_match_tpu_torch.costs import MCCNNCost
     from stereo_match_tpu_torch.data.synthetic import (random_dot_pair,
                                                        slanted_scene)
+    from stereo_match_tpu_torch.models.mccnn import (from_flax_params,
+                                                     load_default_params)
     from stereo_match_tpu_torch.ops import cuda_kernels as K
     from stereo_match_tpu_torch.parallel import (StreamingPipeline,
                                                  make_stage_mesh)
@@ -59,15 +67,29 @@ def _probe() -> dict:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
+    def graph_ms(fn, n=64):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        return ms(graph.replay, 5) / n
+
     kitti, p720 = scene(375, 1242, 90.0, 1), scene(720, 1280, 110.0, 3)
     head = DisparityConfig(num_disparities=128, cost="census",
                            uniqueness_ratio=15, disp12_max_diff=1, wls=False,
                            speckle_window_size=0)
     spk = head.replace(wls=True, wls_iters=3, speckle_window_size=100,
                        speckle_range=2)
-    out = {}
+    mc_cfg = head.replace(cost="mccnn")
+    mccnn = MCCNNCost(from_flax_params(load_default_params("fast"),
+                                       "fast").to(dev), mc_cfg)
+    out = {"mccnn fast": ms(lambda: _match_core(*kitti, mc_cfg,
+                                                cost_fn=mccnn), 10)}
     for name, pair, cfg in (
             ("headline", kitti, head),
+            ("headline int16", kitti, head.replace(dtype="int16")),
             ("settings.ini 720p", p720, DisparityConfig()),
             ("speckle+wls", kitti, spk),
             ("speckle+wls+lr_confidence", kitti,
@@ -80,10 +102,33 @@ def _probe() -> dict:
     for _ in range(3):
         pipe.step(*kitti)                      # fill
     out["census stream"] = ms(lambda: pipe.step(*kitti), 12)
+    words = K.census_words(torch.stack(kitti).contiguous())
+    wT = words.transpose(2, 3).contiguous()
+    w79 = K.census_words(torch.stack(kitti).contiguous(), (7, 9))
+    total = K.aggregate_paths(K.census_volume(words[0], words[1], 128),
+                              head.P1, head.P2)
+    total16 = K.aggregate_paths(K.census_volume(words[0], words[1], 128, 0,
+                                                torch.int16), head.P1, head.P2)
+    kernels = {
+        "census_volume float32": lambda: K.census_volume(words[0], words[1],
+                                                         128),
+        "census_volume int16": lambda: K.census_volume(
+            words[0], words[1], 128, 0, torch.int16),
+        "census_volume transposed": lambda: K.census_volume(
+            wT[0], wT[1], 128, transposed=True),
+        "census_volume 7x9": lambda: K.census_volume(w79[0], w79[1], 128),
+        "census_volume D=1 min_d=64": lambda: K.census_volume(
+            words[0], words[1], 1, 64),
+    }
+    for name, t in (("float32", total), ("int16", total16)):
+        kernels[f"wta_lr {name}"] = lambda t=t: K.wta_lr(t)
+        kernels[f"wta_stats {name}"] = lambda t=t: K.wta_stats(t)
+        kernels[f"right_wta {name}"] = lambda t=t: K.right_wta(t)
+    kernel_ms = {name: graph_ms(fn) for name, fn in kernels.items()}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    return {"ms_per_frame": out, "card": card}
+    return {"ms_per_frame": out, "kernel_ms": kernel_ms, "card": card}
 
 
 def main() -> None:

@@ -569,6 +569,57 @@ def test_wta_entries_and_int16(dev, dtype):
             K.launches["lr_mask"]) == (1, 1, 1)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("D", [64, 100, 128, 160])
+@pytest.mark.parametrize("W", [1242, 1243, 45])
+def test_wta_entries_on_tie_heavy_totals(dev, W, D, dtype):
+    """K4's walk (tiles of 64 columns, the left statistics in phases, the
+    right view along diagonals; right_wta in blocks of 32 planes, so D =
+    100 ends on a partial one) on totals made of ties: constant planes,
+    minima at d = 0 and D - 1, equal minima over idx -+ 1, equal right-view
+    diagonals; at KITTI's width, an odd width and W < D."""
+    total = torch.from_numpy(K.tie_heavy_total(D, 12, W, seed=D + W)).to(
+        dev).to(dtype)
+    for got, want in zip(K.wta_stats(total), K.wta_stats_plain(total)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(K.right_wta(total), K.right_wta_plain(total))
+    for args in ((0, 15, 1, True), (3, 5, 2, True), (0, 0, -1, False)):
+        disp, right = K.wta_lr(total, *args)
+        want, want_right = K.wta_lr_plain(total, *args)
+        _assert_same_disparity(disp, want)
+        assert torch.equal(right, want_right)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("D,min_d", [(1, 0), (1, 5), (128, 0), (128, 5),
+                                     (160, 0), (160, 5)])
+@pytest.mark.parametrize("W,window", [(1243, (5, 5)), (1243, (7, 9)),
+                                      (101, (5, 5)), (101, (7, 9)),
+                                      (1242, (5, 5)), (1280, (7, 9))])
+def test_census_volume_kernel_shapes(dev, W, window, D, min_d, dtype,
+                                     transposed):
+    """K2 (a row block of vector stores; 32 x 16 blocks transposed) at one
+    and two words, D = 1 (ELAS's plane a launch), 128 and 160, min_d 0
+    and 5, odd W (scalar stores), W < D, and the widths whose rows take
+    2- and 4-cell stores."""
+    words = K.census_words(_images(9, W, dev, seed=W), window)
+    if transposed:
+        words = words.transpose(2, 3).contiguous()
+    got = K.census_volume(words[0], words[1], D, min_d, dtype, transposed)
+    want = K.census_volume_plain(words[0], words[1], D, min_d, dtype,
+                                 transposed)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_census_volume_rejects_too_many_words(dev):
+    words = torch.zeros((9, 4, 16), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="at most 8 words"):
+        K.census_volume(words, words, 8)
+
+
 @pytest.mark.parametrize("tol", [1, 0, 3, -1])
 @pytest.mark.parametrize("H,W", [(20, 90), KITTI])
 def test_lr_mask_kernel(dev, H, W, tol):
