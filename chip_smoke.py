@@ -19,10 +19,15 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    at d = 0 and D - 1, equal minima over idx -+ 1, equal right-view
    diagonals) at KITTI and at 720p D=160: wta_stats and right_wta
    bit-equal, wta_lr as above, at three settings.
-3b. post-stack kernel parity at full size: K5 + K6 on the KITTI disparity
-   map with injected 2x2 and 4x4 speckles (T=100, range 2) must give the
-   plain filter's labels, unconverged flag and output bit for bit, and
-   keep everything on a serpentine capped at one sweep. K7 (a row and a
+3b. post-stack kernel parity at full size: K5 (the whole speckle filter,
+   one cooperative launch) on the KITTI and 720p disparity maps with 600
+   injected 2x2 and 4x4 speckles (T=100, range 2) must give the plain
+   filter's output, sweep count and unconverged flag bit for bit, in one
+   launch and with no host sync (``torch.cuda.set_sync_debug_mode``); so
+   must it on a serpentine at the k sweeps it needs and at k - 1 (which
+   keeps everything), at W = 1, H = 1, on an all-NaN map and with no
+   sweep. Where ``torch.profiler`` sees the card, the filter must show one
+   device kernel. K7 (a row and a
    column solve of the (2, H, W) slab as it lies, at KITTI and 720p) must
    equal its partitioned model bit for bit, and against a float64 solve be
    off at most K7_F64_RATIO times the sequential float32 plain solve.
@@ -119,8 +124,14 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    peak device memory of one KITTI frame; K7's row and column solves at
    KITTI and 720p beside the plain solve and, for the KITTI column solve, a
    dense batched ``torch.linalg.solve`` (``library_ms``; torch has no
-   banded solver); the frame time of the three post-stack paths and the
-   speckle sweeps per frame; the frame time and
+   banded solver); K5 (the whole speckle filter) at KITTI and 720p beside
+   its plain version, its sweeps, its bound (d in, out out), the cost of a
+   further sweep and the traffic of its label words, and run to the
+   fixpoint, bit-equal to the plain filter, on maps that need many sweeps
+   (noisy ramps at KITTI and 720p, one of three column bands, the
+   serpentine); the frame time of the
+   three post-stack paths and the speckle sweeps per frame; the frame
+   time and
    peak memory of both MC-CNN paths, K8 per layer (C_in=1 and C_in=F) and
    K9 beside their plain versions; the int16 and transposed K2, K10 per
    direction beside K3's horizontal directions, the int16 K3 and K4, K4's
@@ -199,10 +210,8 @@ KERNELS = {   # name -> (source, the TPU kernel(s) it replaces)
     "wta_stats": ("stereo_match_tpu_torch/csrc/wta.cu", f"{PALLAS}:1146"),
     "right_wta": ("stereo_match_tpu_torch/csrc/wta.cu", f"{PALLAS}:1064"),
     "lr_mask": ("stereo_match_tpu_torch/csrc/wta.cu", f"{PALLAS}:825"),
-    "speckle_sweep": ("stereo_match_tpu_torch/csrc/speckle.cu",
-                      "stereo_match_tpu/ops/pallas_speckle.py:276"),
-    "speckle_count_keep": ("stereo_match_tpu_torch/csrc/speckle.cu",
-                           "stereo_match_tpu/ops/pallas_speckle.py:276"),
+    "speckle_filter": ("stereo_match_tpu_torch/csrc/speckle.cu",
+                       "stereo_match_tpu/ops/pallas_speckle.py:276"),
     "fgs_solve": ("stereo_match_tpu_torch/csrc/wls.cu",
                   "stereo_match_tpu/ops/pallas_wls.py:93; "
                   "stereo_match_tpu/ops/pallas_wls.py:169"),
@@ -286,6 +295,9 @@ def main() -> int:
     from stereo_match_tpu_torch.costs import (ClassicCost, MCCNNCost,
                                               census_cost)
     from stereo_match_tpu_torch.data.ply import read_ply
+    from stereo_match_tpu_torch.data.speckle_maps import (noisy_ramp,
+                                                          serpentine,
+                                                          speckled)
     from stereo_match_tpu_torch.data.synthetic import (random_dot_pair,
                                                        slanted_scene)
     from stereo_match_tpu_torch.eval.metrics import bad_pixel_rate, density
@@ -295,8 +307,7 @@ def main() -> int:
     from stereo_match_tpu_torch.ops import cuda_kernels as K
     from stereo_match_tpu_torch.ops import wls
     from stereo_match_tpu_torch.ops.sgm import PATH_DIRECTIONS_8
-    from stereo_match_tpu_torch.ops.speckle import (connectivity,
-                                                    speckle_filter)
+    from stereo_match_tpu_torch.ops.speckle import speckle_filter
     from stereo_match_tpu_torch.ops.wta import disparity_from_stats
     from stereo_match_tpu_torch.parallel.pipeline_stage import DOWN, UP
     from stereo_match_tpu_torch.parallel import (StreamingPipeline, make_mesh,
@@ -368,9 +379,10 @@ def main() -> int:
                 setattr(module, name, fn)
 
     def plain_speckle(d, cfg, max_iters=64):
-        return speckle_filter(d, cfg.speckle_window_size, cfg.speckle_range,
-                              max_iters, sweep=K.speckle_sweep_plain,
-                              count_keep=K.speckle_count_keep_plain)
+        if cfg.speckle_window_size <= 0:
+            return d
+        return K.speckle_fixpoint_plain(d, cfg.speckle_window_size,
+                                        cfg.speckle_range, max_iters)[0]
 
     def solve64(f, wp, wn, lam, axis):
         """The plain solve in float64: the reference of K7's checks."""
@@ -500,60 +512,93 @@ def main() -> int:
         k4_ties(spec, torch.float32, seed=8)
 
     # 3b. post-stack kernel parity at full size
-    speckled = disp.clone()
-    rng = torch.Generator(device="cpu").manual_seed(5)
-    H, W = speckled.shape
-    for k in range(600):                     # 2x2 and 4x4 outlier blobs
-        size = 2 if k % 2 else 4
-        y = int(torch.randint(0, H - size, (1,), generator=rng))
-        x = int(torch.randint(0, W - size, (1,), generator=rng))
-        speckled[y:y + size, x:x + size] = \
-            float(torch.rand(1, generator=rng)) * 120
-    conn = connectivity(speckled, SPECKLE["range"])
-    lin = torch.arange(H * W, dtype=torch.int32, device=dev).view(H, W)
-    init = torch.where(torch.isfinite(speckled), lin, H * W + 1).to(
-        torch.int32)
-
-    def sweep_loop(sweep, max_iters=64):
-        labels, changed, n = init.clone(), True, 0
-        while changed and n < max_iters:
-            changed = bool(sweep(labels, conn))
-            n += 1
-        return labels, changed, n
-
-    labels, unconv, n_sweeps = sweep_loop(K.speckle_sweep)
-    labels_ref, unconv_ref, n_ref = sweep_loop(K.speckle_sweep_plain)
-    err["speckle_sweep"] = int((labels - labels_ref).abs().max())
-    check(torch.equal(labels, labels_ref) and unconv == unconv_ref
-          and n_sweeps == n_ref, "K5 speckle_sweep labels, flag and sweeps")
-    kept = K.speckle_count_keep(speckled, labels, SPECKLE["T"], unconv)
-    kept_ref = K.speckle_count_keep_plain(speckled, labels, SPECKLE["T"],
-                                          unconv)
-    err["speckle_count_keep"] = bit_equal(kept, kept_ref,
-                                          "K6 speckle_count_keep")
-    spk_cfg = headline(KITTI["D"]).replace(
-        speckle_window_size=SPECKLE["T"], speckle_range=SPECKLE["range"])
-    out = speckle_filter(speckled, SPECKLE["T"], SPECKLE["range"])
-    bit_equal(out, plain_speckle(speckled, spk_cfg), "K5+K6 speckle_filter")
-    removed = int((torch.isfinite(speckled) & torch.isnan(out)).sum())
-    print(f"[parity] speckle_sweep: labels equal, unconverged={unconv}, "
-          f"{n_sweeps} sweeps; speckle_count_keep bit-equal; "
-          f"{removed} of {int(torch.isfinite(speckled).sum())} valid pixels "
-          f"removed ({label(KITTI)}, T={SPECKLE['T']}, "
-          f"range={SPECKLE['range']}; {card})")
-    serp = torch.full((16, 33), float("nan"), device=dev)
-    for row in range(0, 16, 2):
-        serp[row, :] = 5.0
-        if row + 1 < 16:
-            serp[row + 1, -1 if (row // 2) % 2 == 0 else 0] = 5.0
-    check(torch.equal(torch.isfinite(speckle_filter(serp, 10 ** 6, 1.0,
-                                                    max_iters=1)),
-                      torch.isfinite(serp)), "serpentine at max_iters=1 keeps "
-          "every pixel")
-
     left7, right7, gt7 = scene(ARKIT_720P)
     cfg7 = headline(ARKIT_720P["D"])
     disp7 = _match_core(left7, right7, cfg7)[0]
+
+    def k5_vs_plain(d, T, max_diff, max_iters, what):
+        """K5 in one launch against the plain filter: the map, the sweeps
+        and the unconverged flag bit for bit; returns (out, sweeps,
+        unconverged, max |diff|)."""
+        K.reset_launches()
+        out, stats = K.speckle_filter(d, T, max_diff, max_iters)
+        torch.cuda.synchronize()
+        exact_counts(dict(K.launches), {"speckle_filter": 1}, f"K5 {what}")
+        ref, sweeps, unconv = K.speckle_fixpoint_plain(d, T, max_diff,
+                                                       max_iters)
+        e = bit_equal(out, ref, f"K5 speckle_filter {what}")
+        check(stats.tolist() == [sweeps, int(unconv)], f"K5 {what}: "
+              f"[sweeps, unconverged] {stats.tolist()}, plain "
+              f"[{sweeps}, {int(unconv)}]")
+        return out, sweeps, unconv, e
+
+    spk_cfg = headline(KITTI["D"]).replace(
+        speckle_window_size=SPECKLE["T"], speckle_range=SPECKLE["range"])
+    spk_maps = {"KITTI": speckled(disp), "720p": speckled(disp7)}
+    spk_sweeps = {}
+    err["speckle_filter"] = 0.0
+    for name, sp in spk_maps.items():
+        out, n, unconv, e = k5_vs_plain(sp, SPECKLE["T"], SPECKLE["range"],
+                                        64, name)
+        err["speckle_filter"] = max(err["speckle_filter"], e)
+        spk_sweeps[name] = n
+        check(not unconv and n >= 2, f"K5 {name}: converged in {n} sweeps")
+        bit_equal(speckle_filter(sp, SPECKLE["T"], SPECKLE["range"]),
+                  plain_speckle(sp, spk_cfg), f"speckle_filter {name}")
+        removed = int((torch.isfinite(sp) & torch.isnan(out)).sum())
+        print(f"[parity] K5 speckle_filter {name} {tuple(sp.shape)}: one "
+              f"launch, bit-equal to the plain filter; {n} sweeps (kernel "
+              f"and plain), unconverged={unconv}; {removed} of "
+              f"{int(torch.isfinite(sp).sum())} valid pixels removed "
+              f"(T={SPECKLE['T']}, range={SPECKLE['range']}; {card})")
+    sp = spk_maps["KITTI"]
+    want = speckle_filter(sp, SPECKLE["T"], SPECKLE["range"])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = speckle_filter(sp, SPECKLE["T"], SPECKLE["range"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    bit_equal(got, want, "K5 under set_sync_debug_mode('error')")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        speckle_filter(sp, SPECKLE["T"], SPECKLE["range"])
+        torch.cuda.synchronize()
+    device_ops = {e.key: e.count for e in prof.key_averages()
+                  if e.device_time_total > 0}
+    if device_ops:
+        check(sum(device_ops.values()) == 1, f"K5: one device kernel in "
+              f"the profiler's trace, got {device_ops}")
+    print(f"[parity] K5 makes no host sync (set_sync_debug_mode 'error'); "
+          f"torch.profiler's device operations of one filter: "
+          f"{device_ops or 'none seen (no device trace)'} ({card})")
+
+    serp = torch.from_numpy(serpentine(75, KITTI["W"])).to(dev)
+    _, k, _, _ = k5_vs_plain(serp, 10 ** 6, 1.0, 64, "serpentine")
+    kept, _, unconv, _ = k5_vs_plain(serp, 10 ** 6, 1.0, k - 1,
+                                     f"serpentine max_iters={k - 1}")
+    check(unconv and torch.equal(torch.isfinite(kept),
+                                  torch.isfinite(serp)),
+          "serpentine capped one sweep short keeps every pixel")
+    gone, _, unconv, _ = k5_vs_plain(serp, 10 ** 6, 1.0, k,
+                                     f"serpentine max_iters={k}")
+    check(not unconv and bool(torch.isnan(gone).all()),
+          "serpentine at its k sweeps is one component, removed")
+    mid_x, mid_y = KITTI["W"] // 2, KITTI["H"] // 2
+    edges = {"W=1": disp[:, mid_x:mid_x + 1].contiguous(),
+             "H=1": disp[mid_y:mid_y + 1].contiguous(),
+             "all-NaN": torch.full((64, 256), float("nan"), device=dev)}
+    for name, edge in edges.items():
+        k5_vs_plain(edge, 3, SPECKLE["range"], 64, name)
+    k5_vs_plain(spk_maps["KITTI"], SPECKLE["T"], SPECKLE["range"], 0,
+                "max_iters=0")
+    print(f"[parity] K5 on a serpentine of 75 rows of {KITTI['W']}: {k} "
+          f"sweeps; at max_iters {k} removed, at {k - 1} kept; W=1, H=1, "
+          f"all-NaN and max_iters=0 bit-equal to the plain filter "
+          f"({card})")
+    del want, got, out, serp, kept, gone, edges, edge
+
     err["fgs_solve"] = 0.0
     k7_shapes, k7_args = [], {}
     lam = wls._lambda_schedule(80000.0, 3)[0]
@@ -734,10 +779,11 @@ def main() -> int:
         c = post_counts[name] = dict(K.launches)
         print(f"[post] {name} {label(spec)}: launches {c} ({card})")
         ran = MAIN_PATH + ("fgs_solve",) + (
-            ("speckle_sweep", "speckle_count_keep")
-            if pcfg.speckle_window_size > 0 else ())
+            ("speckle_filter",) if pcfg.speckle_window_size > 0 else ())
         for k in ran:
             check(c[k] > 0, f"kernel {k} launched on the {name} path")
+        check(c["speckle_filter"] == int(pcfg.speckle_window_size > 0),
+              f"{name}: one K5 launch per speckle filter")
         check(c["fgs_solve"] == 2 * pcfg.wls_iters,
               f"{name}: two K7 solves per WLS iteration")
         raw_ref, filt_ref, filt64 = plain_post_path(lft, rgt, pcfg)
@@ -1405,18 +1451,59 @@ def main() -> int:
 
     del vol, vol_ref, total, total_ref
 
-    # K5-K7 at KITTI shape; a K5 launch is half a sweep
-    converged = labels.clone()
-    sweep_ms = cuda_ms(lambda: K.speckle_sweep(converged, conn), 20)
-    sweep_plain_ms = cuda_ms(lambda: K.speckle_sweep_plain(converged, conn),
-                             5)
-    ms["speckle_sweep"], plain_ms["speckle_sweep"] = (sweep_ms / 2,
-                                                      sweep_plain_ms / 2)
-    keep_args = (speckled, labels, SPECKLE["T"], unconv)
-    ms["speckle_count_keep"] = cuda_ms(
-        lambda: K.speckle_count_keep(*keep_args), 20)
-    plain_ms["speckle_count_keep"] = cuda_ms(
-        lambda: K.speckle_count_keep_plain(*keep_args), 5)
+    # K5 (the whole speckle filter, one launch) at KITTI and 720p. Its
+    # bound, as every kernel's: d read once and the output written once, 8
+    # bytes a pixel. The label words that the sweeps read and write are
+    # the kernel's scratch, which the L2 holds; their traffic, (28 + 16 x
+    # sweeps) bytes a pixel, is printed beside it, not used as the bound.
+    # The filter cut at max_iters=1 gives the cost of a further sweep, both
+    # timed in CUDA graphs, since one sweep takes less than the host's
+    # call.
+    spk_ms, spk_plain_ms, spk_bound = {}, {}, {}
+    for name, sp in spk_maps.items():
+        n = spk_sweeps[name]
+        spk_ms[name] = cuda_ms(lambda: K.speckle_filter(
+            sp, SPECKLE["T"], SPECKLE["range"]), 50, warmup=3)
+        spk_plain_ms[name] = cuda_ms(lambda: K.speckle_fixpoint_plain(
+            sp, SPECKLE["T"], SPECKLE["range"]), 3)
+        in_graph = graph_ms(lambda: K.speckle_filter(
+            sp, SPECKLE["T"], SPECKLE["range"]), 20)
+        one_sweep = graph_ms(lambda: K.speckle_filter(
+            sp, SPECKLE["T"], SPECKLE["range"], 1), 20)
+        spk_bound[name] = bound(8 * sp.numel())
+        traffic_ms = bound((28 + 16 * n) * sp.numel())[0]
+        print(f"[timing] K5 speckle_filter {name} {tuple(sp.shape)} "
+              f"({n} sweeps, one launch, no host sync): kernel "
+              f"{spk_ms[name]} ms, plain {spk_plain_ms[name]} ms; bound "
+              f"{spk_bound[name][0]} ms ({spk_bound[name][1]}: d in, out "
+              f"out, 8 bytes a pixel) = {spk_bound[name][0] / spk_ms[name]} "
+              f"of it; label-word traffic ((28 + 16 x sweeps) bytes a pixel)"
+              f" over the memory rate {traffic_ms} ms; in a CUDA graph "
+              f"{in_graph} ms, cut at max_iters=1 {one_sweep} ms, so "
+              f"{(in_graph - one_sweep) / (n - 1)} ms a further sweep "
+              f"({card})")
+    # maps whose fixpoint is far: noisy ramps (holes make long, winding
+    # components), one of 3300 rows (three bands of the column phase) and
+    # the serpentine, each run to its fixpoint
+    far = {"KITTI noisy ramp": noisy_ramp(KITTI["H"], KITTI["W"]),
+           "720p noisy ramp": noisy_ramp(ARKIT_720P["H"], ARKIT_720P["W"]),
+           "3-band noisy ramp": noisy_ramp(3300, 300, seed=3, holes=0.1,
+                                           blobs=False),
+           "serpentine": serpentine(75, KITTI["W"])}
+    for name, m in far.items():
+        sp = torch.from_numpy(m).to(dev)
+        _, n, unconv, _ = k5_vs_plain(sp, SPECKLE["T"], SPECKLE["range"],
+                                      1000, name)
+        check(not unconv, f"K5 {name}: converged in {n} sweeps")
+        t = cuda_ms(lambda: K.speckle_filter(sp, SPECKLE["T"],
+                                             SPECKLE["range"], 1000), 10,
+                    warmup=2)
+        print(f"[timing] K5 speckle_filter {name} {tuple(sp.shape)} ({n} "
+              f"sweeps, bit-equal to the plain filter): kernel {t} ms = "
+              f"{t / n} ms a sweep; bound {bound(8 * sp.numel())[0]} ms "
+              f"({card})")
+    ms["speckle_filter"] = spk_ms["KITTI"]
+    plain_ms["speckle_filter"] = spk_plain_ms["KITTI"]
     solve_ms, solve_plain_ms = {}, {}
     for (kind, H_), (f, wp, wn, axis) in k7_args.items():
         solve_ms[kind, H_] = cuda_ms(
@@ -1446,21 +1533,13 @@ def main() -> int:
           f"{dense_ms} ms; its float64 error "
           f"{max_err(u_dense, solve64(f, wp, wn, lam, 0))} px ({card})")
     del dense, rhs, u_dense, a, b, c
-    spk_ms = cuda_ms(lambda: speckle_filter(speckled, SPECKLE["T"],
-                                            SPECKLE["range"]), 10)
-    spk_plain_ms = cuda_ms(lambda: plain_speckle(speckled, spk_cfg), 3)
     wls_ms = cuda_ms(lambda: wls.wls_filter_disparity(
         disp, left, 80000.0, 1.2, 3), 10)
     wls_plain_ms = cuda_ms(lambda: wls.wls_filter_disparity(
         disp, left, 80000.0, 1.2, 3, solve=K.fgs_solve_plain), 1)
-    print(f"[timing] speckle sweep (row + column launch) {label(KITTI)}: "
-          f"kernel {sweep_ms} ms, plain {sweep_plain_ms} ms; whole "
-          f"speckle_filter ({n_sweeps} sweeps, one host sync each): kernels "
-          f"{spk_ms} ms, plain {spk_plain_ms} ms ({card})")
     print(f"[timing] wls_filter_disparity {label(KITTI)} (3 iterations, 6 "
           f"solves): kernels {wls_ms} ms, plain {wls_plain_ms} ms ({card})")
-    del speckled, labels, labels_ref, conn, init, lin, kept, kept_ref, out
-    del converged, keep_args, k7_args, f, wp, wn
+    del spk_maps, sp, k7_args, f, wp, wn
 
     frame_ms = cuda_ms(lambda: _match_core(left, right, cfg), 20, warmup=2)
     frame7_ms = cuda_ms(lambda: _match_core(left7, right7, cfg7), 10)
@@ -1480,7 +1559,12 @@ def main() -> int:
 
     for name, (spec, lft, rgt, _, pcfg) in post_paths.items():
         t = cuda_ms(lambda: _match_core(lft, rgt, pcfg), 10)
-        sweeps = post_counts[name]["speckle_sweep"] // 2
+        sweeps = 0
+        if pcfg.speckle_window_size > 0:
+            wta = _match_core(lft, rgt, pcfg.replace(
+                speckle_window_size=0, wls=False))[0]
+            sweeps = int(K.speckle_filter(wta, pcfg.speckle_window_size,
+                                          pcfg.speckle_range)[1][0])
         print(f"[timing] post-stack path {name} {label(spec)}: {t} ms/frame "
               f"= {1000.0 / t} frames/s; {sweeps} speckle sweeps per frame "
               f"({card})")
@@ -1669,8 +1753,7 @@ def main() -> int:
         "wta_stats": bound(vol_b + 5 * HW * 4),
         "right_wta": bound(vol_b + HW * 4),
         "lr_mask": bound(2 * HW * 4 + HW),
-        "speckle_sweep": bound(2 * HW * 4 + HW),
-        "speckle_count_keep": bound(3 * HW * 4),
+        "speckle_filter": spk_bound["KITTI"],
         "fgs_solve": bound(6 * HW * 4),
         "mccnn_conv3x3": (k8_bound_ms, k8_bound_by),
         "mccnn_volume": bound(2 * F_fast * HW * 4 + vol_b,

@@ -24,10 +24,12 @@ K4     ``wta_lr``              csrc/wta.cu          (the WTA statistics of
        ``right_wta``           csrc/wta.cu          (right_wta_pallas)
        ``lr_mask``             csrc/wta.cu          (lr_mask_pallas, float
                                                      tolerance)
-K5     ``speckle_sweep``       csrc/speckle.cu      (the labels of
-                                                     speckle_filter_pallas)
-K6     ``speckle_count_keep``  csrc/speckle.cu      (the sizes and threshold
-                                                     of speckle_filter_pallas)
+K5     ``speckle_filter``      csrc/speckle.cu      (speckle_filter_pallas:
+                                                     labels to the fixpoint,
+                                                     sizes and threshold in
+                                                     one cooperative launch;
+                                                     K6, the count and keep,
+                                                     are its last phases)
 K7     ``fgs_solve``           csrc/wls.cu          (fgs_solve_pallas; rows
                                                      or columns of the slab
                                                      as it lies, each line
@@ -60,8 +62,8 @@ allocates nothing and returns ``cudaGetLastError()``; the wrapper allocates
 the outputs and raises on a nonzero code.
 
 ``launches`` counts, per kernel entry, the calls of its C entry point made
-by the wrappers: K5 counts two per sweep (rows, then columns); K6's entry
-runs its count and keep kernels as one; K4's four entries count apart.
+by the wrappers: K5 counts one per speckle filter, whatever its sweeps;
+K4's four entries count apart.
 ``extract_disparity_fast`` runs K4's ``wta_stats``, ``right_wta`` and
 ``lr_mask`` entries.
 K2, K3 and K4 take float32 or int16 volumes (``census_volume``'s
@@ -103,7 +105,7 @@ LIB_NAME = "libsmt_kernels.so"
 
 launches = {"census_words": 0, "census_volume": 0, "sgm_path_scan": 0,
             "wta_lr": 0, "wta_stats": 0, "right_wta": 0, "lr_mask": 0,
-            "speckle_sweep": 0, "speckle_count_keep": 0, "fgs_solve": 0,
+            "speckle_filter": 0, "fgs_solve": 0,
             "mccnn_conv3x3": 0, "mccnn_volume": 0, "census_scan": 0}
 
 # Packed speckle connectivity: the bit a pixel sets when it is connected to
@@ -191,8 +193,7 @@ def _library() -> ctypes.CDLL:
             "smt_right_wta": [p, p, i, i, i, i, p],
             "smt_lr_mask": [p, p, p, i, i, f, p],
             "smt_census_scan": [p, p, p, i, i, i, i, f, f, f, i, i, p],
-            "smt_speckle_sweep": [p, p, i, i, i, p, p],
-            "smt_speckle_count_keep": [p, p, p, p, i, i, i, i, p],
+            "smt_speckle_filter": [p, p, p, p, p, p, i, i, i, f, i, p],
             "smt_fgs_solve": [p, p, p, p, p, i, i, i, i, f, p],
             "smt_mccnn_conv3x3": [p, p, p, p, i, i, i, i, i, i, i, p],
             "smt_mccnn_volume": [p, p, p, i, i, i, i, i, f, p],
@@ -700,7 +701,40 @@ def extract_disparity_fast(agg: torch.Tensor, min_disparity: int = 0,
     return (disp, disp_right) if return_right else disp
 
 
-# ------------------------------------------------------ K5 speckle_sweep ----
+# ----------------------------------------------------- K5 speckle_filter ----
+
+def _neighbor_shift(x: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
+    """Shift (H, W) by (dy, dx) filling exposed cells."""
+    out = torch.roll(x, (dy, dx), dims=(0, 1))
+    if dy == 1:
+        out[0, :] = fill
+    elif dy == -1:
+        out[-1, :] = fill
+    if dx == 1:
+        out[:, 0] = fill
+    elif dx == -1:
+        out[:, -1] = fill
+    return out
+
+
+def connectivity(d: torch.Tensor, max_diff: float) -> torch.Tensor:
+    """(H, W) float32 disparities -> (H, W) uint8 packed connectivity.
+
+    Bit ``CONN_LEFT`` of a pixel is set when it is connected to its left
+    neighbour (``conn_x`` of the reference), bit ``CONN_UP`` when it is
+    connected to the pixel above (``conn_y``). Only valid pixels set bits;
+    an invalid neighbour compares as ``inf``, which joins nothing unless
+    ``max_diff`` is inf, as in the reference.
+    """
+    valid = torch.isfinite(d)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=d.device)
+    dval = torch.where(valid, d, inf)
+    tol = torch.tensor(max_diff, dtype=torch.float32, device=d.device)
+    conn_x = valid & ((_neighbor_shift(dval, 0, 1, inf) - dval).abs() <= tol)
+    conn_y = valid & ((_neighbor_shift(dval, 1, 0, inf) - dval).abs() <= tol)
+    return (conn_x.to(torch.uint8) * CONN_LEFT) | \
+        (conn_y.to(torch.uint8) * CONN_UP)
+
 
 def _check_labels(labels: torch.Tensor, conn: torch.Tensor) -> None:
     _check(labels, "labels", torch.int32, 2)
@@ -733,6 +767,7 @@ def speckle_sweep_plain(labels: torch.Tensor,
 
     Returns a bool tensor: whether the sweep lowered any label.
     """
+    _check_labels(labels, conn)
     cx = (conn & CONN_LEFT) != 0          # pixel joins the run of x - 1
     cy = (conn & CONN_UP) != 0            # pixel joins the run of y - 1
     # reverse scans: a pixel joins the run of x + 1 (y + 1) when that pixel
@@ -750,61 +785,90 @@ def speckle_sweep_plain(labels: torch.Tensor,
     return changed
 
 
-def speckle_sweep(labels: torch.Tensor, conn: torch.Tensor) -> torch.Tensor:
-    """One min-label sweep over (H, W) int32 ``labels``, in place (K5).
-
-    ``conn`` is the (H, W) uint8 packed connectivity (``CONN_LEFT``,
-    ``CONN_UP``). Returns a one-element tensor on the labels' device,
-    nonzero when the sweep lowered a label; reading it syncs the host.
-    """
-    _check_labels(labels, conn)
-    if _on_cpu(labels, conn):
-        return speckle_sweep_plain(labels, conn)
-    H, W = labels.shape
-    changed = torch.zeros(1, dtype=torch.int32, device=labels.device)
-    for axis in (1, 0):                    # rows, then columns
-        _launch("speckle_sweep", labels.device, _ptr(labels), _ptr(conn), H,
-                W, axis, _ptr(changed))
-    return changed
-
-
-# ------------------------------------------------- K6 speckle_count_keep ----
-
 def speckle_count_keep_plain(d: torch.Tensor, labels: torch.Tensor,
                              threshold: int,
                              unconverged: bool) -> torch.Tensor:
-    """Pixels of components under ``threshold`` pixels -> NaN.
+    """Pixels of components under ``threshold`` valid pixels -> NaN.
 
-    ``unconverged`` keeps every valid pixel (the sweeps hit their cap).
+    Sizes count the valid pixels of a label, as the reference's
+    ``segment_sum`` of ``valid`` does (an invalid pixel can take a
+    component's label when ``max_diff`` is inf). ``unconverged`` keeps
+    every valid pixel (the sweeps hit their cap).
     """
-    sizes = torch.bincount(labels.reshape(-1).to(torch.int64),
-                           minlength=labels.numel() + 2)
+    valid = torch.isfinite(d)
+    sizes = torch.zeros(labels.numel() + 2, dtype=torch.int64,
+                        device=d.device).scatter_add_(
+        0, labels.reshape(-1).to(torch.int64), valid.reshape(-1).to(
+            torch.int64))
     keep = (sizes[labels.to(torch.int64)] >= threshold) | bool(unconverged)
-    return torch.where(keep & torch.isfinite(d), d, torch.nan)
+    return torch.where(keep & valid, d, torch.nan)
 
 
-def speckle_count_keep(d: torch.Tensor, labels: torch.Tensor, threshold: int,
-                       unconverged: bool) -> torch.Tensor:
-    """Component sizes by label, then the size threshold (K6).
+def speckle_fixpoint_plain(d: torch.Tensor, threshold: int, max_diff: float,
+                           max_iters: int = 64):
+    """The plain speckle filter: (out, sweeps, unconverged).
 
-    ``d``: (H, W) float32 disparities; ``labels``: their (H, W) int32
-    component labels after the sweeps (``H * W + 1`` for invalid pixels).
-    Returns ``d`` with NaN where the pixel is invalid or its component has
-    fewer than ``threshold`` pixels, unless ``unconverged``.
+    Labels start as ``y * W + x`` (``H * W + 1`` for invalid pixels); sweeps
+    run while one lowers a label, at most ``max_iters``; ``unconverged``
+    is whether the last sweep still lowered one. Reads the changed flag on
+    the host once a sweep. The model of K5 ``speckle_filter``, which
+    reports the same ``sweeps`` and ``unconverged`` in its ``stats``.
     """
     _check(d, "d", torch.float32, 2)
-    _check(labels, "labels", torch.int32, 2)
-    if d.shape != labels.shape:
-        raise ValueError(f"d {tuple(d.shape)} and labels "
-                         f"{tuple(labels.shape)} differ")
-    if _on_cpu(d, labels):
-        return speckle_count_keep_plain(d, labels, threshold, unconverged)
     H, W = d.shape
-    count = torch.zeros(H * W, dtype=torch.int32, device=d.device)
+    lin = torch.arange(H * W, dtype=torch.int32, device=d.device).view(H, W)
+    labels = torch.where(torch.isfinite(d), lin, H * W + 1).to(
+        torch.int32).contiguous()
+    conn = connectivity(d, max_diff)
+    changed, sweeps = True, 0
+    while changed and sweeps < max_iters:
+        changed = bool(speckle_sweep_plain(labels, conn))
+        sweeps += 1
+    return (speckle_count_keep_plain(d, labels, threshold, changed), sweeps,
+            changed)
+
+
+# csrc/speckle.cu keeps a label in 30 bits of a word and stages a whole row
+# in shared memory
+SPECKLE_MAX_PIXELS, SPECKLE_MAX_WIDTH = 1 << 29, 25600
+
+
+def speckle_filter(d: torch.Tensor, threshold: int, max_diff: float,
+                   max_iters: int = 64):
+    """The whole speckle filter on (H, W) float32 ``d`` (K5).
+
+    Returns ``(out, stats)``: ``out`` is ``d`` with NaN where the pixel is
+    invalid or its component has fewer than ``threshold`` valid pixels
+    (every valid pixel is kept if ``max_iters`` sweeps did not converge);
+    ``stats`` is an int32 tensor ``[sweeps, unconverged]`` on ``d``'s
+    device. On a CUDA tensor this is one cooperative kernel launch and no
+    host sync (reading ``stats`` syncs; the filter itself never does); a
+    card that cannot run it raises. A CPU tensor runs
+    ``speckle_fixpoint_plain``.
+    """
+    _check(d, "d", torch.float32, 2)
+    if _on_cpu(d):
+        out, sweeps, unconverged = speckle_fixpoint_plain(d, threshold,
+                                                          max_diff, max_iters)
+        return out, torch.tensor([sweeps, int(unconverged)],
+                                 dtype=torch.int32)
+    H, W = d.shape
+    if H * W >= SPECKLE_MAX_PIXELS or W > SPECKLE_MAX_WIDTH:
+        raise ValueError(f"speckle_filter: {H}x{W}; the card takes fewer "
+                         f"than {SPECKLE_MAX_PIXELS} pixels and rows of at "
+                         f"most {SPECKLE_MAX_WIDTH}")
+    dev = d.device
     out = torch.empty_like(d)
-    _launch("speckle_count_keep", d.device, _ptr(d), _ptr(labels),
-            _ptr(count), _ptr(out), H, W, int(threshold), int(unconverged))
-    return out
+    labels = torch.empty((H, W), dtype=torch.int32, device=dev)
+    count = torch.empty(H * W, dtype=torch.int32, device=dev)
+    flags = torch.empty(max(int(max_iters), 1), dtype=torch.int32,
+                        device=dev)
+    stats = torch.empty(2, dtype=torch.int32, device=dev)
+    _launch("speckle_filter", dev, _ptr(d), _ptr(out), _ptr(labels),
+            _ptr(count), _ptr(flags), _ptr(stats), H, W,
+            min(int(threshold), 2 ** 31 - 1), float(max_diff),
+            int(max_iters))
+    return out, stats
 
 
 # ---------------------------------------------------------- K7 fgs_solve ----

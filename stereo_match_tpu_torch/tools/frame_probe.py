@@ -1,17 +1,27 @@
-"""Time whole frames and the main path's K2 and K4 on the card.
+"""Time whole frames, the main path's K2 and K4 and the speckle filter on
+the card.
 
 Frames, on the seed-1 KITTI scene (1242x375, D=128) and the seed-3 720p
 one (1280x720): the headline (no post stack) in float32 and int16,
 MC-CNN fast (the shipped checkpoint) at the headline's WTA settings,
 ``DisparityConfig()`` at 720p (settings.ini: WLS), KITTI speckle 100 + WLS
-with and without LR confidence, each through ``_match_core``, and the
-4-stage census-payload ``StreamingPipeline`` on one card. Each frame time
-is the mean of 10 frames (12 stream steps after the fill) by CUDA events
-after 2 warm-up frames. Kernels, at KITTI on the headline's volume and
-total: K2 ``census_volume`` (float32, int16, transposed, 7x9, and one
-plane at D = 1 as ELAS launches it) and K4's ``wta_lr``, ``wta_stats`` and
-``right_wta`` (float32 and int16), each the mean of 64 calls captured in
-one CUDA graph, so no host time lies between the launches.
+with and without LR confidence, each through ``_match_core``, StereoBM
+(block 21, disp12 -1: ``stereobm_true``) through ``block_match`` and with
+speckle 100 through ``BlockMatcher``, and the 4-stage census-payload
+``StreamingPipeline`` on one card. Each frame time is the mean of 10
+frames (12 stream steps after the fill) by CUDA events after 2 warm-up
+frames. Kernels, at KITTI on the headline's volume and total: K2
+``census_volume`` (float32, int16, transposed, 7x9, and one plane at D = 1
+as ELAS launches it) and K4's ``wta_lr``, ``wta_stats`` and ``right_wta``
+(float32 and int16), each the mean of 64 calls captured in one CUDA
+graph, so no host time lies between the launches. The whole speckle
+filter (T=100, range 2), the mean of 20 calls by CUDA events (the filter
+of a tree that reads a flag on the host every sweep cannot be captured),
+with the launches of one call: on the headline's KITTI and 720p maps with
+``speckled``'s 600 blobs (max_iters 64, and at KITTI cut at 1 sweep), and
+run to the fixpoint (max_iters 1000) on maps that need many sweeps, from
+``data/speckle_maps.py``: the noisy ramps at KITTI and 720p, one of 3300
+rows by 300 and the serpentine of 75 rows by 1242.
 
     python -m stereo_match_tpu_torch.tools.frame_probe [--tree DIR]...
 
@@ -24,11 +34,22 @@ so two commits compare in one call: ``--tree OLD --tree . --tree .
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+
+def _speckle_maps():
+    """``data/speckle_maps.py`` of this checkout, loaded by path, so every
+    tree under ``--tree`` times the same maps."""
+    path = Path(__file__).resolve().parents[1] / "data" / "speckle_maps.py"
+    spec = importlib.util.spec_from_file_location("_speckle_maps", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _probe() -> dict:
@@ -41,8 +62,10 @@ def _probe() -> dict:
     from stereo_match_tpu_torch.models.mccnn import (from_flax_params,
                                                      load_default_params)
     from stereo_match_tpu_torch.ops import cuda_kernels as K
+    from stereo_match_tpu_torch.ops.speckle import speckle_filter
     from stereo_match_tpu_torch.parallel import (StreamingPipeline,
                                                  make_stage_mesh)
+    from stereo_match_tpu_torch.pipeline import block_matching
     from stereo_match_tpu_torch.pipeline.stereo import _match_core
     from stereo_match_tpu_torch.utils.backend import require_hopper
 
@@ -95,6 +118,33 @@ def _probe() -> dict:
             ("speckle+wls+lr_confidence", kitti,
              spk.replace(wls_lr_confidence=True))):
         out[name] = ms(lambda: _match_core(*pair, cfg), 10)
+    bm_kw = dict(num_disparities=128, block_size=21, disp12_max_diff=-1)
+    out["stereobm_true"] = ms(lambda: block_matching.block_match(
+        *kitti, device=dev, **bm_kw), 10)
+    bm = block_matching.BlockMatcher(
+        DisparityConfig(**bm_kw, speckle_window_size=100, speckle_range=2,
+                        wls=False), device=dev)
+    out["stereobm+speckle"] = ms(lambda: bm(*kitti), 10)
+    maps = _speckle_maps()
+    spk_maps = {name: (maps.speckled(_match_core(
+        *pair, head.replace(num_disparities=D))[0]), 64)
+        for name, pair, D in (("KITTI", kitti, 128), ("720p", p720, 160))}
+    spk_maps["KITTI max_iters=1"] = (spk_maps["KITTI"][0], 1)
+    for name, m in (("KITTI noisy ramp", maps.noisy_ramp(375, 1242)),
+                    ("720p noisy ramp", maps.noisy_ramp(720, 1280)),
+                    ("3-band noisy ramp", maps.noisy_ramp(
+                        3300, 300, seed=3, holes=0.1, blobs=False)),
+                    ("serpentine", maps.serpentine(75, 1242))):
+        spk_maps[name] = (torch.from_numpy(m).to(dev), 1000)
+    speckle = {}
+    for name, (d, max_iters) in spk_maps.items():
+        K.reset_launches()
+        speckle_filter(d, 100, 2, max_iters)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in K.launches.items() if v}
+        speckle[name] = {"ms": ms(lambda: speckle_filter(d, 100, 2,
+                                                         max_iters), 20),
+                         "launches": launches}
     pipe = StreamingPipeline(head, make_stage_mesh(4, devices=[dev] * 4),
                              (375, 1242), payload_mode="census",
                              payload_dtype="float32")
@@ -128,7 +178,8 @@ def _probe() -> dict:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    return {"ms_per_frame": out, "kernel_ms": kernel_ms, "card": card}
+    return {"ms_per_frame": out, "kernel_ms": kernel_ms,
+            "speckle_filter": speckle, "card": card}
 
 
 def main() -> None:

@@ -8,8 +8,9 @@ card (no JAX there, so without the JAX test configuration):
 The kernel and its plain version take the same CUDA tensors. K1, K2 and K3
 must be bit-equal (integer census arithmetic; K3 repeats the plain scan's
 float operations in the same order, so even non-integer costs agree); K4
-must give the same NaN mask and values within 1e-6. K5 and K6 are integer
-label arithmetic and a copy, so the speckle filter must be bit-equal. K7
+must give the same NaN mask and values within 1e-6. K5 is integer label
+arithmetic and a copy, so the speckle filter must be bit-equal to its plain
+version, with the same sweeps and unconverged flag, in one launch. K7
 splits each line into segments and takes its pivots from a side of ones,
 so it must equal that algorithm's plain model
 (``fgs_solve_partitioned_plain``, the same rounded operations) bit for bit,
@@ -37,6 +38,8 @@ import torch
 
 from stereo_match_tpu_torch.config import DisparityConfig
 from stereo_match_tpu_torch.costs import MCCNNCost
+from stereo_match_tpu_torch.data.speckle_maps import (noisy_ramp,
+                                                      serpentine, speckled)
 from stereo_match_tpu_torch.data.synthetic import random_dot_pair, slanted_scene
 from stereo_match_tpu_torch.models.mccnn import (from_flax_params,
                                                  load_default_params,
@@ -44,7 +47,7 @@ from stereo_match_tpu_torch.models.mccnn import (from_flax_params,
 from stereo_match_tpu_torch.ops import cuda_kernels as K
 from stereo_match_tpu_torch.ops import wls
 from stereo_match_tpu_torch.ops.sgm import PATH_DIRECTIONS_8
-from stereo_match_tpu_torch.ops.speckle import connectivity, speckle_filter
+from stereo_match_tpu_torch.ops.speckle import speckle_filter
 from stereo_match_tpu_torch.parallel import (StreamingPipeline, make_mesh,
                                              make_stage_mesh,
                                              sgm_aggregate_sharded)
@@ -245,24 +248,19 @@ def test_kernels_reject_bad_cuda_inputs(dev):
                         torch.zeros(8, 16, dtype=torch.int32), 16)
 
 
-# ------------------------------------------------------ K5, K6 speckle ----
+# ----------------------------------------------------------- K5 speckle ----
 
 def _speckled_map(H, W, dev, seed=7):
-    rng = np.random.default_rng(seed)
-    d = np.tile(np.linspace(5, 60, W, dtype=np.float32), (H, 1))
-    d += rng.normal(0, 0.3, (H, W)).astype(np.float32)
-    d[rng.uniform(size=d.shape) < 0.15] = np.nan
-    for _ in range(H * W // 400):               # 2x2 and 4x4 outliers
-        y, x = rng.integers(0, H - 4), rng.integers(0, W - 4)
-        s = int(rng.choice([2, 4]))
-        d[y:y + s, x:x + s] = rng.uniform(0, 100)
-    return torch.from_numpy(d).to(dev)
+    return torch.from_numpy(noisy_ramp(H, W, seed)).to(dev)
 
 
-def _plain_speckle(d, T, max_diff, max_iters=64):
-    return speckle_filter(d, T, max_diff, max_iters,
-                          sweep=K.speckle_sweep_plain,
-                          count_keep=K.speckle_count_keep_plain)
+def _plane_map(H, W, d_max, dev):
+    """A slanted plane with 5 % holes and a 2x2 or 4x4 outlier blob for
+    every 800 pixels: it converges in tens of sweeps."""
+    gt = torch.from_numpy(slanted_scene(H, W, 5.0, d_max))
+    holes = np.random.default_rng(H).uniform(size=(H, W)) < 0.05
+    gt[torch.from_numpy(holes)] = float("nan")
+    return speckled(gt, seed=H, blobs=H * W // 800).to(dev)
 
 
 def _assert_bit_equal_maps(got, want):
@@ -270,44 +268,135 @@ def _assert_bit_equal_maps(got, want):
     assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
 
 
+def _speckle_kernel_vs_plain(d, T, max_diff, max_iters=64):
+    """One launch, and the map, sweeps and unconverged flag of the plain
+    filter bit for bit; returns (sweeps, unconverged)."""
+    K.reset_launches()
+    got, stats = K.speckle_filter(d, T, max_diff, max_iters)
+    assert K.launches["speckle_filter"] == 1
+    assert sum(K.launches.values()) == 1
+    want, sweeps, unconverged = K.speckle_fixpoint_plain(d, T, max_diff,
+                                                         max_iters)
+    _assert_bit_equal_maps(got, want)
+    assert got.device == d.device
+    assert stats.tolist() == [sweeps, int(unconverged)]
+    return sweeps, unconverged
+
+
 @pytest.mark.parametrize("H,W,T,max_diff", [(37, 150, 10, 1.0),
                                             (64, 33, 30, 2.0),
                                             (1, 200, 5, 2.0),
                                             (120, 1, 5, 2.0),
-                                            (*KITTI, 100, 2.0)])
-def test_speckle_kernels(dev, H, W, T, max_diff):
+                                            (*KITTI, 100, 2.0),
+                                            (720, 1280, 100, 2.0),
+                                            (1700, 96, 20, 2.0)])
+def test_speckle_filter_kernel(dev, H, W, T, max_diff):
+    """Noisy ramps up to 720p and, at 1700 rows, columns scanned in two
+    bands. They need tens of sweeps; the 720p one is still lowering labels
+    at sweep 64, so there every valid pixel stays and the sizes are
+    checked by test_speckle_filter_kernel_converged."""
     d = _speckled_map(H, W, dev)
+    sweeps, unconverged = _speckle_kernel_vs_plain(d, T, max_diff)
+    assert sweeps >= 1 and unconverged == (sweeps == 64)
     K.reset_launches()
-    got = speckle_filter(d, T, max_diff)
-    sweeps = K.launches["speckle_sweep"] // 2
-    assert K.launches["speckle_count_keep"] == 1 and sweeps >= 1
-    _assert_bit_equal_maps(got, _plain_speckle(d, T, max_diff))
+    _assert_bit_equal_maps(speckle_filter(d, T, max_diff),
+                           K.speckle_fixpoint_plain(d, T, max_diff, 64)[0])
+    assert K.launches["speckle_filter"] == 1
 
 
-def test_speckle_sweep_kernel_labels_and_flag(dev):
+@pytest.mark.parametrize("H,W,d_max", [(*KITTI, 90.0), (720, 1280, 110.0),
+                                       (1700, 96, 40.0)])
+def test_speckle_filter_kernel_converged(dev, H, W, d_max):
+    """Maps that converge, up to 720p and over two column bands: the
+    component sizes and the threshold decide, so the blobs go and the
+    plane stays."""
+    d = _plane_map(H, W, d_max, dev)
+    sweeps, unconverged = _speckle_kernel_vs_plain(d, 100, 2.0)
+    assert sweeps >= 2 and not unconverged
+    out, _ = K.speckle_filter(d, 100, 2.0)
+    valid = int(torch.isfinite(d).sum())
+    removed = int((torch.isfinite(d) & torch.isnan(out)).sum())
+    assert 0 < removed < 0.05 * valid
+
+
+@pytest.mark.parametrize("case", ["all_nan", "one_pixel", "infinities",
+                                  "ties", "inf_max_diff", "no_sweeps"])
+def test_speckle_filter_kernel_edges(dev, case):
+    rng = np.random.default_rng(11)
     d = _speckled_map(48, 96, dev, seed=3)
-    conn = connectivity(d, 2.0)
-    lin = torch.arange(48 * 96, dtype=torch.int32, device=dev).view(48, 96)
-    init = torch.where(torch.isfinite(d), lin, 48 * 96 + 1).to(torch.int32)
-    a, b = init.clone(), init.clone()
-    while True:
-        fa = bool(K.speckle_sweep(a, conn))
-        fb = bool(K.speckle_sweep_plain(b, conn))
-        assert fa == fb and torch.equal(a, b)
-        if not fa:
-            break
+    max_diff, max_iters = 2.0, 64
+    if case == "all_nan":
+        d = torch.full((9, 40), float("nan"), device=dev)
+    elif case == "one_pixel":
+        d = torch.full((1, 1), 3.0, device=dev)
+    elif case == "infinities":
+        d[torch.from_numpy(rng.uniform(size=d.shape) < 0.1).to(dev)] = \
+            float("inf")
+        d[torch.from_numpy(rng.uniform(size=d.shape) < 0.1).to(dev)] = \
+            -float("inf")
+    elif case == "ties":                 # neighbours exactly max_diff apart
+        d = torch.from_numpy((rng.integers(0, 4, (48, 96)) * 0.5 + 10).astype(
+            np.float32)).to(dev)
+        max_diff = 0.5
+    elif case == "inf_max_diff":         # invalid pixels take labels
+        max_diff = float("inf")
+    else:
+        max_iters = 0                    # no sweep: keep every valid pixel
+    for T in (1, 3, 12):
+        sweeps, unconverged = _speckle_kernel_vs_plain(d, T, max_diff,
+                                                       max_iters)
+        assert (sweeps, unconverged) == ((0, True) if max_iters == 0 else
+                                         (sweeps, False))
 
 
-def test_speckle_serpentine_cap(dev):
-    d = torch.full((16, 33), float("nan"))
-    for row in range(0, 16, 2):
-        d[row, :] = 5.0
-        if row + 1 < 16:
-            d[row + 1, -1 if (row // 2) % 2 == 0 else 0] = 5.0
-    d = d.to(dev)
-    kept = speckle_filter(d, 10 ** 6, 1.0, max_iters=1)
+@pytest.mark.parametrize("H,W,transpose", [(16, 33, False),
+                                            (75, 1242, False),
+                                            (16, 1700, True)])
+def test_speckle_filter_serpentine_cap(dev, H, W, transpose):
+    """The serpentine converges after k sweeps: at max_iters = k it is one
+    component and T removes it; at k - 1 every pixel stays. Transposed, its
+    columns run over two bands."""
+    d = torch.from_numpy(serpentine(H, W)).to(dev)
+    if transpose:
+        d = d.T.contiguous()
+    k, unconverged = _speckle_kernel_vs_plain(d, 10 ** 6, 1.0)
+    assert k >= 3 and not unconverged
+    assert _speckle_kernel_vs_plain(d, 10 ** 6, 1.0, k) == (k, False)
+    assert _speckle_kernel_vs_plain(d, 10 ** 6, 1.0, k - 1) == (k - 1, True)
+    kept, _ = K.speckle_filter(d, 10 ** 6, 1.0, k - 1)
     assert torch.equal(torch.isfinite(kept), torch.isfinite(d))
-    assert torch.isnan(speckle_filter(d, 10 ** 6, 1.0)).all()
+    assert torch.isnan(K.speckle_filter(d, 10 ** 6, 1.0, k)[0]).all()
+
+
+def test_speckle_filter_in_a_cuda_graph(dev):
+    """With no host read, the filter can be captured in a CUDA graph;
+    each replay recomputes it from the input."""
+    d = _speckled_map(*KITTI, dev, seed=5)
+    K.speckle_filter(d, 100, 2.0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, stats = K.speckle_filter(d, 100, 2.0)
+    for seed in (5, 6):
+        d.copy_(_speckled_map(*KITTI, dev, seed=seed))
+        graph.replay()
+        want, sweeps, unconverged = K.speckle_fixpoint_plain(d, 100, 2.0)
+        _assert_bit_equal_maps(got, want)
+        assert stats.tolist() == [sweeps, int(unconverged)]
+
+
+def test_speckle_filter_makes_no_host_sync(dev):
+    d = _speckled_map(*KITTI, dev, seed=9)
+    want = speckle_filter(d, 100, 2.0)      # builds and sizes the grid
+    torch.cuda.synchronize()
+    K.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = speckle_filter(d, 100, 2.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert K.launches["speckle_filter"] == 1
+    _assert_bit_equal_maps(got, want)
 
 
 # -------------------------------------------------------------- K7 WLS ----
@@ -378,8 +467,7 @@ def test_post_stack_on_card_matches_cpu(dev, kw):
     counts = dict(K.launches)
     assert counts["fgs_solve"] == 2 * cfg.wls_iters
     if cfg.speckle_window_size > 0:
-        assert counts["speckle_count_keep"] == 1
-        assert counts["speckle_sweep"] >= 2
+        assert counts["speckle_filter"] == 1
     want_raw, want_filtered = StereoMatcher(cfg, device="cpu")(left, right)
     _assert_same_disparity(raw.cpu(), want_raw)
     assert torch.isfinite(filtered).all()
@@ -783,8 +871,8 @@ def cards(dev):
 
 def test_kernels_on_every_card(cards):
     """K3 (every direction takes more than 48 KB of shared memory at D =
-    128) and both bodies of K8 on each card in turn, against their plain
-    versions on that card."""
+    128), both bodies of K8 and K5 (its grid is sized per card) on each
+    card in turn, against their plain versions on that card."""
     rng = np.random.default_rng(16)
     cost = rng.uniform(0, 24, (128, 37, 150)).astype(np.float32)
     x = rng.normal(size=(2, 112, 17, 70)).astype(np.float32)
@@ -807,6 +895,7 @@ def test_kernels_on_every_card(cards):
             want = K.mccnn_conv3x3_plain(*args, True, False)
             assert got.device == card
             assert float((got - want).abs().max()) <= 1e-5
+        _speckle_kernel_vs_plain(_speckled_map(*KITTI, card), 100, 2.0)
 
 
 @pytest.mark.parametrize("mode", ["exact", "halo"])

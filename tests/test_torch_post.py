@@ -2,8 +2,8 @@
 
 The same numpy inputs, made from a seed, go through the JAX function (its
 XLA path, or a Pallas kernel in interpret mode) and the port's, which runs
-the plain versions of K5-K7 on the CPU. The speckle filter is compared bit
-for bit. The WLS solves are compared within the JAX tests' own bounds
+the plain versions of K5 and K7 on the CPU. The speckle filter is compared
+bit for bit. The WLS solves are compared within the JAX tests' own bounds
 (``tests/test_refine.py``): 2e-6 for one solve, rtol 1e-3 / atol 2e-4 for
 the composed smoother. The two packages round ``exp`` in the guide weights
 and contract multiply-adds differently, by an ulp, and the ill-conditioned
@@ -22,6 +22,7 @@ from stereo_match_tpu.ops.pallas_speckle import speckle_filter_pallas
 from stereo_match_tpu.ops.pallas_wls import fast_global_smoother_pallas
 from stereo_match_tpu_torch.config import DisparityConfig
 from stereo_match_tpu_torch.data import synthetic as tsynthetic
+from stereo_match_tpu_torch.data.speckle_maps import serpentine
 from stereo_match_tpu_torch.ops import cuda_kernels as K
 from stereo_match_tpu_torch.ops import speckle as tspeckle
 from stereo_match_tpu_torch.ops import wls as twls
@@ -42,15 +43,6 @@ def _noisy_map(H, W, seed=11):
     d = rng.normal(10, 0.2, (H, W)).astype(np.float32)
     d[rng.uniform(size=d.shape) < 0.25] = np.nan
     d[rng.uniform(size=d.shape) < 0.1] += 50
-    return d
-
-
-def _serpentine(H=16, W=33):
-    d = np.full((H, W), np.nan, np.float32)
-    for row in range(0, H, 2):
-        d[row, :] = 5.0
-        if row + 1 < H:
-            d[row + 1, -1 if (row // 2) % 2 == 0 else 0] = 5.0
     return d
 
 
@@ -90,7 +82,7 @@ def test_speckle_sweep_cap_matches_jax(max_iters):
     """The serpentine needs many sweeps: the sweep count and the
     keep-all-when-unconverged rule must be the reference's
     (tests/test_refine.py:158-172 is max_iters=1)."""
-    d = _serpentine()
+    d = serpentine(16, 33)
     got = tspeckle.speckle_filter(torch.from_numpy(d), 10 ** 6, 1.0,
                                   max_iters=max_iters)
     _assert_same_disparity(got, jspeckle.speckle_filter(
@@ -105,11 +97,11 @@ def test_speckle_sweep_cap_matches_jax(max_iters):
 def test_speckle_sweeps_until_converged():
     """A spiral converges after several sweeps; each sweep lowers labels,
     the last one none."""
-    d = _serpentine(12, 20)
+    d = serpentine(12, 20)
     labels = torch.where(torch.isfinite(torch.from_numpy(d)),
                          torch.arange(240, dtype=torch.int32).view(12, 20),
                          241).to(torch.int32)
-    conn = tspeckle.connectivity(torch.from_numpy(d), 1.0)
+    conn = K.connectivity(torch.from_numpy(d), 1.0)
     flags = []
     while not flags or flags[-1]:
         flags.append(bool(K.speckle_sweep_plain(labels, conn)))
@@ -137,7 +129,7 @@ def test_speckle_disabled_and_infinities():
 
 def test_speckle_connectivity_matches_reference_masks():
     d = _noisy_map(9, 14, seed=3)
-    got = tspeckle.connectivity(torch.from_numpy(d), 1.0)
+    got = K.connectivity(torch.from_numpy(d), 1.0)
     valid = jnp.isfinite(d)
     dval = jnp.where(valid, d, jnp.inf)
     for bit, (dy, dx) in ((K.CONN_LEFT, (0, 1)), (K.CONN_UP, (1, 0))):
@@ -147,7 +139,7 @@ def test_speckle_connectivity_matches_reference_masks():
                                       np.asarray(want))
     for dy, dx in ((1, 0), (-1, 0), (0, 1), (0, -1)):
         np.testing.assert_array_equal(
-            tspeckle._neighbor_shift(torch.from_numpy(d), dy, dx, -1.0),
+            K._neighbor_shift(torch.from_numpy(d), dy, dx, -1.0),
             np.asarray(jspeckle._neighbor_shift(jnp.asarray(d), dy, dx,
                                                 -1.0)))
 
@@ -155,9 +147,9 @@ def test_speckle_connectivity_matches_reference_masks():
 def test_speckle_count_keep_plain():
     d = torch.tensor([[1.0, 2.0, float("nan")], [3.0, 4.0, 5.0]])
     labels = torch.tensor([[0, 0, 7], [3, 3, 3]], dtype=torch.int32)
-    out = K.speckle_count_keep(d, labels, 3, False)
+    out = K.speckle_count_keep_plain(d, labels, 3, False)
     assert torch.isnan(out[0]).all() and torch.equal(out[1], d[1])
-    out = K.speckle_count_keep(d, labels, 3, True)
+    out = K.speckle_count_keep_plain(d, labels, 3, True)
     assert torch.equal(out[:, :2], d[:, :2]) and torch.isnan(out[0, 2])
 
 
