@@ -63,7 +63,8 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    layer of both at KITTI shape, within 1e-5, or, where a layer misses it,
    with its error against F.conv2d in float64 at most twice cuDNN float32's
    (both printed for every layer); K9 against its plain version
-   at KITTI D=128 on both archs' features and at 720p D=160, within 1e-4
+   at KITTI D=128 on both archs' features, at 720p D=160 and on an odd
+   case (F=100 unit features, D=96, min_d=3, 1243x377), within 1e-4
    with the 1e4 mask exactly equal. Then ``StereoMatcher`` with
    ``MCCNNCost`` at the headline WTA settings (``bench.py``'s
    ``mccnn_sgm8``), per arch: launch counts (K8 one per layer, K9 1, K3 8,
@@ -133,7 +134,10 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    three post-stack paths and the speckle sweeps per frame; the frame
    time and
    peak memory of both MC-CNN paths, K8 per layer (C_in=1 and C_in=F) and
-   K9 beside their plain versions; the int16 and transposed K2, K10 per
+   K9 beside their plain versions, K9 at each of its shapes beside the
+   bound of its 3xTF32 body and of an FP32 one (features read once, the
+   volume written once, 2 F operations a cell with x >= d) and the share
+   of each; the int16 and transposed K2, K10 per
    direction beside K3's horizontal directions, the int16 K3 and K4, K4's
    entries, K3 per row shard, the exact and halo tiling beside the
    whole-frame aggregation, the stream's frames/s in both payload modes
@@ -184,6 +188,7 @@ K7_PLAIN_PX = 1e-3
 K8_TOL = 1e-5
 K8_F64_RATIO = 2.0
 K9_TOL = 1e-4      # a 64- or 112-term dot product, times scale 24
+K9_ODD = dict(F=100, D=96, min_d=3, W=1243)   # phase 4d's odd K9 case
 MC_AGREE = 0.995   # share of pixels the MC-CNN path must share with plain
 STREAM_AGREE = 0.999   # the 7x9 stream against _match_core (path order)
 # The JAX package's XLA path in float32 on a CPU, KITTI D=128, seed-1
@@ -243,6 +248,15 @@ def bound(nbytes: float, ops: float = 0.0, kind: str = "fp32"):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[kind] * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def k9_work(fl, fr, D: int, min_d: int) -> tuple[int, int]:
+    """(bytes, operations) of one K9 volume: both views' features read once
+    and the (D, H, W) float32 volume written once; 2 F operations for each
+    cell with x >= d (the cells with x < d take 1e4 and no product)."""
+    F, H, W = fl.shape
+    cells = H * sum(max(0, W - d) for d in range(min_d, min_d + D))
+    return 4 * (2 * F * H * W + D * H * W), 2 * F * cells
 
 
 def label(spec: dict) -> str:
@@ -889,6 +903,15 @@ def main() -> int:
     f7 = models["fast"](torch.stack([normalize_image(left7),
                                      normalize_image(right7)]))
     k9_args["fast", label(ARKIT_720P)] = (f7[0], f7[1], ARKIT_720P["D"], 0)
+    # an odd case: F and D no multiple of the kernel's steps, min_d > 0,
+    # an odd width (unit features from a seed)
+    fo = np.random.default_rng(9).normal(size=(2, K9_ODD["F"], ODD["H"],
+                                               K9_ODD["W"]))
+    fo = torch.from_numpy((fo / np.linalg.norm(fo, axis=1, keepdims=True))
+                          .astype(np.float32)).to(dev)
+    k9_args["odd", f"{K9_ODD['W']}x{ODD['H']} D={K9_ODD['D']} "
+            f"min_d={K9_ODD['min_d']}"] = (fo[0], fo[1], K9_ODD["D"],
+                                           K9_ODD["min_d"])
     for (arch, where), args in k9_args.items():
         mvol = K.mccnn_volume(*args)
         mvol_ref = K.mccnn_volume_plain(*args)
@@ -899,7 +922,7 @@ def main() -> int:
               f"max |kernel - plain| = {e}, 1e4 mask equal ({card})")
         check(e <= K9_TOL, f"K9 {arch} {where}: max |diff| {e} > {K9_TOL}")
         err["mccnn_volume"] = max(err["mccnn_volume"], e)
-    del h, y, mvol, mvol_ref, f7
+    del h, y, mvol, mvol_ref, f7, fo
 
     mc_cfg = cfg.replace(cost="mccnn")   # bench.py's mccnn_sgm8
     noisy_l, noisy_r, _ = scene(KITTI, noise=25.0)
@@ -1685,11 +1708,18 @@ def main() -> int:
                 for arch, model in models.items()}
     tower_plain_ms = {arch: cuda_ms(lambda: plain_tower(model, (left, right)),
                                     5) for arch, model in models.items()}
+    k9_bound = {}    # (arch, where) -> the 3xTF32 body's bound
     for (arch, where), args in k9_args.items():
         t = cuda_ms(lambda: K.mccnn_volume(*args), 20)
         t_plain = cuda_ms(lambda: K.mccnn_volume_plain(*args), 3)
+        nbytes, flop = k9_work(*args)
+        tf32_b = k9_bound[arch, where] = bound(nbytes, 3 * flop, "tf32")
+        fp32_b = bound(nbytes, flop, "fp32")
         print(f"[timing] mccnn_volume {arch} {where} F={args[0].shape[0]}: "
-              f"kernel {t} ms, plain {t_plain} ms ({card})")
+              f"kernel {t} ms ({flop / t / 1e9} TFLOP/s), plain {t_plain} "
+              f"ms; bound of the 3xTF32 body {tf32_b[0]} ms ({tf32_b[1]}), "
+              f"{tf32_b[0] / t} of it; of an FP32 body {fp32_b[0]} ms "
+              f"({fp32_b[1]}), {fp32_b[0] / t} of it ({card})")
         if (arch, where) == ("fast", label(KITTI)):
             ms["mccnn_volume"], plain_ms["mccnn_volume"] = t, t_plain
     ms["mccnn_conv3x3"] = tower_ms["fast"] / models["fast"].num_layers
@@ -1734,10 +1764,10 @@ def main() -> int:
     # bounds at the shapes timed above: KITTI D=128 float32, each input
     # read once and each output written once; K3 the mean of a frame's 8
     # launches (the first writes the total without reading it); K8 the mean
-    # layer of the fast tower (FP32 for C_in = 1, 3xTF32 products else)
+    # layer of the fast tower (FP32 for C_in = 1, 3xTF32 products else);
+    # K9 its 3xTF32 body's on the fast tower's features (k9_work)
     HW = KITTI["H"] * KITTI["W"]
     vol_b = KITTI["D"] * HW * 4
-    F_fast = models["fast"].features
     k8_parts = {kind: k8_layer["fast", kind] for kind in ("C_in=1", "C_in=F")}
     n_cf = models["fast"].num_layers - 1
     k8_bound_ms = (k8_parts["C_in=1"][3][0] + n_cf * k8_parts["C_in=F"][3][0]
@@ -1756,8 +1786,7 @@ def main() -> int:
         "speckle_filter": spk_bound["KITTI"],
         "fgs_solve": bound(6 * HW * 4),
         "mccnn_conv3x3": (k8_bound_ms, k8_bound_by),
-        "mccnn_volume": bound(2 * F_fast * HW * 4 + vol_b,
-                              2 * F_fast * KITTI["D"] * HW),
+        "mccnn_volume": k9_bound["fast", label(KITTI)],
         "census_scan": bound(2 * HW * 4 + 2 * vol_b),
         "census_words 7x9": bound(2 * HW * 4 + 2 * 2 * HW * 4),
         "census_volume 7x9": bound(2 * 2 * HW * 4 + vol_b),

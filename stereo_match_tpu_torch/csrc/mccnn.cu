@@ -59,17 +59,45 @@
 // (_mccnn_vol_flat_kernel, _gram_band_body) and the volume half of
 // mccnn_fused_volume_pallas: three layouts of one function,
 //   vol[i, y, x] = scale * (1 - sum_f fl[f, y, x] * fr[f, y, x - d]) * 0.5
-// with d = min_d + i, and exactly INVALID = 1e4 where x < d, for any D and
-// any min_d >= 0 (models/mccnn.py:143-150).
+// with d = min_d + i, and exactly INVALID = 1e4 where x < d, for any F,
+// any D and any min_d >= 0 (models/mccnn.py:143-150).
 //
-// Bound on the H100: the volume write (238 MB at KITTI D=128, ~71 us at
-// 3.35 TB/s) and 2*F*D*H*W FLOP (7.6 GFLOP at F=64, ~0.11 ms). Design: a
-// block owns one row y, 128 columns and 64 disparities; each warp 8
-// disparities, each lane 4 neighbouring columns, so the 32 products of a
-// lane and a feature channel need one float4 of left features and three
-// float4 of the right row (the 11 values x - d spans). Feature channels
-// are staged 32 at a time: the left tile and the right window of 192
-// samples, both coalesced row segments.
+// Bound on the H100: the features read once and the volume written once
+// (238 + 238 MB at KITTI D=128, F=64: 0.142 ms at 3.35 TB/s) against
+// 2*F*D*H*W operations (7.6 GFLOP at F=64; 13.4 at F=112, 0.199 ms on the
+// 67 TFLOP/s FP32 pipes, 0.081 ms as three TF32 products at 495 TFLOP/s).
+// Design, the Gram band of the TPU kernels on Hopper's tensor cores:
+// - A block owns one row y, 128 columns x and all D planes (a chunk of at
+//   most 8 * NT - 15 planes at a time; one chunk up to D = 161). Features
+//   are staged 16 channels at a time by cp.async into two buffers: the
+//   left tile and the right window x0 - d0 - D + 1 ... x0 + 127 - d0 that
+//   the planes need, out-of-frame samples and channels past F zero-filled
+//   (the k8 padding), so a block reads each feature once.
+// - Warp w owns the m16 tile of columns x0 + 16w ... + 15 and forms Gram
+//   fragments G[x, j] = <fl(x), fr(j)> over the NT n8 tiles of j that hold
+//   the band j = x - d: mma.sync m16n8k8 TF32 in 3xTF32 (lo*hi + hi*lo +
+//   hi*hi, each operand split as it is read, by integer rounding), added
+//   into each tile's accumulator. Tiles that hold no x >= d in the frame
+//   are skipped, so the products are 8 * NT / D of the band (1.125 at
+//   D = 128, 1.1 at D = 160) rather than the TPU shear's 2.
+// - The epilogue writes scale * (1 - G) * 0.5, or 1e4 where j < 0, into a
+//   (planes x 128) shared tile, each plane row shifted by its global
+//   misalignment, so that a warp stores a plane row of the tile as aligned
+//   16-byte vectors: 512 contiguous bytes (whole 128-B lines but at the
+//   row's two ends).
+// What holds it on the H100 is not the tensor cores: taking the products
+// out of the loop saves little. The time goes to staging the operands
+// (4-byte cp.async: rows of an odd-multiple-of-8-byte width are not
+// 16-byte aligned), splitting each fragment as it is read, the epilogue,
+// and the 238 MB of stores, which the two blocks of an SM, running in
+// step, do not hide behind each other's products. Measured no faster:
+// two m16 tiles a warp (fewer B splits), 24 warps an SM (64-column
+// blocks), a persistent block with store warps, operands pre-split in
+// shared memory, a Veltkamp split on the FP32 pipes, and wgmma m64nNk8
+// with B pre-split K-major in shared memory (PERF.md, Findings).
+// Shared-memory pitches (136 and 8 NT + 120 floats a channel, 132 a plane
+// row) keep the fragment reads and the epilogue's writes free of bank
+// conflicts.
 
 #include <cuda_runtime.h>
 
@@ -405,83 +433,211 @@ int launch_tf32x3(const float* x, const float* packed, const float* bias,
 
 // ------------------------------------------------------------------- K9 ----
 
-constexpr int kVolTX = 128;                  // columns per block: 32 x 4
-constexpr int kVolDB = 8;                    // disparities per warp
-constexpr int kVolWarps = 8;
-constexpr int kVolDT = kVolDB * kVolWarps;   // disparities per block
-constexpr int kVolFC = 32;                   // feature channels per stage
-constexpr int kVolWin = kVolTX + kVolDT;     // right samples per row
+constexpr int kVolTX = 128;                 // columns a block: 8 m16 tiles
+constexpr int kVolWarps = 8;                // a warp an m16 tile
+constexpr int kVolThreads = 32 * kVolWarps;
+constexpr int kVolFC = 16;                  // feature channels a stage
+constexpr int kVolPA = kVolTX + 8;          // left pitch: 8 banks a channel
+constexpr int kVolPO = kVolTX + 4;          // plane row pitch, 4 banks
 
-__global__ void __launch_bounds__(kVolWarps * 32)
+// NT n8 tiles a warp: chunks of up to 8 NT - 15 planes; the right window of
+// a chunk spans 112 + 8 NT columns (NT even keeps its pitch 8 banks apart).
+template <int NT>
+struct VolShape {
+  static_assert(NT % 2 == 0, "the right pitch must be 8 banks apart");
+  static constexpr int kMaxDC = 8 * NT - 15;
+  static constexpr int kPB = kVolTX - 16 + 8 * NT + 8;
+  static constexpr int kStage = kVolFC * (kVolPA + kPB);
+  static constexpr int kFeat = 2 * kStage;
+  static constexpr int kOut = kMaxDC * kVolPO;
+  static constexpr int kFloats = kFeat > kOut ? kFeat : kOut;
+};
+
+// x -> (hi, lo): hi = tf32(x), lo = tf32(x - hi), rounded to nearest, ties
+// away from zero: the bits of cvt.rna.tf32.f32 and of
+// cuda_kernels.tf32_split, in integer operations (the conversion was
+// slower; the tensor core ignores the 13 low bits, so the mask of lo
+// compiles away).
+__device__ __forceinline__ void tf32_pair(float x, uint32_t& hi,
+                                          uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// One k8 step of a warp's band: the A fragment of its m16 tile against the
+// NT n8 tiles of the right window from b, each operand split as it is read
+// (tf32_pair), lo*hi + hi*lo + hi*hi added into the tile's accumulator.
+// GUARD skips the tiles past ntn, those whose j all lie left of the frame
+// (x < d: 1e4 without a product) and those whose j all lie right of it
+// (x >= W); without it every tile runs, so the chains of different tiles
+// interleave.
+template <int NT, bool GUARD>
+__device__ __forceinline__ void band_step(float (&acc)[NT][4],
+                                          const uint32_t* ah,
+                                          const uint32_t* al, const float* b,
+                                          int jw, int ntn, int W) {
+  constexpr int PB = VolShape<NT>::kPB;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if (GUARD && (n >= ntn || jw + 8 * n + 7 < 0 || jw + 8 * n >= W))
+      continue;
+    uint32_t bh0, bl0, bh1, bl1;
+    tf32_pair(b[8 * n], bh0, bl0);
+    tf32_pair(b[4 * PB + 8 * n], bh1, bl1);
+    mma_tf32(acc[n], al, bh0, bh1);
+    mma_tf32(acc[n], ah, bl0, bl1);
+    mma_tf32(acc[n], ah, bh0, bh1);
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kVolThreads, 2)
 mccnn_volume_kernel(const float* __restrict__ fl,
                     const float* __restrict__ fr, float* __restrict__ out,
-                    int F, int H, int W, int D, int min_d, float scale) {
-  __shared__ __align__(16) float ls[kVolFC][kVolTX];
-  __shared__ __align__(16) float rs[kVolFC][kVolWin];
+                    int F, int H, int W, int D, int min_d, int DC,
+                    float scale) {
+  using S = VolShape<NT>;
+  extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;                  // mma groupID
+  const int t = lane & 3;                   // thread in group
   const int x0 = blockIdx.x * kVolTX;
   const int y = blockIdx.y;
-  const int i0 = blockIdx.z * kVolDT;  // first plane of the block
-  const int g0 = x0 - (min_d + i0) - kVolDT;  // x - d held by rs[.][0]
-  const int iw = i0 + warp * kVolDB;   // first plane of the warp
-  const bool active = iw < D;
-  // rs[f][s + m] holds fr at x - d for x = x0 + 4 lane + j,
-  // d = min_d + iw + k, m = 8 + j - k in [1, 11]
-  const int s = lane * 4 - warp * kVolDB + kVolDT - kVolDB;
+  const int xa = x0 + 16 * warp;            // this warp's m16 tile
+  const bool busy = xa < W;
+  const int ncols = min(kVolTX, W - x0);
+  const size_t plane = (size_t)H * W;
+  const float* flr = fl + (size_t)y * W;
+  const float* frr = fr + (size_t)y * W;
+  const int nfc = (F + kVolFC - 1) / kVolFC;
 
-  float acc[kVolDB][4];
-#pragma unroll
-  for (int k = 0; k < kVolDB; ++k)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[k][j] = 0.f;
+  for (int c0 = 0; c0 < D; c0 += DC) {
+    const int dc = min(DC, D - c0);         // planes of this chunk
+    const int d0 = min_d + c0;
+    const int ntn = (dc + 22) >> 3;         // n8 tiles: dc + 15 columns
+    const int js = x0 - d0 - dc + 1;        // window column 0
+    const int wcols = kVolTX - 16 + 8 * ntn;
+    const int jw = xa - d0 - dc + 1;        // this warp's first j
+    // every tile holds products this warp needs: x >= d, x < W
+    const bool full = ntn == NT && jw >= 0 && xa + 16 <= W;
 
-  for (int f0 = 0; f0 < F; f0 += kVolFC) {
-    const int fc = min(kVolFC, F - f0);
+    // channel rows f0 .. f0 + 15 of the left tile and the right window
+    // (zero outside the frame and past F: the k8 padding)
+    auto stage = [&](int fc, float* buf) {
+      for (int r = warp; r < kVolFC; r += kVolWarps) {
+        const int f = fc * kVolFC + r;
+        const bool fok = f < F;
+        const float* lrow = flr + (fok ? f : 0) * plane;
+        const float* rrow = frr + (fok ? f : 0) * plane;
+        float* ls = buf + r * kVolPA;
+        float* rs = buf + kVolFC * kVolPA + r * S::kPB;
+        for (int c = lane; c < kVolTX; c += 32) {
+          const bool ok = fok && c < ncols;
+          cp_async4_zfill(ls + c, ok ? lrow + x0 + c : fl, ok ? 4 : 0);
+        }
+        for (int c = lane; c < wcols; c += 32) {
+          const int j = js + c;
+          const bool ok = fok && j >= 0 && j < W;
+          cp_async4_zfill(rs + c, ok ? rrow + j : fr, ok ? 4 : 0);
+        }
+      }
+    };
+
+    float acc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+    stage(0, smem);
+    asm volatile("cp.async.commit_group;\n" ::);
+    for (int fc = 0; fc < nfc; ++fc) {
+      if (fc + 1 < nfc) stage(fc + 1, smem + ((fc + 1) & 1) * S::kStage);
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+      __syncthreads();                      // stage fc has landed
+      const float* ls = smem + (fc & 1) * S::kStage;
+      const float* rs = ls + kVolFC * kVolPA;
+      if (busy) {
+#pragma unroll
+        for (int k = 0; k < kVolFC; k += 8) {
+          uint32_t ah[4], al[4];
+          const float* a = ls + (k + t) * kVolPA + 16 * warp + g;
+          tf32_pair(a[0], ah[0], al[0]);
+          tf32_pair(a[8], ah[1], al[1]);
+          tf32_pair(a[4 * kVolPA], ah[2], al[2]);
+          tf32_pair(a[4 * kVolPA + 8], ah[3], al[3]);
+          const float* b = rs + (k + t) * S::kPB + 16 * warp + g;
+          if (full)
+            band_step<NT, false>(acc, ah, al, b, jw, ntn, W);
+          else
+            band_step<NT, true>(acc, ah, al, b, jw, ntn, W);
+        }
+      }
+      __syncthreads();                      // stage fc may be overwritten
+    }
+
+    // c0, c1: column xa + g, j = jb + 2t, + 1; c2, c3: column xa + g + 8.
+    // Plane i = x - j - d0 of the chunk; its row in `st` is shifted by the
+    // global row's misalignment, so st[i][4v] meets a 16-B boundary.
+    float* st = smem;
+    if (busy) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        if (n >= ntn) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int xl = 16 * warp + g + 8 * (e >> 1);
+          const int j = jw + 8 * n + 2 * t + (e & 1);
+          const int i = x0 + xl - j - d0;
+          if (i >= 0 && i < dc) {
+            const unsigned sh =
+                (((unsigned)(c0 + i) * (unsigned)H + y) * (unsigned)W) & 3u;
+            st[i * kVolPO + xl + sh] =
+                j < 0 ? kInvalid : scale * (1.f - acc[n][e]) * 0.5f;
+          }
+        }
+      }
+    }
     __syncthreads();
-    for (int i = threadIdx.x; i < fc * kVolTX; i += kVolWarps * 32) {
-      const int f = i / kVolTX;
-      const int gx = x0 + i - f * kVolTX;
-      ls[f][i - f * kVolTX] =
-          gx < W ? fl[((size_t)(f0 + f) * H + y) * W + gx] : 0.f;
-    }
-    for (int i = threadIdx.x; i < fc * kVolWin; i += kVolWarps * 32) {
-      const int f = i / kVolWin;
-      const int gx = g0 + i - f * kVolWin;
-      rs[f][i - f * kVolWin] = gx >= 0 && gx < W
-                                   ? fr[((size_t)(f0 + f) * H + y) * W + gx]
-                                   : 0.f;
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int f = 0; f < fc; ++f) {
-      const float4 a = *reinterpret_cast<const float4*>(&ls[f][lane * 4]);
-      const float4 r0 = *reinterpret_cast<const float4*>(&rs[f][s]);
-      const float4 r1 = *reinterpret_cast<const float4*>(&rs[f][s + 4]);
-      const float4 r2 = *reinterpret_cast<const float4*>(&rs[f][s + 8]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float rv[12] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y,
-                            r1.z, r1.w, r2.x, r2.y, r2.z, r2.w};
+    for (int i = warp; i < dc; i += kVolWarps) {
+      const size_t row = ((size_t)(c0 + i) * H + y) * W + x0;
+      const int sh = (int)(row & 3);
+      float* dst = out + (row - sh);        // 16-B aligned
+      const float* src = st + i * kVolPO;
+      const int nvec = (ncols + sh + 3) >> 2;
+      for (int v = lane; v < nvec; v += 32) {
+        const float4 q = *reinterpret_cast<const float4*>(src + 4 * v);
+        const int xl = 4 * v - sh;          // tile column of q.x
+        if (xl >= 0 && xl + 4 <= ncols) {
+          *reinterpret_cast<float4*>(dst + 4 * v) = q;
+        } else {
+          const float qv[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-      for (int k = 0; k < kVolDB; ++k)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[k][j] = fmaf(av[j], rv[8 + j - k], acc[k][j]);
+          for (int k = 0; k < 4; ++k)
+            if (xl + k >= 0 && xl + k < ncols) dst[4 * v + k] = qv[k];
+        }
+      }
     }
+    __syncthreads();                        // st is the next chunk's stage
   }
-  if (!active) return;
-#pragma unroll
-  for (int k = 0; k < kVolDB; ++k) {
-    const int i = iw + k;
-    if (i >= D) break;
-    const int d = min_d + i;
-    float* row = out + ((size_t)i * H + y) * W;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int x = x0 + lane * 4 + j;
-      if (x < W) row[x] = x < d ? kInvalid : scale * (1.f - acc[k][j]) * 0.5f;
-    }
-  }
+}
+
+template <int NT>
+int launch_volume(const float* fl, const float* fr, float* out, int F, int H,
+                  int W, int D, int min_d, int DC, float scale,
+                  cudaStream_t stream) {
+  const size_t smem = (size_t)VolShape<NT>::kFloats * sizeof(float);
+  // The attribute belongs to the current device: set it at every launch.
+  const cudaError_t err = cudaFuncSetAttribute(
+      mccnn_volume_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((W + kVolTX - 1) / kVolTX, H);
+  mccnn_volume_kernel<NT><<<grid, kVolThreads, smem, stream>>>(
+      fl, fr, out, F, H, W, D, min_d, DC, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -523,12 +679,25 @@ extern "C" int smt_mccnn_conv3x3(const float* x, const float* layout,
                             st);
 }
 
-// fl, fr: (F, H, W) features of the two views; out: (D, H, W).
+// fl, fr: (F, H, W) features of the two views; out: (D, H, W). Any F, D,
+// H, W >= 1 and min_d >= 0: the smallest even NT whose chunk holds all D
+// planes (NT = D / 8 + 2 for a multiple of 16, every tile then needed),
+// else NT = 22 and D split into equal chunks of at most 161 planes.
 extern "C" int smt_mccnn_volume(const float* fl, const float* fr, float* out,
                                 int F, int H, int W, int D, int min_d,
                                 float scale, void* stream) {
-  dim3 grid((W + kVolTX - 1) / kVolTX, H, (D + kVolDT - 1) / kVolDT);
-  mccnn_volume_kernel<<<grid, kVolWarps * 32, 0, (cudaStream_t)stream>>>(
-      fl, fr, out, F, H, W, D, min_d, scale);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (F < 1 || H < 1 || W < 1 || D < 1 || min_d < 0)
+    return (int)cudaErrorInvalidValue;
+#define SMT_VOLUME_NT(NT)                                                  \
+  if (D <= VolShape<NT>::kMaxDC)                                           \
+    return launch_volume<NT>(fl, fr, out, F, H, W, D, min_d, D, scale, st);
+  SMT_VOLUME_NT(4) SMT_VOLUME_NT(6) SMT_VOLUME_NT(8) SMT_VOLUME_NT(10)
+  SMT_VOLUME_NT(12) SMT_VOLUME_NT(14) SMT_VOLUME_NT(16) SMT_VOLUME_NT(18)
+  SMT_VOLUME_NT(20)
+#undef SMT_VOLUME_NT
+  constexpr int kMax = VolShape<22>::kMaxDC;
+  const int chunks = (D + kMax - 1) / kMax;
+  return launch_volume<22>(fl, fr, out, F, H, W, D, min_d,
+                           (D + chunks - 1) / chunks, scale, st);
 }

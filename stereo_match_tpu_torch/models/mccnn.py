@@ -25,7 +25,8 @@ import torch
 from torch import nn
 
 from stereo_match_tpu_torch.ops.cost_volume import check_min_disparity
-from stereo_match_tpu_torch.ops.cuda_kernels import (mccnn_conv3x3,
+from stereo_match_tpu_torch.ops.cuda_kernels import (MCCNN_MAX_FEATURES,
+                                                     mccnn_conv3x3,
                                                      mccnn_volume,
                                                      mccnn_weight_layout)
 
@@ -48,7 +49,9 @@ class MCCNNFeatures(nn.Module):
     (``mccnn_weight_layout``: the (3, 3, 1, F) taps of the first layer, the
     TF32 hi/lo parts of the others), made when the weights are set
     (construction, ``load_state_dict``) and moved with the module; after
-    changing a weight in place, call :meth:`relayout`.
+    changing a weight in place, call :meth:`relayout`. A tower wider than
+    K8 takes (``MCCNN_MAX_FEATURES``) keeps no copy: it builds, loads and
+    runs on the CPU at any F, as flax does, and raises on the card.
     """
 
     def __init__(self, features: int = 64, num_layers: int = 4,
@@ -74,9 +77,12 @@ class MCCNNFeatures(nn.Module):
             lambda module, _: module.relayout())
 
     def relayout(self) -> None:
-        """Rebuild K8's copy of each layer's weights."""
+        """Rebuild K8's copy of each layer's weights (None where F is wider
+        than K8 takes)."""
         for i, w in enumerate(self.weights):
-            setattr(self, f"layout{i}", mccnn_weight_layout(w.detach()))
+            setattr(self, f"layout{i}",
+                    mccnn_weight_layout(w.detach())
+                    if self.features <= MCCNN_MAX_FEATURES else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(V, H, W) normalized images -> (V, F, H, W) unit features."""
@@ -89,11 +95,15 @@ class MCCNNFeatures(nn.Module):
         return h
 
 
-def make_model(arch: str = "fast") -> MCCNNFeatures:
-    """`fast` (4x64, the KITTI-fast analog) or `accurate` (5x112)."""
-    if arch not in ARCHS:
+def make_model(arch: str | tuple[int, int] = "fast") -> MCCNNFeatures:
+    """`fast` (4x64, the KITTI-fast analog), `accurate` (5x112), or any
+    (features, num_layers) pair, as the flax module takes."""
+    if isinstance(arch, tuple):
+        features, num_layers = arch
+    elif arch in ARCHS:
+        features, num_layers = ARCHS[arch]
+    else:
         raise ValueError(f"unknown arch: {arch}")
-    features, num_layers = ARCHS[arch]
     return MCCNNFeatures(features=features, num_layers=num_layers)
 
 
@@ -141,12 +151,14 @@ def load_params_npz(path: str | Path) -> dict:
     return params
 
 
-def from_flax_params(params: Any, arch: str = "fast") -> MCCNNFeatures:
+def from_flax_params(params: Any,
+                     arch: str | tuple[int, int] = "fast") -> MCCNNFeatures:
     """A flax parameter tree (numpy or JAX arrays) -> ``MCCNNFeatures``.
 
-    Kernels are HWIO (3, 3, C_in, F) in flax and OIHW in torch:
-    ``permute(3, 2, 0, 1)``. Raises ValueError when a shape does not fit
-    ``arch``.
+    ``arch``: a name of ``ARCHS`` or a (features, num_layers) pair
+    (``make_model``). Kernels are HWIO (3, 3, C_in, F) in flax and OIHW in
+    torch: ``permute(3, 2, 0, 1)``. Raises ValueError when a shape does
+    not fit ``arch``.
     """
     model = make_model(arch)
     tree = params["params"]

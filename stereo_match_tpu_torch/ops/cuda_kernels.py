@@ -353,6 +353,18 @@ def census_volume(cl: torch.Tensor, cr: torch.Tensor, num_disparities: int,
 
 # ------------------------------------------------------ K3 sgm_path_scan ----
 
+SCAN_MAX_DISPARITIES = 1024   # K3 and K10: a line's disparities in one warp
+
+
+def _check_scan_disparities(name: str, D: int) -> None:
+    """The card's limit of K3 and K10, checked where the kernel runs: the
+    plain scans on the CPU take any D."""
+    if D > SCAN_MAX_DISPARITIES:
+        raise ValueError(f"{name} on the card holds a line's disparities in "
+                         f"one warp's registers: at most "
+                         f"{SCAN_MAX_DISPARITIES}, got {D}")
+
+
 def _check_scan(cost: torch.Tensor, total: torch.Tensor, dy: int, dx: int,
                 init_carry: torch.Tensor | None,
                 return_carry: bool) -> None:
@@ -363,9 +375,6 @@ def _check_scan(cost: torch.Tensor, total: torch.Tensor, dy: int, dx: int,
                          f"{tuple(total.shape)} differ")
     if dy not in (-1, 0, 1) or dx not in (-1, 0, 1) or dy == dx == 0:
         raise ValueError(f"bad path direction {(dy, dx)}")
-    if cost.shape[0] > 1024:
-        raise ValueError("sgm_path_scan holds a line's disparities in one "
-                         "warp's registers: at most 1024")
     if (init_carry is not None or return_carry) and dy == 0:
         raise ValueError("horizontal directions take no carry")
     if init_carry is not None:
@@ -404,12 +413,16 @@ def sgm_path_scan(cost: torch.Tensor, total: torch.Tensor, dy: int, dx: int,
     the XLA int16 path does). For dy != 0, ``init_carry`` (D, W) is the
     previous row shard's carry and ``return_carry`` returns
     ``(total, carry)`` with this shard's (``ops/sgm.py::aggregate_direction``).
+    On the card D is at most ``SCAN_MAX_DISPARITIES`` (1024: one warp
+    holds a line's disparities in registers; a larger D raises ValueError);
+    the plain scan on the CPU takes any D.
     """
     _check_scan(cost, total, dy, dx, init_carry, return_carry)
     extra = () if init_carry is None else (init_carry,)
     if _on_cpu(cost, total, *extra):
         return sgm_path_scan_plain(cost, total, dy, dx, p1, p2, accumulate,
                                    init_carry, return_carry)
+    _check_scan_disparities("sgm_path_scan", cost.shape[0])
     D, H, W = cost.shape
     i16 = cost.dtype == torch.int16
     if i16:
@@ -1139,8 +1152,17 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _mccnn_padded(C_in: int, F: int) -> tuple[int, int]:
     """(C8, F8): C_in to a multiple of 8 (the k8 steps), F to the next of
-    32, 64, 112, 128 (K8's n8 tile counts)."""
+    32, 64, 112, 128 (K8's n8 tile counts); ValueError for F > 128."""
+    _check_mccnn_features(F)
     return -(-C_in // 8) * 8, next(n for n in (32, 64, 112, 128) if n >= F)
+
+
+def _check_mccnn_features(F: int) -> None:
+    """K8's limit on the card: a pixel's F outputs in one block."""
+    if F > MCCNN_MAX_FEATURES:
+        raise ValueError(f"{F} features: K8 on the card holds at most "
+                         f"{MCCNN_MAX_FEATURES} per pixel (the plain layer "
+                         "on the CPU takes any F)")
 
 
 def mccnn_pack_weights(weight: torch.Tensor) -> torch.Tensor:
@@ -1161,7 +1183,9 @@ def mccnn_pack_weights(weight: torch.Tensor) -> torch.Tensor:
 def mccnn_weight_layout(weight: torch.Tensor) -> torch.Tensor:
     """(F, C_in, 3, 3) OIHW -> the one copy of the weights K8 reads, chosen
     by C_in: ``conv_taps`` for C_in = 1 (the FP32 body),
-    ``mccnn_pack_weights`` otherwise (the 3xTF32 tensor-core body)."""
+    ``mccnn_pack_weights`` otherwise (the 3xTF32 tensor-core body).
+    ValueError for F > ``MCCNN_MAX_FEATURES``, which K8 does not take."""
+    _check_mccnn_features(weight.shape[0])
     return conv_taps(weight) if weight.shape[1] == 1 else \
         mccnn_pack_weights(weight)
 
@@ -1190,12 +1214,14 @@ def mccnn_conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   layout: torch.Tensor | None = None) -> torch.Tensor:
     """One MC-CNN tower layer: (V, C_in, H, W) -> (V, F, H, W) (K8).
 
-    ``weight`` (F, C_in, 3, 3) and ``bias`` (F,) float32, F <= 128. The
-    kernel reads ``layout``, ``mccnn_weight_layout(weight)``: the taps in
-    the FP32 body that runs C_in = 1, the TF32 hi/lo parts in the 3xTF32
-    tensor-core body that runs C_in > 1. A caller that runs every frame
+    ``weight`` (F, C_in, 3, 3) and ``bias`` (F,) float32. The kernel reads
+    ``layout``, ``mccnn_weight_layout(weight)``: the taps in the FP32 body
+    that runs C_in = 1, the TF32 hi/lo parts in the 3xTF32 tensor-core
+    body that runs C_in > 1. A caller that runs every frame
     (``models/mccnn.py::MCCNNFeatures``) passes the copy it made once;
-    otherwise it is made here.
+    otherwise it is made here. On the card F is at most
+    ``MCCNN_MAX_FEATURES`` (128; a wider layer raises ValueError); the
+    plain layer on the CPU takes any F and needs no layout.
     """
     _check(x, "x", torch.float32, 4)
     _check(weight, "weight", torch.float32, 4)
@@ -1206,17 +1232,17 @@ def mccnn_conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"weight {tuple(weight.shape)} and bias "
                          f"{tuple(bias.shape)} do not fit {C_in} input "
                          "channels and 3x3 taps")
-    if F > MCCNN_MAX_FEATURES:
-        raise ValueError(f"{F} features: K8 holds at most "
-                         f"{MCCNN_MAX_FEATURES} per pixel")
+    if layout is not None:
+        want = (3, 3, 1, F) if C_in == 1 else \
+            (2, 3, 3, *_mccnn_padded(C_in, F))
+        _check(layout, "layout", torch.float32, len(want))
+        if tuple(layout.shape) != want:
+            raise ValueError(f"layout {tuple(layout.shape)}: expected {want}")
+    if _on_cpu(x, weight, bias, *(() if layout is None else (layout,))):
+        return mccnn_conv3x3_plain(x, weight, bias, relu, normalize)
+    _check_mccnn_features(F)
     if layout is None:
         layout = mccnn_weight_layout(weight)
-    want = (3, 3, 1, F) if C_in == 1 else (2, 3, 3, *_mccnn_padded(C_in, F))
-    _check(layout, "layout", torch.float32, len(want))
-    if tuple(layout.shape) != want:
-        raise ValueError(f"layout {tuple(layout.shape)}: expected {want}")
-    if _on_cpu(x, weight, bias, layout):
-        return mccnn_conv3x3_plain(x, weight, bias, relu, normalize)
     y = torch.empty((V, F, H, W), dtype=torch.float32, device=x.device)
     _launch("mccnn_conv3x3", x.device, _ptr(x), _ptr(layout), _ptr(bias),
             _ptr(y), V, C_in, F, H, W, int(relu), int(normalize))
@@ -1244,12 +1270,50 @@ def mccnn_volume_plain(fl: torch.Tensor, fr: torch.Tensor,
     return out.masked_fill_(mask, INVALID_COST)
 
 
+def mccnn_volume_tf32x3_plain(fl: torch.Tensor, fr: torch.Tensor,
+                              num_disparities: int, min_disparity: int = 0,
+                              scale: float = 24.0) -> torch.Tensor:
+    """K9's arithmetic on any device: the model the tests hold to the plain
+    volume and to float64.
+
+    Channels padded with zeros to k8 steps; each operand split by
+    ``tf32_split``; each k8 step adds its lo*hi, hi*lo and hi*hi sums, in
+    that order, into the float32 total (each sum of eight products exact
+    in float64 as in the tensor core; the adds round to nearest where the
+    tensor core's accumulator truncates); then scale * (1 - total) * 0.5
+    and INVALID_COST where x < d.
+    """
+    F, H, W = fl.shape
+    pad = -F % 8
+    parts = []
+    for f in (fl, fr):
+        f = Fn.pad(f, (0, 0, 0, 0, 0, pad)).reshape(-1, 8, H, W)
+        parts.append(tuple(p.double() for p in tf32_split(f)))
+    (lh, ll), (rh, rl) = parts
+    out = torch.empty((num_disparities, H, W), dtype=torch.float32,
+                      device=fl.device)
+    for i in range(num_disparities):
+        d = min_disparity + i
+        sh, sl = _shift_plane(rh, d), _shift_plane(rl, d)
+        sums = [(a * b).sum(1) for a, b in ((ll, sh), (lh, sl), (lh, sh))]
+        total = torch.zeros((H, W), dtype=torch.float32, device=fl.device)
+        for k in range(sh.shape[0]):
+            for s in sums:
+                total = (total.double() + s[k]).float()
+        out[i] = scale * (1.0 - total) * 0.5
+    mask = _invalid_mask(W, num_disparities, min_disparity, fl.device)
+    return out.masked_fill_(mask, INVALID_COST)
+
+
 def mccnn_volume(fl: torch.Tensor, fr: torch.Tensor, num_disparities: int,
                  min_disparity: int = 0, scale: float = 24.0) -> torch.Tensor:
     """(F, H, W) features of both views -> (D, H, W) float32 cost (K9).
 
     ``out[i, y, x] = scale * (1 - <fl[:, y, x], fr[:, y, x - d]>) * 0.5``
     with ``d = min_disparity + i``, exactly INVALID_COST (1e4) where x < d.
+    Any F, D >= 1 and min_disparity >= 0. The kernel forms the products on
+    the tensor cores in 3xTF32 (``mccnn_volume_tf32x3_plain`` is its
+    arithmetic), within 1e-4 of the plain channel sum on unit features.
     """
     if min_disparity < 0:
         raise ValueError("mccnn_volume needs min_disparity >= 0")
@@ -1299,6 +1363,9 @@ def census_scan(cl: torch.Tensor, cr: torch.Tensor, total: torch.Tensor,
     ``d = min_disparity + i`` at x is ``popc(cl[y, x] ^ cr[y, x - d])``,
     or ``invalid_cost`` where x < d (1e4 as K2 writes; 1024 for the int16
     wire of the streaming pipeline). ``reverse`` scans right to left.
+    On the card D is at most ``SCAN_MAX_DISPARITIES`` (1024, K3's line
+    warp; a larger D raises ValueError); the plain scan on the CPU takes
+    any D.
     """
     if min_disparity < 0:
         raise ValueError("census_scan needs min_disparity >= 0")
@@ -1312,12 +1379,10 @@ def census_scan(cl: torch.Tensor, cr: torch.Tensor, total: torch.Tensor,
         raise ValueError(f"census images {tuple(cl.shape)}, "
                          f"{tuple(cr.shape)} and total "
                          f"{tuple(total.shape)} do not fit")
-    if total.shape[0] > 1024:
-        raise ValueError("census_scan holds a line's disparities in one "
-                         "warp's registers: at most 1024")
     if _on_cpu(cl, cr, total):
         return census_scan_plain(cl, cr, total, min_disparity, p1, p2,
                                  reverse, invalid_cost, accumulate)
+    _check_scan_disparities("census_scan", total.shape[0])
     D, H, W = total.shape
     _launch("census_scan", cl.device, _ptr(cl), _ptr(cr), _ptr(total), D, H,
             W, min_disparity, float(p1), float(p2), float(invalid_cost),

@@ -3,7 +3,8 @@ the card.
 
 Frames, on the seed-1 KITTI scene (1242x375, D=128) and the seed-3 720p
 one (1280x720): the headline (no post stack) in float32 and int16,
-MC-CNN fast (the shipped checkpoint) at the headline's WTA settings,
+MC-CNN fast and accurate (the shipped checkpoints) at the headline's WTA
+settings,
 ``DisparityConfig()`` at 720p (settings.ini: WLS), KITTI speckle 100 + WLS
 with and without LR confidence, each through ``_match_core``, StereoBM
 (block 21, disp12 -1: ``stereobm_true``) through ``block_match`` and with
@@ -13,8 +14,10 @@ frames (12 stream steps after the fill) by CUDA events after 2 warm-up
 frames. Kernels, at KITTI on the headline's volume and total: K2
 ``census_volume`` (float32, int16, transposed, 7x9, and one plane at D = 1
 as ELAS launches it) and K4's ``wta_lr``, ``wta_stats`` and ``right_wta``
-(float32 and int16), each the mean of 64 calls captured in one CUDA
-graph, so no host time lies between the launches. The whole speckle
+(float32 and int16), and K9 ``mccnn_volume`` on the shipped towers'
+features of the scenes (KITTI D=128 at F=64 and F=112, 720p D=160 at
+F=64), each the mean of 64 calls captured in one CUDA graph, so no host
+time lies between the launches. The whole speckle
 filter (T=100, range 2), the mean of 20 calls by CUDA events (the filter
 of a tree that reads a flag on the host every sweep cannot be captured),
 with the launches of one call: on the headline's KITTI and 720p maps with
@@ -60,7 +63,8 @@ def _probe() -> dict:
     from stereo_match_tpu_torch.data.synthetic import (random_dot_pair,
                                                        slanted_scene)
     from stereo_match_tpu_torch.models.mccnn import (from_flax_params,
-                                                     load_default_params)
+                                                     load_default_params,
+                                                     normalize_image)
     from stereo_match_tpu_torch.ops import cuda_kernels as K
     from stereo_match_tpu_torch.ops.speckle import speckle_filter
     from stereo_match_tpu_torch.parallel import (StreamingPipeline,
@@ -106,10 +110,19 @@ def _probe() -> dict:
     spk = head.replace(wls=True, wls_iters=3, speckle_window_size=100,
                        speckle_range=2)
     mc_cfg = head.replace(cost="mccnn")
-    mccnn = MCCNNCost(from_flax_params(load_default_params("fast"),
-                                       "fast").to(dev), mc_cfg)
-    out = {"mccnn fast": ms(lambda: _match_core(*kitti, mc_cfg,
-                                                cost_fn=mccnn), 10)}
+    towers = {arch: from_flax_params(load_default_params(arch), arch).to(dev)
+              for arch in ("fast", "accurate")}
+    out = {}
+    for arch, model in towers.items():
+        provider = MCCNNCost(model, mc_cfg)
+        out[f"mccnn {arch}"] = ms(lambda: _match_core(*kitti, mc_cfg,
+                                                      cost_fn=provider), 10)
+    with torch.no_grad():
+        feats = {(arch, where): towers[arch](torch.stack(
+            [normalize_image(im) for im in pair]))
+            for arch, where, pair in (("fast", "KITTI", kitti),
+                                      ("accurate", "KITTI", kitti),
+                                      ("fast", "720p", p720))}
     for name, pair, cfg in (
             ("headline", kitti, head),
             ("headline int16", kitti, head.replace(dtype="int16")),
@@ -174,6 +187,10 @@ def _probe() -> dict:
         kernels[f"wta_lr {name}"] = lambda t=t: K.wta_lr(t)
         kernels[f"wta_stats {name}"] = lambda t=t: K.wta_stats(t)
         kernels[f"right_wta {name}"] = lambda t=t: K.right_wta(t)
+    for (arch, where), f in feats.items():
+        D = 128 if where == "KITTI" else 160
+        kernels[f"mccnn_volume {where} D={D} F={f.shape[1]}"] = \
+            lambda f=f, D=D: K.mccnn_volume(f[0], f[1], D)
     kernel_ms = {name: graph_ms(fn) for name, fn in kernels.items()}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

@@ -17,9 +17,12 @@ so it must equal that algorithm's plain model
 and against a float64 solve be off at most twice the sequential float32
 solve; the whole filter likewise, and within 1e-3 px beyond the
 sequential path's own float64 error of it. K8 (a tower layer; 3xTF32 on the tensor cores for C_in > 1) and K9
-(the MC-CNN volume) sum in another order than cuDNN and the plain channel
-sum: K8 within 1e-5 of the plain layer (cuDNN in full float32), K9 within
-1e-4 with the 1e4 mask exactly equal; the MC-CNN matcher must agree with
+(the MC-CNN volume; 3xTF32 Gram band) sum in another order than cuDNN and
+the plain channel sum: K8 within 1e-5 of the plain layer (cuDNN in full
+float32), K9 within 1e-4 (times the product of the views' largest feature
+norms where they are not unit vectors) with the 1e4 mask exactly equal,
+and K3, K10 and K8 raise ValueError past their card limits (D > 1024,
+F > 128); the MC-CNN matcher must agree with
 its plain path on at least 99.5 % of the pixels, since a rounding
 difference can flip a WTA decision. The int16 volumes (K2, K3, K4), the
 transposed K2, K3's carries, K4's wta_stats, right_wta and lr_mask entries
@@ -41,7 +44,8 @@ from stereo_match_tpu_torch.costs import MCCNNCost
 from stereo_match_tpu_torch.data.speckle_maps import (noisy_ramp,
                                                       serpentine, speckled)
 from stereo_match_tpu_torch.data.synthetic import random_dot_pair, slanted_scene
-from stereo_match_tpu_torch.models.mccnn import (from_flax_params,
+from stereo_match_tpu_torch.models.mccnn import (MCCNNFeatures,
+                                                 from_flax_params,
                                                  load_default_params,
                                                  normalize_image)
 from stereo_match_tpu_torch.ops import cuda_kernels as K
@@ -235,6 +239,26 @@ def test_main_path_on_card_matches_cpu(dev):
                           "sgm_path_scan": 8, "wta_lr": 1}
     want, _ = StereoMatcher(cfg, device="cpu")(left, right)
     _assert_same_disparity(raw.cpu(), want)
+
+
+def test_card_limits_raise_and_name_the_limit(dev):
+    """D > 1024 in K3 and K10 and F > 128 in K8 raise ValueError on the
+    card (the CPU takes both, tests/test_torch_limits.py)."""
+    K.reset_launches()
+    cost = torch.zeros(1040, 3, 20, device=dev)
+    with pytest.raises(ValueError, match="1024"):
+        K.sgm_path_scan(cost, torch.empty_like(cost), 0, 1, 8.0, 96.0, False)
+    words = torch.zeros(3, 20, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="1024"):
+        K.census_scan(words, words, cost, 0, 8.0, 96.0)
+    x = torch.zeros(2, 1, 6, 9, device=dev)
+    with pytest.raises(ValueError, match="128"):
+        K.mccnn_conv3x3(x, torch.zeros(130, 1, 3, 3, device=dev),
+                        torch.zeros(130, device=dev), True, False)
+    wide = MCCNNFeatures(features=160, num_layers=2).to(dev)
+    with pytest.raises(ValueError, match="128"):
+        wide(torch.zeros(2, 6, 9, device=dev))
+    assert sum(K.launches.values()) == 0
 
 
 def test_kernels_reject_bad_cuda_inputs(dev):
@@ -499,22 +523,39 @@ def test_mccnn_conv3x3_kernel(dev, F, first, relu, normalize, H, W):
     assert float((got - want).abs().max()) <= 1e-5
 
 
-@pytest.mark.parametrize("H,W,D,min_d", [
-    (20, 150, 32, 0), (20, 150, 32, 4), (24, 300, 128, 0),
-    (24, 300, 128, 7), (16, 330, 160, 0), (16, 330, 160, 4),
-    (12, 100, 160, 7), (*KITTI, 128, 0)])
-def test_mccnn_volume_kernel(dev, H, W, D, min_d):
-    """Unit features; (12, 100, 160, 7) is narrower than the disparities,
-    so whole rows of the planes are invalid."""
-    rng = np.random.default_rng(D + min_d)
-    f = rng.normal(size=(2, 64, H, W)).astype(np.float32)
+@pytest.mark.parametrize("F,H,W,D,min_d,norm", [
+    (64, 20, 150, 32, 0, 1), (64, 20, 150, 32, 4, 1),
+    (64, 24, 300, 128, 0, 1), (64, 24, 300, 128, 7, 1),
+    (64, 16, 330, 160, 0, 1), (64, 16, 330, 160, 4, 1),
+    (64, 12, 100, 160, 7, 1), (64, *KITTI, 128, 0, 1),
+    (1, 17, 129, 33, 5, 1), (7, 21, 77, 96, 0, 1), (100, 23, 301, 96, 5, 1),
+    (100, 377, 1243, 96, 3, 1), (112, *KITTI, 128, 0, 1),
+    (128, 19, 257, 160, 0, 1), (200, 15, 333, 33, 5, 1),
+    (200, 11, 1001, 400, 3, 1), (64, 9, 1100, 1040, 0, 1),
+    (64, 13, 97, 1, 0, 1), (64, 13, 97, 1, 5, 1), (112, 31, 515, 160, 5, 4)])
+def test_mccnn_volume_kernel(dev, F, H, W, D, min_d, norm):
+    """Features of unit norm, or (norm=4) of norms drawn from [1/4, 4];
+    D not a multiple of the kernel's plane chunk (33, 96, 160, and 400 and
+    1040 in several chunks), W < D (whole rows of the planes invalid), odd
+    H and W. The 1e4 mask must be equal; the values within 1e-4 times the
+    largest product of the two views' norms (1 for unit features: a dot
+    product's rounding error grows with sum |fl * fr| <= |fl| |fr|)."""
+    rng = np.random.default_rng(F + D + min_d)
+    f = rng.normal(size=(2, F, H, W))
     f /= np.linalg.norm(f, axis=1, keepdims=True)
-    fl, fr = torch.from_numpy(f).to(dev)
+    if norm != 1:
+        f *= np.exp(rng.uniform(-np.log(norm), np.log(norm), (2, 1, H, W)))
+    fl, fr = torch.from_numpy(f.astype(np.float32)).to(dev)
+    tol = 1e-4 * float(fl.norm(dim=0).max() * fr.norm(dim=0).max())
+    K.reset_launches()
     got = K.mccnn_volume(fl, fr, D, min_d)
+    assert K.launches["mccnn_volume"] == 1
+    assert sum(K.launches.values()) == 1
     want = K.mccnn_volume_plain(fl, fr, D, min_d)
     torch.cuda.synchronize()
+    assert got.shape == (D, H, W)
     assert torch.equal(got == 1e4, want == 1e4)
-    assert float((got - want).abs().max()) <= 1e-4
+    assert float((got - want).abs().max()) <= tol
 
 
 @pytest.mark.parametrize("arch", ["fast", "accurate"])
@@ -871,8 +912,9 @@ def cards(dev):
 
 def test_kernels_on_every_card(cards):
     """K3 (every direction takes more than 48 KB of shared memory at D =
-    128), both bodies of K8 and K5 (its grid is sized per card) on each
-    card in turn, against their plain versions on that card."""
+    128), both bodies of K8, K5 (its grid is sized per card) and K9 (more
+    than 48 KB at D = 128) on each card in turn, against their plain
+    versions on that card."""
     rng = np.random.default_rng(16)
     cost = rng.uniform(0, 24, (128, 37, 150)).astype(np.float32)
     x = rng.normal(size=(2, 112, 17, 70)).astype(np.float32)
@@ -896,6 +938,13 @@ def test_kernels_on_every_card(cards):
             assert got.device == card
             assert float((got - want).abs().max()) <= 1e-5
         _speckle_kernel_vs_plain(_speckled_map(*KITTI, card), 100, 2.0)
+        f = rng.normal(size=(2, 64, 24, 300))
+        f /= np.linalg.norm(f, axis=1, keepdims=True)
+        fl, fr = torch.from_numpy(f.astype(np.float32)).to(card)
+        got = K.mccnn_volume(fl, fr, 128, 3)        # K9: 68 KB of shared
+        want = K.mccnn_volume_plain(fl, fr, 128, 3)
+        assert got.device == card and torch.equal(got == 1e4, want == 1e4)
+        assert float((got - want).abs().max()) <= 1e-4
 
 
 @pytest.mark.parametrize("mode", ["exact", "halo"])

@@ -1,12 +1,16 @@
-"""Host-side pieces of K8's 3xTF32 tensor-core body, on the CPU.
+"""Host-side pieces of the 3xTF32 tensor-core bodies of K8 and K9, on the
+CPU.
 
-K8 splits each float32 operand x into hi = tf32(x) and lo = tf32(x - hi)
-(round to nearest, ties away from zero: ``cvt.rna.tf32.f32``) and forms a
-product as lo*hi + hi*lo + hi*hi. The weights are split once, on the host,
-into the (2, 3, 3, C8, F8) layout the kernel stages. Here: the rounding
-against an independent numpy version (bit for bit), the split's error bound
-(2^-22 of |x|), a 3-product dot over K = 1008 against float64 (1e-6 of
-sum |a b|), and the packed layout against OIHW.
+K8 and K9 split each float32 operand x into hi = tf32(x) and lo =
+tf32(x - hi) (round to nearest, ties away from zero: ``cvt.rna.tf32.f32``)
+and form a product as lo*hi + hi*lo + hi*hi. K8's weights are split once,
+on the host, into the (2, 3, 3, C8, F8) layout the kernel stages. Here: the
+rounding against an independent numpy version (bit for bit), the split's
+error bound (2^-22 of |x|), a 3-product dot over K = 1008 against float64
+(1e-6 of sum |a b|), the packed layout against OIHW, and K9's arithmetic
+(``mccnn_volume_tf32x3_plain``) within 1e-4 of the plain volume and of a
+float64 one at F = 64 and 112 with the 1e4 mask equal: the tolerance K9
+is held to on the card.
 """
 
 import numpy as np
@@ -138,3 +142,39 @@ def test_conv3x3_checks_the_packed_layout():
     y = K.mccnn_conv3x3(x, w, b, True, False,
                         layout=K.mccnn_pack_weights(w))
     assert y.shape == (2, 64, 8, 40) and not y.any()
+
+
+def _volume64(fl, fr, D, min_d, scale=24.0):
+    """The MC-CNN volume in float64 (numpy), 1e4 where x < d."""
+    F, H, W = fl.shape
+    out = np.full((D, H, W), 1e4)
+    for i in range(D):
+        d = min_d + i
+        if d < W:
+            sim = (fl[:, :, d:].astype(np.float64) *
+                   fr[:, :, :W - d].astype(np.float64)).sum(0)
+            out[i, :, d:] = scale * (1.0 - sim) * 0.5
+    return out
+
+
+@pytest.mark.parametrize("F,min_d", [(64, 0), (112, 3)])
+def test_volume_3xtf32_model_matches_plain_and_float64(F, min_d):
+    """Unit features (what K9 is held to 1e-4 on, chip_smoke.py's K9_TOL):
+    the 3xTF32 band product against the plain float32 channel sum and
+    float64."""
+    rng = np.random.default_rng(F)
+    f = rng.normal(size=(2, F, 7, 70))
+    f /= np.linalg.norm(f, axis=1, keepdims=True)
+    fl, fr = torch.from_numpy(f.astype(np.float32))
+    got = K.mccnn_volume_tf32x3_plain(fl, fr, 40, min_d)
+    plain = K.mccnn_volume_plain(fl, fr, 40, min_d)
+    want = _volume64(fl.numpy(), fr.numpy(), 40, min_d)
+    assert got.shape == (40, 7, 70) and got.dtype == torch.float32
+    assert torch.equal(got == 1e4, plain == 1e4)
+    np.testing.assert_array_equal(got.numpy() == 1e4, want == 1e4)
+    assert float((got - plain).abs().max()) <= 1e-4
+    assert float(np.abs(got.numpy() - want).max()) <= 1e-4
+    # one TF32 product alone would not do
+    hi = [K.tf32_round(v) for v in (fl, fr)]
+    one = K.mccnn_volume_plain(*hi, 40, min_d)
+    assert float(np.abs(one.numpy() - want).max()) > 1e-4
