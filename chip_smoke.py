@@ -37,7 +37,9 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
 3d. the multiword census and the float disp12 tolerance at KITTI: K1 with
    a 7x9 window (62 bits, two words), K2 on those words (float32, int16,
    transposed) and K4 ``lr_mask`` at the tolerances 1.5 and 2.0 (ELAS's
-   ``lr_tol``), each bit-equal to its plain version; K2 at an odd width
+   ``lr_tol``), each bit-equal to its plain version; K1 at 720p and at
+   the odd widths 1241 and 1243 (word-plane rows at every 16-byte
+   alignment), 5x5 and 7x9, bit-equal; K2 at an odd width
    (1241), D = 1 and 128, min_d 0, 37 and 5, on one and two words, float32
    and int16, planes and transposed, bit-equal.
 4. main path: ``StereoMatcher`` with the headline config, launch counts
@@ -74,6 +76,17 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    bad-3px < 0.05 and density > 0.8 on the seed-1 scene; with noise=25,
    density above census's on the same frame and above 0.9, bad-3px
    < 0.05. The JAX package's CPU figures are printed beside the card's.
+   Then both towers with ``compute_dtype=torch.bfloat16``: K8's bfloat16
+   mode against its plain bfloat16 layer for every layer (at least
+   K8_BF16_EQUAL of the outputs bit-equal where there is no norm, each
+   within the ulp bound stated at K8_BF16_EQUAL), the tower within 1e-2 of
+   the plain tower, ``mccnn_cost_volume(use_bf16=True)`` on the float32
+   model (its ``bf16_twin``, made once) bit-equal to the bfloat16 model's
+   volume with L K8 launches and 1 K9, and the matcher with the same
+   launch counts, agreeing
+   with its plain bfloat16 path on at least MC_BF16_AGREE of the pixels,
+   with the same quality bars; its (bad-3px, density) are printed beside
+   the float32 path's.
 4e. int16 volumes, the row-tiled SGM and the stage-pipelined stream, at
    KITTI on the seed-1 scene: K2 int16 and transposed, K3 int16 totals,
    K10 (forward and reverse, invalid 1e4 and 1024, min_d 0 and 5) and K4's
@@ -121,7 +134,12 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    bound (bytes over 3.35 TB/s or operations over the peak of their type);
    K3 per direction with GB/s and the share of its bound, in float32 and
    int16; K8 per layer beside cuDNN float32 (``library_ms``) with the
-   shares of its 3xTF32 and FP32 bounds; the
+   shares of its 3xTF32 and FP32 bounds, and in bfloat16 beside the
+   float32 kernel and cuDNN on bfloat16 tensors (``library_ms``), with
+   its bound (float32 in and out, products at the bfloat16 rate) and the
+   TF32 rate's cap; K1 at KITTI 5x5 and 7x9 and 720p 5x5 by events (the
+   record's ``ms``, as every row's) and in a CUDA graph of 64 launches
+   (the record's ``graph_ms``) beside its bound; the
    peak device memory of one KITTI frame; K7's row and column solves at
    KITTI and 720p beside the plain solve and, for the KITTI column solve, a
    dense batched ``torch.linalg.solve`` (``library_ms``; torch has no
@@ -133,7 +151,8 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    serpentine); the frame time of the
    three post-stack paths and the speckle sweeps per frame; the frame
    time and
-   peak memory of both MC-CNN paths, K8 per layer (C_in=1 and C_in=F) and
+   peak memory of both MC-CNN paths (and their frame time in bfloat16
+   beside float32), K8 per layer (C_in=1 and C_in=F) and
    K9 beside their plain versions, K9 at each of its shapes beside the
    bound of its 3xTF32 body and of an FP32 one (features read once, the
    volume written once, 2 F operations a cell with x >= d) and the share
@@ -150,7 +169,8 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    (a write of the volume, ``total.amin(0)``).
 
 The last lines are the per-kernel JSON record (with ``bound_ms``,
-``bound_by`` and ``library_ms``), the card's name and power limit from
+``bound_by``, ``library_ms`` and ``graph_ms``, null where a row has no
+graph time), the card's name and power limit from
 nvidia-smi, and the result line.
 """
 
@@ -190,6 +210,17 @@ K8_F64_RATIO = 2.0
 K9_TOL = 1e-4      # a 64- or 112-term dot product, times scale 24
 K9_ODD = dict(F=100, D=96, min_d=3, W=1243)   # phase 4d's odd K9 case
 MC_AGREE = 0.995   # share of pixels the MC-CNN path must share with plain
+# K8's bfloat16 mode against its plain layer: only the order of the float32
+# sums differs, so a sum on a bfloat16 rounding boundary may round the other
+# way. Without the norm at least K8_BF16_EQUAL of the outputs are bit-equal
+# and each is within one bfloat16 ulp of the sum before the bias plus one of
+# the result; the normalised layer, whose sum of squares is also ordered
+# otherwise, within those ulps over the pixel's norm plus 1e-6. A flip
+# carries through the later layers, so the bfloat16 MC-CNN path must agree
+# with its plain path on MC_BF16_AGREE of the pixels (the CPU test's bar
+# against JAX's bfloat16 matcher).
+K8_BF16_EQUAL = 0.999
+MC_BF16_AGREE = 0.99
 STREAM_AGREE = 0.999   # the 7x9 stream against _match_core (path order)
 # The JAX package's XLA path in float32 on a CPU, KITTI D=128, seed-1
 # scene, headline WTA settings: (bad-3px, density)
@@ -222,6 +253,8 @@ KERNELS = {   # name -> (source, the TPU kernel(s) it replaces)
                   "stereo_match_tpu/ops/pallas_wls.py:169"),
     "mccnn_conv3x3": ("stereo_match_tpu_torch/csrc/mccnn.cu",
                       f"{PALLAS}:1503; {PALLAS}:1712"),
+    "mccnn_conv3x3 bf16": ("stereo_match_tpu_torch/csrc/mccnn.cu",
+                           f"{PALLAS}:1503; {PALLAS}:1712"),
     "mccnn_volume": ("stereo_match_tpu_torch/csrc/mccnn.cu",
                      f"{PALLAS}:1226; {PALLAS}:1329; {PALLAS}:1639; "
                      f"{PALLAS}:1712"),
@@ -239,7 +272,7 @@ KERNELS = {   # name -> (source, the TPU kernel(s) it replaces)
 
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 peak rate
-PEAK_OPS = {"fp32": 67e12, "tf32": 495e12}
+PEAK_OPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
 
 
 def bound(nbytes: float, ops: float = 0.0, kind: str = "fp32"):
@@ -317,6 +350,7 @@ def main() -> int:
     from stereo_match_tpu_torch.eval.metrics import bad_pixel_rate, density
     from stereo_match_tpu_torch.models.mccnn import (from_flax_params,
                                                      load_default_params,
+                                                     mccnn_cost_volume,
                                                      normalize_image)
     from stereo_match_tpu_torch.ops import cuda_kernels as K
     from stereo_match_tpu_torch.ops import wls
@@ -418,12 +452,14 @@ def main() -> int:
             solve=solve) for solve in (K.fgs_solve_plain, solve64))
 
     def plain_tower(model, imgs):
-        """The MC-CNN tower on (V, H, W) images, every layer plain."""
+        """The MC-CNN tower on (V, H, W) images, every layer plain, in the
+        model's compute dtype."""
+        bf16 = model.compute_dtype == torch.bfloat16
         h = torch.stack([normalize_image(im) for im in imgs])[:, None]
         for i in range(model.num_layers):
             last = i == model.num_layers - 1
             h = K.mccnn_conv3x3_plain(h, model.weights[i], model.biases[i],
-                                      not last, last)
+                                      not last, last, bf16)
         return h
 
     def plain_mccnn_path(left, right, cfg, model):
@@ -437,6 +473,40 @@ def main() -> int:
         del vol
         return K.wta_lr_plain(total, cfg.min_disparity, cfg.uniqueness_ratio,
                               cfg.disp12_max_diff, cfg.subpixel)[0]
+
+    def bf16_ulp(v):
+        """The spacing of bfloat16 values at |v| (0 at 0)."""
+        _, e = torch.frexp(v.abs())
+        return torch.where(v == 0, torch.zeros_like(v),
+                           torch.ldexp(torch.ones_like(v), e - 8))
+
+    def k8_bf16_check(args, layout, what):
+        """K8's bfloat16 mode against its plain layer (K8_BF16_EQUAL and
+        the ulp bounds above): (output, max |kernel - plain|, bit-equal
+        share)."""
+        x, w, b, _, normalize = args
+        y = K.mccnn_conv3x3(*args, layout=layout, bf16=True)
+        y_ref = K.mccnn_conv3x3_plain(*args, bf16=True)
+        with K._fp32_cudnn():
+            pre = torch.nn.functional.conv2d(K.bf16_round(x),
+                                             K.bf16_round(w), padding=1)
+        raw = K.mccnn_conv3x3_plain(x, w, b, False, False, bf16=True)
+        tol = bf16_ulp(pre) + bf16_ulp(raw)
+        del pre
+        diff = (y - y_ref).abs()
+        equal = float((y == y_ref).float().mean())
+        if normalize:
+            tol /= torch.sqrt((raw * raw).sum(1, keepdim=True) + 1e-12)
+            tol += 1e-6
+        within = bool((diff <= tol).all())
+        e = float(diff.max())
+        print(f"[mccnn] K8 bf16 {what} {tuple(x.shape)} -> {tuple(y.shape)}"
+              f": max |kernel - plain| = {e}, {equal} of the outputs "
+              f"bit-equal, all within the ulp bound: {within} ({card})")
+        check(within, f"K8 bf16 {what}: an output past the ulp bound")
+        check(normalize or equal >= K8_BF16_EQUAL, f"K8 bf16 {what}: "
+              f"{equal} bit-equal < {K8_BF16_EQUAL}")
+        return y, e, equal
 
     def agreement(a, b):
         """Share of pixels with the same NaN state and |diff| <= 0.01."""
@@ -690,6 +760,19 @@ def main() -> int:
                                   .abs().max())
     check(torch.equal(words79, words79_ref), f"K1 {WIDE} bit-equal")
     del words79_ref
+    # K1 at 720p and at odd widths (word-plane rows at every 16-byte
+    # alignment, so 16-, 8- and 4-byte stores and scalar row ends)
+    for name, im in {
+            label(ARKIT_720P): torch.stack([left7, right7]).contiguous(),
+            "W=1241": imgs[:, :, :KITTI["W"] - 1].contiguous(),
+            "W=1243": torch.cat([imgs, imgs[:, :, :1]], 2).contiguous()
+    }.items():
+        for win in (cfg.census_window, WIDE):
+            check(torch.equal(K.census_words(im, win),
+                              K.census_words_plain(im, win)),
+                  f"K1 {win} at {name} bit-equal")
+    print(f"[parity] census_words at {label(ARKIT_720P)}, W=1241 and "
+          f"W=1243, {cfg.census_window} and {WIDE}: bit-equal ({card})")
     wT79 = words79.transpose(2, 3).contiguous()      # (2, 2, W, H)
     err["census_volume 7x9"] = 0.0
     for what, (cl, cr, dt, tr) in {
@@ -930,7 +1013,7 @@ def main() -> int:
     census_noisy, _ = StereoMatcher(cfg, device=dev)(*noisy_np)
     census_noisy_q = (float(bad_pixel_rate(census_noisy, gt, 3.0, 0.0)),
                       float(density(census_noisy)))
-    mc_counts, providers = {}, {}
+    mc_counts, providers, mc_quality = {}, {}, {}
     for arch, model in models.items():
         providers[arch] = MCCNNCost(model, mc_cfg)
         matcher = StereoMatcher(mc_cfg, cost_fn=providers[arch], device=dev)
@@ -960,11 +1043,93 @@ def main() -> int:
               f"{quality['clean']}, noise=25 {quality['noise=25']}; census "
               f"on the noisy frame {census_noisy_q}; {jax_ref}; census "
               f"{JAX_CPU['census noise=25']} noise=25 ({card})")
+        mc_quality[arch] = quality
         (bad3, dens), (nbad3, ndens) = quality["clean"], quality["noise=25"]
         check(bad3 < 0.05 and dens > 0.8, f"MC-CNN {arch} clean: bad-3px "
               f"{bad3} < 0.05 and density {dens} > 0.8")
         check(ndens > census_noisy_q[1] and ndens > 0.9 and nbad3 < 0.05,
               f"MC-CNN {arch} noise=25: density {ndens} above census "
+              f"{census_noisy_q[1]} and 0.9, bad-3px {nbad3} < 0.05")
+
+    # the same towers with compute_dtype bfloat16 (K8's bfloat16 mode; the
+    # features and K9 stay float32): K8 against its plain bfloat16 layer,
+    # the tower against the plain tower within JAX's 1e-2 contract, and the
+    # matcher with its launch counts, agreement and quality
+    models16 = {arch: from_flax_params(load_default_params(arch), arch,
+                                       torch.bfloat16).to(dev)
+                for arch in models}
+    err["mccnn_conv3x3 bf16"] = 0.0
+    for arch, model in models16.items():
+        h = norm[:, None].contiguous()
+        for i in range(model.num_layers):
+            last = i == model.num_layers - 1
+            args = (h, model.weights[i], model.biases[i], not last, last)
+            layout = getattr(model, f"layout{i}")
+            y, e, _ = k8_bf16_check(args, layout, f"{arch} layer {i}")
+            err["mccnn_conv3x3 bf16"] = max(err["mccnn_conv3x3 bf16"], e)
+            if i < 2:
+                k8_args[arch, ("C_in=1" if i == 0 else "C_in=F") +
+                        " bf16"] = (args, layout)
+            h = y
+        e = float((model(norm) - plain_tower(model, (left, right))).abs()
+                  .max())
+        print(f"[mccnn] {arch} bf16 tower: max |kernel - plain| = {e} "
+              f"({card})")
+        check(e <= 1e-2, f"MC-CNN {arch} bf16 tower: {e} > 1e-2")
+        # use_bf16=True on the float32 model: its bfloat16 twin, made once,
+        # computes the bfloat16 model's volume on the same kernels
+        D_mc = mc_cfg.num_disparities
+        want_vol = mccnn_cost_volume(model, left, right, D_mc)
+        twin = models[arch].bf16_twin()
+        K.reset_launches()
+        vol16 = mccnn_cost_volume(models[arch], left, right, D_mc,
+                                  use_bf16=True)
+        torch.cuda.synchronize()
+        c = {k: v for k, v in K.launches.items() if v}
+        check(models[arch].bf16_twin() is twin and torch.equal(vol16,
+                                                              want_vol),
+              f"MC-CNN {arch} use_bf16=True: the float32 model's twin is "
+              f"made once and equals the bfloat16 model's volume")
+        check(c == {"mccnn_conv3x3": model.num_layers, "mccnn_volume": 1},
+              f"MC-CNN {arch} use_bf16=True launches {c}")
+        print(f"[mccnn] {arch} use_bf16=True on the float32 model: the "
+              f"bfloat16 model's volume bit for bit, launches {c} ({card})")
+        del want_vol, vol16
+    del h, y
+    mc16_counts, providers16 = {}, {}
+    for arch, model in models16.items():
+        providers16[arch] = MCCNNCost(model, mc_cfg)
+        matcher = StereoMatcher(mc_cfg, cost_fn=providers16[arch],
+                                device=dev)
+        K.reset_launches()
+        mc_raw, _ = matcher(left_np, right_np)
+        torch.cuda.synchronize()
+        c = mc16_counts[arch] = dict(K.launches)
+        print(f"[mccnn] {arch} bf16 {label(KITTI)} launches {c} ({card})")
+        want = {name: 0 for name in c}
+        want.update(mccnn_conv3x3=model.num_layers, mccnn_volume=1,
+                    sgm_path_scan=mc_cfg.num_paths, wta_lr=1)
+        check(c == want, f"MC-CNN {arch} bf16 launch counts {c} != {want}")
+        share = agreement(mc_raw, plain_mccnn_path(left, right, mc_cfg, model))
+        check(share >= MC_BF16_AGREE, f"MC-CNN {arch} bf16: {share} of the "
+              f"pixels agree with the plain path (< {MC_BF16_AGREE})")
+        quality = {}
+        for name, frame in (("clean", (left_np, right_np)),
+                            ("noise=25", noisy_np)):
+            d = mc_raw if name == "clean" else matcher(*frame)[0]
+            quality[name] = (float(bad_pixel_rate(d, gt, 3.0, 0.0)),
+                             float(density(d)))
+        print(f"[mccnn] {arch} bf16 {label(KITTI)}: {share} of the pixels "
+              f"agree with the plain bf16 path; (bad-3px, density) clean "
+              f"{quality['clean']}, noise=25 {quality['noise=25']}; float32 "
+              f"clean {mc_quality[arch]['clean']}, noise=25 "
+              f"{mc_quality[arch]['noise=25']}; census on the noisy frame "
+              f"{census_noisy_q} ({card})")
+        (bad3, dens), (nbad3, ndens) = quality["clean"], quality["noise=25"]
+        check(bad3 < 0.05 and dens > 0.8, f"MC-CNN {arch} bf16 clean: "
+              f"bad-3px {bad3} < 0.05 and density {dens} > 0.8")
+        check(ndens > census_noisy_q[1] and ndens > 0.9 and nbad3 < 0.05,
+              f"MC-CNN {arch} bf16 noise=25: density {ndens} above census "
               f"{census_noisy_q[1]} and 0.9, bad-3px {nbad3} < 0.05")
     del mc_raw, census_noisy, noisy_l, noisy_r
 
@@ -1285,7 +1450,26 @@ def main() -> int:
     del outs, pipe, vol79, total79, ref79
 
     # 5. timing (CUDA events, after a warm-up)
-    ms["census_words"] = cuda_ms(lambda: K.census_words(imgs), 50)
+    # K1 takes less time than the host's call: its `ms` is the events' mean
+    # over 50 back-to-back calls, as every other row's, which the host
+    # bounds; the mean of 64 launches in one CUDA graph is the kernel's own
+    # time, kept apart as the row's `graph_ms`
+    imgs7 = torch.stack([left7, right7]).contiguous()
+    k1_ev, k1_graph = {}, {}
+    for name, (im, win) in {"KITTI 5x5": (imgs, (5, 5)),
+                            "720p 5x5": (imgs7, (5, 5)),
+                            "KITTI 7x9": (imgs, WIDE)}.items():
+        k1_ev[name] = t_ev = cuda_ms(lambda: K.census_words(im, win), 50)
+        k1_graph[name] = t = graph_ms(lambda: K.census_words(im, win), 64)
+        k1_b = bound(im.numel() * 4 * (1 + K.n_census_words(win)))
+        print(f"[timing] census_words {name} {tuple(im.shape)}: {t_ev} ms by "
+              f"events over back-to-back calls, {t} ms a launch (CUDA graph "
+              f"of 64); bound {k1_b[0]} ms ({k1_b[1]}), {k1_b[0] / t} of it "
+              f"in the graph ({card})")
+    del imgs7
+    ms["census_words"] = k1_ev["KITTI 5x5"]
+    graph = {"census_words": k1_graph["KITTI 5x5"],
+             "census_words 7x9": k1_graph["KITTI 7x9"]}
     plain_ms["census_words"] = cuda_ms(lambda: K.census_words_plain(imgs), 5)
     ms["census_volume"] = cuda_ms(
         lambda: K.census_volume(words[0], words[1], cfg.num_disparities), 20)
@@ -1600,7 +1784,7 @@ def main() -> int:
         print(f"[timing] {name} {label(KITTI)}: {t} ms/frame = "
               f"{1000.0 / t} frames/s; plain versions {t_plain} ms/frame "
               f"({card})")
-    ms["census_words 7x9"] = cuda_ms(lambda: K.census_words(imgs, WIDE), 50)
+    ms["census_words 7x9"] = k1_ev["KITTI 7x9"]
     plain_ms["census_words 7x9"] = cuda_ms(
         lambda: K.census_words_plain(imgs, WIDE), 3)
     ms["census_volume 7x9"] = cuda_ms(
@@ -1685,14 +1869,42 @@ def main() -> int:
 
     k8_layer = {}    # (arch, kind) -> (kernel, plain, library, bound) ms
     for (arch, kind), (args, layout) in k8_args.items():
-        t = cuda_ms(lambda: K.mccnn_conv3x3(*args, layout=layout), 10)
-        t_plain = cuda_ms(lambda: K.mccnn_conv3x3_plain(*args), 10)
-        t_lib = cuda_ms(lambda: conv_cudnn(*args[:3]), 10)
         x, w = args[0], args[1]
         flop = 2 * 9 * w.shape[0] * w.shape[1] * x.shape[0] * x.shape[2] \
             * x.shape[3]
         nbytes = 4 * (x.numel() + w.numel() + x.shape[0] * w.shape[0]
                       * x.shape[2] * x.shape[3])
+        if kind.endswith("bf16"):
+            # the library: cuDNN on bfloat16 tensors (made outside the
+            # timing); the bound: float32 in and out against the products
+            # at the bfloat16 rate, beside the TF32 rate this body's
+            # products run at
+            t = cuda_ms(lambda: K.mccnn_conv3x3(*args, layout=layout,
+                                                bf16=True), 10)
+            t_plain = cuda_ms(lambda: K.mccnn_conv3x3_plain(*args,
+                                                            bf16=True), 10)
+            lib_args = [a.to(torch.bfloat16) for a in args[:3]]
+            t_lib = cuda_ms(lambda: torch.nn.functional.conv2d(
+                *lib_args, padding=1), 10)
+            del lib_args
+            bf16_ms = bound(nbytes, flop, "bf16")
+            tf32_ms = bound(nbytes, flop, "tf32")
+            k8_layer[arch, kind] = (t, t_plain, t_lib, bf16_ms)
+            f32_t = k8_layer[arch, kind[:-len(" bf16")]][0]
+            print(f"[timing] mccnn_conv3x3 bf16 {arch} {kind} "
+                  f"{tuple(x.shape)} -> {w.shape[0]} features: kernel {t} ms "
+                  f"({flop / t / 1e9} TFLOP/s), float32 kernel {f32_t} ms; "
+                  f"{bf16_ms[0] / t} of the bound {bf16_ms[0]} ms "
+                  f"({bf16_ms[1]}; products at the bfloat16 rate); the "
+                  f"TF32 rate of its products caps it at {tf32_ms[0]} ms "
+                  f"({tf32_ms[1]}), {tf32_ms[0] / t} of it; plain (cuDNN "
+                  f"float32 on rounded operands + roundings) {t_plain} ms; "
+                  f"library F.conv2d (cuDNN, bfloat16 tensors) {t_lib} ms "
+                  f"({card})")
+            continue
+        t = cuda_ms(lambda: K.mccnn_conv3x3(*args, layout=layout), 10)
+        t_plain = cuda_ms(lambda: K.mccnn_conv3x3_plain(*args), 10)
+        t_lib = cuda_ms(lambda: conv_cudnn(*args[:3]), 10)
         tf32_ms = bound(nbytes, 3 * flop, "tf32")
         fp32_ms = bound(nbytes, flop, "fp32")
         k8_layer[arch, kind] = (t, t_plain, t_lib,
@@ -1708,6 +1920,10 @@ def main() -> int:
                 for arch, model in models.items()}
     tower_plain_ms = {arch: cuda_ms(lambda: plain_tower(model, (left, right)),
                                     5) for arch, model in models.items()}
+    tower16_ms = {arch: cuda_ms(lambda: model(norm), 10)
+                  for arch, model in models16.items()}
+    tower16_plain_ms = {arch: cuda_ms(lambda: plain_tower(
+        model, (left, right)), 5) for arch, model in models16.items()}
     k9_bound = {}    # (arch, where) -> the 3xTF32 body's bound
     for (arch, where), args in k9_args.items():
         t = cuda_ms(lambda: K.mccnn_volume(*args), 20)
@@ -1725,6 +1941,19 @@ def main() -> int:
     ms["mccnn_conv3x3"] = tower_ms["fast"] / models["fast"].num_layers
     plain_ms["mccnn_conv3x3"] = tower_plain_ms["fast"] / \
         models["fast"].num_layers
+    ms["mccnn_conv3x3 bf16"] = tower16_ms["fast"] / models["fast"].num_layers
+    plain_ms["mccnn_conv3x3 bf16"] = tower16_plain_ms["fast"] / \
+        models["fast"].num_layers
+    for arch, provider in providers16.items():
+        t = cuda_ms(lambda: _match_core(left, right, mc_cfg, provider), 10)
+        t32 = cuda_ms(lambda: _match_core(left, right, mc_cfg,
+                                          providers[arch]), 10)
+        print(f"[timing] MC-CNN {arch} bf16 path {label(KITTI)}: {t} "
+              f"ms/frame = {1000.0 / t} frames/s; float32 path in the same "
+              f"run {t32} ms/frame; bf16 tower (K8 x "
+              f"{models16[arch].num_layers}) {tower16_ms[arch]} ms against "
+              f"float32 {tower_ms[arch]} ms, plain bf16 tower "
+              f"{tower16_plain_ms[arch]} ms ({card})")
     for arch, provider in providers.items():
         t = cuda_ms(lambda: _match_core(left, right, mc_cfg, provider), 10)
         torch.cuda.synchronize()
@@ -1751,6 +1980,8 @@ def main() -> int:
     path_counts = {**post_counts["speckle+wls"],
                    **{k: counts[k] for k in MAIN_PATH},
                    "mccnn_conv3x3": mc_counts["fast"]["mccnn_conv3x3"],
+                   "mccnn_conv3x3 bf16": mc16_counts["fast"][
+                       "mccnn_conv3x3"],
                    "mccnn_volume": mc_counts["fast"]["mccnn_volume"],
                    "census_scan": stream_counts["census"]["census_scan"],
                    "wta_stats": fast_counts["wta_stats"],
@@ -1775,6 +2006,13 @@ def main() -> int:
     k8_bound_by = max((k8_parts["C_in=1"][3][0], k8_parts["C_in=1"][3][1]),
                       (n_cf * k8_parts["C_in=F"][3][0],
                        k8_parts["C_in=F"][3][1]))[1]
+    k8_16 = {kind: k8_layer["fast", kind + " bf16"]
+             for kind in ("C_in=1", "C_in=F")}
+    k8_16_bound = ((k8_16["C_in=1"][3][0] + n_cf * k8_16["C_in=F"][3][0])
+                   / models["fast"].num_layers,
+                   max((k8_16["C_in=1"][3][0], k8_16["C_in=1"][3][1]),
+                       (n_cf * k8_16["C_in=F"][3][0],
+                        k8_16["C_in=F"][3][1]))[1])
     bounds = {
         "census_words": bound(2 * HW * 4 * 2),
         "census_volume": bound(2 * HW * 4 + vol_b),
@@ -1786,6 +2024,7 @@ def main() -> int:
         "speckle_filter": spk_bound["KITTI"],
         "fgs_solve": bound(6 * HW * 4),
         "mccnn_conv3x3": (k8_bound_ms, k8_bound_by),
+        "mccnn_conv3x3 bf16": k8_16_bound,
         "mccnn_volume": k9_bound["fast", label(KITTI)],
         "census_scan": bound(2 * HW * 4 + 2 * vol_b),
         "census_words 7x9": bound(2 * HW * 4 + 2 * 2 * HW * 4),
@@ -1797,6 +2036,9 @@ def main() -> int:
     library_ms["mccnn_conv3x3"] = (
         k8_parts["C_in=1"][2] + n_cf * k8_parts["C_in=F"][2]) / \
         models["fast"].num_layers
+    library_ms["mccnn_conv3x3 bf16"] = (
+        k8_16["C_in=1"][2] + n_cf * k8_16["C_in=F"][2]) / \
+        models["fast"].num_layers
     for name, (b_ms, b_by) in bounds.items():
         print(f"[bound] {name}: {b_ms} ms ({b_by}); kernel {ms[name]} ms = "
               f"{b_ms / ms[name]} of it ({card})")
@@ -1804,7 +2046,8 @@ def main() -> int:
                "replaces": replaces, "launches": path_counts[name],
                "max_abs_err": err[name], "ms": ms[name],
                "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
-               "bound_by": bounds[name][1], "library_ms": library_ms[name]}
+               "bound_by": bounds[name][1], "library_ms": library_ms[name],
+               "graph_ms": graph.get(name)}
               for name, (src, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": record}))
     print(card)

@@ -1,5 +1,5 @@
 // K8 mccnn_conv3x3 and K9 mccnn_volume: the MC-CNN feature tower and its
-// feature-dot cost volume, float32.
+// feature-dot cost volume, float32 (K8 also in a bfloat16 mode).
 //
 // K8 replaces, in stereo_match_tpu/ops/pallas_kernels.py, the tower of
 // mccnn_tower_pallas (_mccnn_tower_kernel, _tower_body) and the tower half
@@ -54,6 +54,27 @@
 // of four pixels x F/4 channels a thread makes each warp store four 32-B
 // pieces of four planes, which the card writes more slowly.)
 //
+// The bfloat16 mode (BF16; the flax tower with compute_dtype bfloat16, and
+// the Pallas tower's default compute_dtype) computes what
+// cuda_kernels.mccnn_conv3x3_plain(..., bf16=True) does: the layer input
+// and the weights rounded to bfloat16, their products summed in float32,
+// the sum rounded to bfloat16, the bfloat16 bias added and the result
+// rounded again, then ReLU or the float32 norm. Activations stay float32
+// tensors holding bfloat16 values, so the input path and K9 are the
+// float32 ones. A bfloat16 value is exact in TF32 and a product of two is
+// exact in float32, so the tensor-core body forms one TF32 product a k8
+// step (hi*hi, no split) from a one-part weight layout (1, 3, 3, C8, F8)
+// of rounded taps, still into a zeroed accumulator added with an FP32 add;
+// the A fragments are rounded as they are read (the input of every layer
+// but the first already holds bfloat16 values). The C_in = 1 body rounds
+// the image and the taps as it stages them; its 9 products are exact.
+// Bound on the H100 for a C_in = F layer at KITTI: 68.7 GFLOP at F = 64
+// (210 at F = 112), 0.069 ms at the 989 TFLOP/s of dense bfloat16 but
+// 0.139 ms at the 495 TFLOP/s of TF32, which this body's products run at,
+// against 477 MB of float32 in and out (834 at F = 112), 0.142 ms at 3.35
+// TB/s: bytes bound the function; the TF32 rate comes close to bounding
+// this body.
+//
 // K9 replaces mccnn_volume_pallas (_mccnn_vol_kernel), mccnn_volume_mxu_
 // pallas (_mccnn_vol_mxu_kernel), mccnn_volume_flat_pallas
 // (_mccnn_vol_flat_kernel, _gram_band_body) and the volume half of
@@ -99,6 +120,7 @@
 // row) keep the fragment reads and the epilogue's writes free of bank
 // conflicts.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -106,6 +128,19 @@
 namespace {
 
 constexpr float kInvalid = 1e4f;
+
+// float32 -> the nearest bfloat16 (ties to even), as a float32
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The layer's epilogue before ReLU: the sum plus the bias, in float32, or
+// in the bfloat16 mode rounded, the rounded bias added and rounded again.
+template <bool BF16>
+__device__ __forceinline__ float add_bias(float acc, float b) {
+  if (BF16) return bf16_round(bf16_round(acc) + bf16_round(b));
+  return acc + b;
+}
 
 // ------------------------------------------------ K8, C_in = 1: FP32 ----
 
@@ -119,7 +154,7 @@ constexpr int kHaloSize = kHaloH * kHaloW;
 // A thread owns one pixel and all FP >= F channels of it (FP a multiple of
 // 4), so a warp writes 32 consecutive pixels of a channel: whole 128-B
 // lines.
-template <int FP>
+template <int FP, bool BF16>
 __global__ void __launch_bounds__(kConvThreads)
 conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ taps,
                const float* __restrict__ bias, float* __restrict__ y, int F,
@@ -139,12 +174,14 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ taps,
     const int hy = i / kHaloW;
     const int gy = ty0 + hy - 1;
     const int gx = tx0 + i - hy * kHaloW - 1;
-    xs[i] = gy >= 0 && gy < H && gx >= 0 && gx < W ? xv[(size_t)gy * W + gx]
-                                                   : 0.f;
+    const float v = gy >= 0 && gy < H && gx >= 0 && gx < W
+                        ? xv[(size_t)gy * W + gx] : 0.f;
+    xs[i] = BF16 ? bf16_round(v) : v;
   }
   for (int i = t; i < 9 * FP; i += kConvThreads) {
     const int f = i % FP;
-    ws[i] = f < F ? taps[(size_t)(i / FP) * F + f] : 0.f;
+    const float w = f < F ? taps[(size_t)(i / FP) * F + f] : 0.f;
+    ws[i] = BF16 ? bf16_round(w) : w;
   }
   __syncthreads();
 
@@ -170,7 +207,7 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ taps,
   float ss = 0.f;
 #pragma unroll
   for (int f = 0; f < FP; ++f) {
-    float v = acc[f] + (f < F ? bias[f] : 0.f);
+    float v = add_bias<BF16>(acc[f], f < F ? bias[f] : 0.f);
     if (relu) v = fmaxf(v, 0.f);
     acc[f] = v;
     ss = fmaf(v, v, ss);
@@ -185,12 +222,12 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ taps,
     if (f < F) out[(size_t)f * H * W] = normalize ? acc[f] / norm : acc[f];
 }
 
-template <int FP>
+template <int FP, bool BF16>
 int launch_conv3x3(const float* x, const float* taps, const float* bias,
                    float* y, int V, int F, int H, int W, int relu,
                    int normalize, cudaStream_t stream) {
   dim3 grid((W + kConvTW - 1) / kConvTW, (H + kConvTH - 1) / kConvTH, V);
-  conv3x3_kernel<FP><<<grid, kConvThreads, 0, stream>>>(
+  conv3x3_kernel<FP, BF16><<<grid, kConvThreads, 0, stream>>>(
       x, taps, bias, y, F, H, W, relu, normalize);
   return (int)cudaGetLastError();
 }
@@ -236,8 +273,9 @@ __device__ inline void mma_tf32(float* c, const uint32_t* a, uint32_t b0,
 
 // NT n8 tiles: the block covers F8 = 8 * NT output channels; NS warps
 // share a tile row, each taking NT / NS of the n8 tiles (more warps an SM
-// where one block fills it).
-template <int NT, int NS>
+// where one block fills it). BF16: one TF32 product of bfloat16 operands a
+// k8 step, from a one-part weight layout.
+template <int NT, int NS, bool BF16>
 __global__ void __launch_bounds__(kTcThreads * NS)
 conv3x3_tf32x3_kernel(const float* __restrict__ x,
                       const float* __restrict__ packed,
@@ -248,8 +286,9 @@ conv3x3_tf32x3_kernel(const float* __restrict__ x,
   constexpr int NW = NT / NS;             // n8 tiles a warp
   constexpr int THREADS = kTcThreads * NS;
   constexpr int FP = F8 + 8;              // weight row pitch: 8 banks apart
+  constexpr int PARTS = BF16 ? 1 : 2;     // weight parts: hi (and lo)
   constexpr int XSTAGE = kTcCC * kTcHaloPitch;
-  constexpr int STAGE = XSTAGE + 2 * 9 * kTcCC * FP;
+  constexpr int STAGE = XSTAGE + PARTS * 9 * kTcCC * FP;
   static_assert(NT % NS == 0, "the warps of a row split the n8 tiles");
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
@@ -279,7 +318,8 @@ conv3x3_tf32x3_kernel(const float* __restrict__ x,
     }
     // weight rows (part, tap, ci) of F8 floats, 16 B at a time
     float* wb = buf + XSTAGE;
-    for (int i = threadIdx.x; i < 2 * 9 * kTcCC * (F8 / 4); i += THREADS) {
+    for (int i = threadIdx.x; i < PARTS * 9 * kTcCC * (F8 / 4);
+         i += THREADS) {
       const int r = i / (F8 / 4);
       const int q = i - r * (F8 / 4);
       const int pt = r / kTcCC;           // part * 9 + tap
@@ -311,6 +351,32 @@ conv3x3_tf32x3_kernel(const float* __restrict__ x,
     for (int tap = 0; tap < 9; ++tap) {
       const int ky = tap / 3;
       const int kx = tap - 3 * ky;
+      if (BF16) {
+        uint32_t ab[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* a = xs + t * kTcHaloPitch + (row + ky) * kTcHaloW +
+                           mt * 16 + g + kx;
+          ab[mt][0] = __float_as_uint(bf16_round(a[0]));
+          ab[mt][1] = __float_as_uint(bf16_round(a[8]));
+          ab[mt][2] = __float_as_uint(bf16_round(a[4 * kTcHaloPitch]));
+          ab[mt][3] = __float_as_uint(bf16_round(a[4 * kTcHaloPitch + 8]));
+        }
+        const float* wb = ws + (tap * kTcCC + t) * FP + nh * NW * 8 + g;
+#pragma unroll
+        for (int n = 0; n < NW; ++n) {
+          const uint32_t b0 = __float_as_uint(wb[n * 8]);
+          const uint32_t b1 = __float_as_uint(wb[4 * FP + n * 8]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_tf32(part, ab[mt], b0, b1);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][n][e] += part[e];
+          }
+        }
+        continue;
+      }
       uint32_t ah[2][4], al[2][4];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
@@ -357,7 +423,8 @@ conv3x3_tf32x3_kernel(const float* __restrict__ x,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int f = (nh * NW + n) * 8 + 2 * t + e;
-          float v = acc[mt][n][2 * half + e] + (f < F ? bias[f] : 0.f);
+          float v = add_bias<BF16>(acc[mt][n][2 * half + e],
+                                   f < F ? bias[f] : 0.f);
           if (relu) v = fmaxf(v, 0.f);
           acc[mt][n][2 * half + e] = v;
           sum = fmaf(v, v, sum);
@@ -412,21 +479,23 @@ conv3x3_tf32x3_kernel(const float* __restrict__ x,
   }
 }
 
-template <int NT, int NS>
+template <int NT, int NS, bool BF16>
 int launch_tf32x3(const float* x, const float* packed, const float* bias,
                   float* y, int V, int C_in, int F, int H, int W, int relu,
                   int normalize, cudaStream_t stream) {
   constexpr int FP = 8 * NT + 8;
-  const size_t smem =
-      2 * (size_t)(kTcCC * kTcHaloPitch + 2 * 9 * kTcCC * FP) * sizeof(float);
+  constexpr int PARTS = BF16 ? 1 : 2;
+  const size_t smem = 2 * (size_t)(kTcCC * kTcHaloPitch +
+                                   PARTS * 9 * kTcCC * FP) * sizeof(float);
   // The attribute belongs to the current device: set it at every launch.
   const cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_tf32x3_kernel<NT, NS>,
+      conv3x3_tf32x3_kernel<NT, NS, BF16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int C8 = (C_in + kTcCC - 1) / kTcCC * kTcCC;
   dim3 grid((W + kTcTW - 1) / kTcTW, (H + kTcTH - 1) / kTcTH, V);
-  conv3x3_tf32x3_kernel<NT, NS><<<grid, kTcThreads * NS, smem, stream>>>(
+  conv3x3_tf32x3_kernel<NT, NS, BF16>
+      <<<grid, kTcThreads * NS, smem, stream>>>(
       x, packed, bias, y, C_in, C8, F, H, W, relu, normalize);
   return (int)cudaGetLastError();
 }
@@ -640,43 +709,55 @@ int launch_volume(const float* fl, const float* fr, float* out, int F, int H,
   return (int)cudaGetLastError();
 }
 
+// One K8 layer: the body chosen by C_in, the tile of output channels by F.
+template <bool BF16>
+int conv3x3(const float* x, const float* layout, const float* bias, float* y,
+            int V, int C_in, int F, int H, int W, int relu, int normalize,
+            cudaStream_t st) {
+  if (C_in > 1) {
+    if (F <= 32)
+      return launch_tf32x3<4, 1, BF16>(x, layout, bias, y, V, C_in, F, H, W,
+                                       relu, normalize, st);
+    if (F <= 64)
+      return launch_tf32x3<8, 1, BF16>(x, layout, bias, y, V, C_in, F, H, W,
+                                       relu, normalize, st);
+    if (F <= 112)
+      return launch_tf32x3<14, 2, BF16>(x, layout, bias, y, V, C_in, F, H,
+                                        W, relu, normalize, st);
+    return launch_tf32x3<16, 2, BF16>(x, layout, bias, y, V, C_in, F, H, W,
+                                      relu, normalize, st);
+  }
+  if (F <= 32)
+    return launch_conv3x3<32, BF16>(x, layout, bias, y, V, F, H, W, relu,
+                                    normalize, st);
+  if (F <= 64)
+    return launch_conv3x3<64, BF16>(x, layout, bias, y, V, F, H, W, relu,
+                                    normalize, st);
+  if (F <= 112)
+    return launch_conv3x3<112, BF16>(x, layout, bias, y, V, F, H, W, relu,
+                                     normalize, st);
+  return launch_conv3x3<128, BF16>(x, layout, bias, y, V, F, H, W, relu,
+                                   normalize, st);
+}
+
 }  // namespace
 
-// x: (V, C_in, H, W); layout: K8's copy of the weights, chosen by C_in:
-// for C_in = 1 the (3, 3, 1, F) taps (the flax kernel layout), for C_in > 1
-// the (2, 3, 3, C8, F8) TF32 hi and lo parts of the taps with C_in padded to
-// C8 (a multiple of 8) and F to F8 (32, 64, 112 or 128) by zeros; bias:
-// (F,); y: (V, F, H, W). F <= 128.
+// x: (V, C_in, H, W); layout: K8's copy of the weights, chosen by C_in and
+// bf16: for C_in = 1 the (3, 3, 1, F) taps (the flax kernel layout), for
+// C_in > 1 the (2, 3, 3, C8, F8) TF32 hi and lo parts of the taps, or with
+// bf16 the (1, 3, 3, C8, F8) taps rounded to bfloat16, C_in padded to C8 (a
+// multiple of 8) and F to F8 (32, 64, 112 or 128) by zeros; bias: (F,);
+// y: (V, F, H, W). F <= 128. bf16: the bfloat16 mode.
 extern "C" int smt_mccnn_conv3x3(const float* x, const float* layout,
                                  const float* bias, float* y, int V, int C_in,
                                  int F, int H, int W, int relu, int normalize,
-                                 void* stream) {
+                                 int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (F < 1 || F > 128 || C_in < 1) return (int)cudaErrorInvalidValue;
-  if (C_in > 1) {
-    if (F <= 32)
-      return launch_tf32x3<4, 1>(x, layout, bias, y, V, C_in, F, H, W, relu,
-                              normalize, st);
-    if (F <= 64)
-      return launch_tf32x3<8, 1>(x, layout, bias, y, V, C_in, F, H, W, relu,
-                              normalize, st);
-    if (F <= 112)
-      return launch_tf32x3<14, 2>(x, layout, bias, y, V, C_in, F, H, W, relu,
+  return bf16 ? conv3x3<true>(x, layout, bias, y, V, C_in, F, H, W, relu,
+                              normalize, st)
+              : conv3x3<false>(x, layout, bias, y, V, C_in, F, H, W, relu,
                                normalize, st);
-    return launch_tf32x3<16, 2>(x, layout, bias, y, V, C_in, F, H, W, relu,
-                             normalize, st);
-  }
-  if (F <= 32)
-    return launch_conv3x3<32>(x, layout, bias, y, V, F, H, W, relu, normalize,
-                             st);
-  if (F <= 64)
-    return launch_conv3x3<64>(x, layout, bias, y, V, F, H, W, relu,
-                              normalize, st);
-  if (F <= 112)
-    return launch_conv3x3<112>(x, layout, bias, y, V, F, H, W, relu,
-                              normalize, st);
-  return launch_conv3x3<128>(x, layout, bias, y, V, F, H, W, relu, normalize,
-                            st);
 }
 
 // fl, fr: (F, H, W) features of the two views; out: (D, H, W). Any F, D,

@@ -31,6 +31,7 @@ from stereo_match_tpu_torch.ops.cuda_kernels import (MCCNN_MAX_FEATURES,
                                                      mccnn_weight_layout)
 
 ARCHS = {"fast": (64, 4), "accurate": (112, 5)}   # arch -> (F, layers)
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _lecun_normal(shape: tuple[int, ...]) -> torch.Tensor:
@@ -44,23 +45,33 @@ class MCCNNFeatures(nn.Module):
     """Siamese feature tower: ``num_layers`` 3x3 convs, L2-normalized.
 
     Weights ``weights[i]`` (F, C_in, 3, 3) and biases ``biases[i]`` (F,)
-    are float32 parameters without gradients (inference only). ``layout{i}``
-    is the copy of layer i's weights that K8 reads
-    (``mccnn_weight_layout``: the (3, 3, 1, F) taps of the first layer, the
-    TF32 hi/lo parts of the others), made when the weights are set
-    (construction, ``load_state_dict``) and moved with the module; after
-    changing a weight in place, call :meth:`relayout`. A tower wider than
-    K8 takes (``MCCNN_MAX_FEATURES``) keeps no copy: it builds, loads and
-    runs on the CPU at any F, as flax does, and raises on the card.
+    are float32 parameters without gradients (inference only), whatever
+    ``compute_dtype`` is (flax's ``param_dtype``). ``compute_dtype``, as
+    flax's: float32, or bfloat16, where each layer rounds its input and
+    weights to bfloat16, sums in float32 and rounds its output (K8's
+    ``bf16`` mode, ``mccnn_conv3x3_plain``); the L2 norm is float32 either
+    way, and so are the activations' tensors. ``layout{i}`` is the copy of
+    layer i's weights that K8 reads (``mccnn_weight_layout`` for
+    ``compute_dtype``: the (3, 3, 1, F) taps of the first layer, the packed
+    taps of the others), made when the weights are set (construction,
+    ``load_state_dict``) and moved with the module; after changing a
+    weight in place, call :meth:`relayout`. :meth:`bf16_twin` is the same
+    tower computing in bfloat16 (``mccnn_cost_volume(use_bf16=True)``).
+    A tower wider than K8 takes
+    (``MCCNN_MAX_FEATURES``) keeps no copy: it builds, loads and runs on
+    the CPU at any F, as flax does, and raises on the card.
     """
 
     def __init__(self, features: int = 64, num_layers: int = 4,
-                 kernel: int = 3):
+                 kernel: int = 3,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if kernel != 3:
             raise ValueError("the MC-CNN tower takes 3x3 kernels (K8)")
+        _check_compute_dtype(compute_dtype)
         self.features, self.num_layers, self.kernel = (features, num_layers,
                                                        kernel)
+        self.compute_dtype = compute_dtype
         shapes = [(features, 1 if i == 0 else features, 3, 3)
                   for i in range(num_layers)]
         self.weights = nn.ParameterList(
@@ -78,11 +89,32 @@ class MCCNNFeatures(nn.Module):
 
     def relayout(self) -> None:
         """Rebuild K8's copy of each layer's weights (None where F is wider
-        than K8 takes)."""
+        than K8 takes), and drop the bfloat16 twin, which holds copies of
+        its own."""
+        bf16 = self.compute_dtype == torch.bfloat16
         for i, w in enumerate(self.weights):
             setattr(self, f"layout{i}",
-                    mccnn_weight_layout(w.detach())
+                    mccnn_weight_layout(w.detach(), bf16)
                     if self.features <= MCCNN_MAX_FEATURES else None)
+        self.__dict__.pop("_twin", None)
+
+    def bf16_twin(self) -> MCCNNFeatures:
+        """This tower computing in bfloat16, as the twin JAX builds for
+        ``use_bf16=True``: ``self`` where it does already, else a tower that
+        shares this one's parameters, made once and kept (outside the
+        module's state) with K8's bfloat16 copies of the weights, and made
+        anew when the weights are set again or have moved device."""
+        if self.compute_dtype == torch.bfloat16:
+            return self
+        twin = self.__dict__.get("_twin")
+        if twin is None or (twin.layout0 is not None and
+                            twin.layout0.device != self.weights[0].device):
+            twin = MCCNNFeatures(self.features, self.num_layers, self.kernel,
+                                 torch.bfloat16)
+            twin.weights, twin.biases = self.weights, self.biases
+            twin.relayout()
+            self.__dict__["_twin"] = twin
+        return twin
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(V, H, W) normalized images -> (V, F, H, W) unit features."""
@@ -91,20 +123,30 @@ class MCCNNFeatures(nn.Module):
             last = i == self.num_layers - 1
             h = mccnn_conv3x3(h, self.weights[i], self.biases[i],
                               relu=not last, normalize=last,
-                              layout=getattr(self, f"layout{i}"))
+                              layout=getattr(self, f"layout{i}"),
+                              bf16=self.compute_dtype == torch.bfloat16)
         return h
 
 
-def make_model(arch: str | tuple[int, int] = "fast") -> MCCNNFeatures:
+def _check_compute_dtype(dtype: torch.dtype) -> None:
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {dtype}: the tower computes in "
+                         "torch.float32 or torch.bfloat16")
+
+
+def make_model(arch: str | tuple[int, int] = "fast",
+               compute_dtype: torch.dtype = torch.float32) -> MCCNNFeatures:
     """`fast` (4x64, the KITTI-fast analog), `accurate` (5x112), or any
-    (features, num_layers) pair, as the flax module takes."""
+    (features, num_layers) pair, as the flax module takes; computing in
+    ``compute_dtype``."""
     if isinstance(arch, tuple):
         features, num_layers = arch
     elif arch in ARCHS:
         features, num_layers = ARCHS[arch]
     else:
         raise ValueError(f"unknown arch: {arch}")
-    return MCCNNFeatures(features=features, num_layers=num_layers)
+    return MCCNNFeatures(features=features, num_layers=num_layers,
+                         compute_dtype=compute_dtype)
 
 
 def normalize_image(img: torch.Tensor) -> torch.Tensor:
@@ -121,16 +163,15 @@ def mccnn_cost_volume(model: MCCNNFeatures, left: torch.Tensor,
 
     ``scale`` puts the cost in the range of the census Hamming cost, so
     the SGM P1/P2 defaults carry over. The images and ``model`` must be on
-    one device. ``use_bf16``: None or False compute in float32 (what the
-    JAX package does off the TPU); True is not ported.
+    one device. ``use_bf16``: True computes the tower in bfloat16 on any
+    device, with the model's weights (``model.bf16_twin()``, as JAX builds
+    a bfloat16 twin of a float32 model); None or False keep the model's
+    own ``compute_dtype`` (what the JAX package does off the TPU). The
+    features and the volume are float32 either way.
     """
-    if use_bf16:
-        raise NotImplementedError(
-            "use_bf16=True is not ported: the port's tower is float32 "
-            "(3xTF32 on the tensor cores; ROADMAP.md, queue 2 item 3)")
     check_min_disparity(min_disparity)
     imgs = torch.stack([normalize_image(left), normalize_image(right)])
-    feats = model(imgs)
+    feats = (model.bf16_twin() if use_bf16 else model)(imgs)
     return mccnn_volume(feats[0], feats[1], num_disparities, min_disparity,
                         scale)
 
@@ -151,16 +192,18 @@ def load_params_npz(path: str | Path) -> dict:
     return params
 
 
-def from_flax_params(params: Any,
-                     arch: str | tuple[int, int] = "fast") -> MCCNNFeatures:
+def from_flax_params(params: Any, arch: str | tuple[int, int] = "fast",
+                     compute_dtype: torch.dtype = torch.float32
+                     ) -> MCCNNFeatures:
     """A flax parameter tree (numpy or JAX arrays) -> ``MCCNNFeatures``.
 
     ``arch``: a name of ``ARCHS`` or a (features, num_layers) pair
-    (``make_model``). Kernels are HWIO (3, 3, C_in, F) in flax and OIHW in
+    (``make_model``); ``compute_dtype`` as the module's (the parameters are
+    float32 in both). Kernels are HWIO (3, 3, C_in, F) in flax and OIHW in
     torch: ``permute(3, 2, 0, 1)``. Raises ValueError when a shape does
     not fit ``arch``.
     """
-    model = make_model(arch)
+    model = make_model(arch, compute_dtype)
     tree = params["params"]
     if len(tree) != model.num_layers:
         raise ValueError(f"{len(tree)} layers in the checkpoint; arch "

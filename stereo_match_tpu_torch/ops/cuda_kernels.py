@@ -39,7 +39,8 @@ K8     ``mccnn_conv3x3``       csrc/mccnn.cu        (mccnn_tower_pallas, the
                                                      mccnn_fused_volume_pallas;
                                                      3xTF32 tensor cores for
                                                      C_in > 1, FP32 for
-                                                     C_in = 1)
+                                                     C_in = 1; a bfloat16
+                                                     mode, ``bf16=True``)
 K9     ``mccnn_volume``        csrc/mccnn.cu        (mccnn_volume_pallas,
                                                      mccnn_volume_mxu_pallas,
                                                      mccnn_volume_flat_pallas,
@@ -85,7 +86,7 @@ import numpy as np
 import torch
 import torch.nn.functional as Fn
 
-from stereo_match_tpu_torch.ops.census import census_transform
+from stereo_match_tpu_torch.ops.census import _to_int32, census_transform
 from stereo_match_tpu_torch.ops.cost_volume import (
     INVALID_COST, _invalid_mask, _shift_plane, census_volume_from_words,
     census_volume_T_from_words, volume_dtype)
@@ -195,7 +196,7 @@ def _library() -> ctypes.CDLL:
             "smt_census_scan": [p, p, p, i, i, i, i, f, f, f, i, i, p],
             "smt_speckle_filter": [p, p, p, p, p, p, i, i, i, f, i, p],
             "smt_fgs_solve": [p, p, p, p, p, i, i, i, i, f, p],
-            "smt_mccnn_conv3x3": [p, p, p, p, i, i, i, i, i, i, i, p],
+            "smt_mccnn_conv3x3": [p, p, p, p, i, i, i, i, i, i, i, i, p],
             "smt_mccnn_volume": [p, p, p, i, i, i, i, i, f, p],
         }
         for name, argtypes in signatures.items():
@@ -282,17 +283,101 @@ def census_words_plain(imgs: torch.Tensor,
                         for img in imgs]).contiguous()
 
 
+CENSUS_TILE = (16, 128)  # K1's tile: rows (two bands of a warp each), columns
+CENSUS_PIXELS = 4        # adjacent pixels a lane of K1
+CENSUS_PASS = 16         # window columns a pass of K1's generic body compares
+
+
+def census_tile_bytes(window: tuple[int, int]) -> int:
+    """K1's shared memory for a window: the staged tile's rows, each padded
+    for the last lane's 16-byte reads of its last pass
+    (``census.cu::tile_pitch``)."""
+    wh, ww = window
+    TH, TW = CENSUS_TILE
+    cw = CENSUS_PASS
+    slice_ = -(-(cw + CENSUS_PIXELS - 1) // 4) * 4
+    reach = CENSUS_PIXELS * (TW // CENSUS_PIXELS - 1) + \
+        (ww - 1) // cw * cw + slice_
+    pitch = -(-max(TW + ww - 1, reach) // 4) * 4
+    return (TH + wh - 1) * pitch * 4
+
+
+def census_words_tiled_plain(imgs: torch.Tensor,
+                             window: tuple[int, int] = (5, 5),
+                             tile: tuple[int, int] = CENSUS_TILE
+                             ) -> torch.Tensor:
+    """K1's arithmetic on any device, tile by tile: the model the tests hold
+    to ``census_words_plain`` and the JAX package.
+
+    Each (rows, cols) tile of a view is staged with its halo by clamped
+    coordinates (the edge replication); each window row is compared in
+    passes of ``CENSUS_PASS`` columns, a pass's bits put into a
+    64-bit accumulator a pixel at its fill, a word written whenever 32 have
+    filled, the centre's bit taken out of the pass that holds it (the
+    kernel's templated windows, 5x5 and 7x9, set each bit at the position
+    this order gives it).
+    """
+    wh, ww = _check_window(window)
+    ry, rx = wh // 2, ww // 2
+    V, H, W = imgs.shape
+    TH, TW = tile
+    cw = CENSUS_PASS
+    out = torch.empty((V, n_census_words(window), H, W), dtype=torch.int32,
+                      device=imgs.device)
+    for y0 in range(0, H, TH):
+        ys = torch.arange(y0 - ry, y0 + TH + ry, device=imgs.device)
+        for x0 in range(0, W, TW):
+            xs = torch.arange(x0 - rx, x0 + TW + rx, device=imgs.device)
+            staged = imgs[:, ys.clamp(0, H - 1)][:, :, xs.clamp(0, W - 1)]
+            centre = staged[:, ry:ry + TH, rx:rx + TW]
+            acc = torch.zeros(centre.shape, dtype=torch.int64,
+                              device=imgs.device)
+            fill = word = 0
+            h, w = min(TH, H - y0), min(TW, W - x0)
+            for dy in range(wh):
+                for c0 in range(0, ww, cw):
+                    n = min(cw, ww - c0)
+                    bits = torch.zeros_like(acc)
+                    for j in range(n):
+                        nb = staged[:, dy:dy + TH, c0 + j:c0 + j + TW]
+                        bits |= (nb < centre).to(torch.int64) << j
+                    if dy == ry and c0 <= rx < c0 + n:
+                        k = rx - c0
+                        bits = (bits & ((1 << k) - 1)) | \
+                            ((bits >> (k + 1)) << k)
+                        n -= 1
+                    acc |= bits << fill
+                    fill += n
+                    if fill >= 32:
+                        out[:, word, y0:y0 + h, x0:x0 + w] = _to_int32(
+                            acc[:, :h, :w] & 0xFFFFFFFF)
+                        acc >>= 32
+                        fill -= 32
+                        word += 1
+            if fill:
+                out[:, word, y0:y0 + h, x0:x0 + w] = _to_int32(
+                    acc[:, :h, :w])
+    return out
+
+
 def census_words(imgs: torch.Tensor,
                  window: tuple[int, int] = (5, 5)) -> torch.Tensor:
     """(V, H, W) float32 views -> (V, nw, H, W) int32 census words (K1).
 
     ``nw = n_census_words(window)``: bit k of the descriptor is bit k % 32
-    of word k // 32 (``ops/census.py::census_transform``'s packing).
+    of word k // 32 (``ops/census.py::census_transform``'s packing). On the
+    card the window's staged tile must fit a block's shared memory
+    (``census_tile_bytes`` <= 232448 bytes: a square window up to 175
+    pixels across); the plain version on the CPU takes any window.
     """
     wh, ww = _check_window(window)
     _check(imgs, "imgs", torch.float32, 3)
     if _on_cpu(imgs):
         return census_words_plain(imgs, window)
+    if census_tile_bytes(window) > SMEM_MAX:
+        raise ValueError(f"census window {window}: K1's staged tile takes "
+                         f"{census_tile_bytes(window)} bytes of shared "
+                         f"memory, more than the {SMEM_MAX} a block has")
     V, H, W = imgs.shape
     out = torch.empty((V, n_census_words(window), H, W), dtype=torch.int32,
                       device=imgs.device)
@@ -1165,43 +1250,68 @@ def _check_mccnn_features(F: int) -> None:
                          "on the CPU takes any F)")
 
 
-def mccnn_pack_weights(weight: torch.Tensor) -> torch.Tensor:
-    """(F, C_in, 3, 3) OIHW -> the (2, 3, 3, C8, F8) float32 layout K8's
-    tensor-core body reads: ``tf32_split`` of the (3, 3, C_in, F) taps, hi
-    then lo, zero-padded to C8 input and F8 output channels
-    (``_mccnn_padded``)."""
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest bfloat16 value (ties to even), as float32:
+    what ``__float2bfloat16_rn`` gives and what a flax layer in bfloat16
+    stores."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def mccnn_pack_weights(weight: torch.Tensor,
+                       bf16: bool = False) -> torch.Tensor:
+    """(F, C_in, 3, 3) OIHW -> the float32 layout K8's tensor-core body
+    reads, the (3, 3, C_in, F) taps zero-padded to C8 input and F8 output
+    channels (``_mccnn_padded``): (2, 3, 3, C8, F8), ``tf32_split``'s hi
+    then lo, for float32; (1, 3, 3, C8, F8), the taps rounded to bfloat16,
+    for ``bf16`` (a bfloat16 value is exact in TF32, so one product a k8
+    step is exact)."""
     F, C_in = weight.shape[:2]
     C8, F8 = _mccnn_padded(C_in, F)
-    hi, lo = tf32_split(conv_taps(weight))
-    packed = torch.zeros((2, 3, 3, C8, F8), dtype=torch.float32,
+    taps = conv_taps(weight)
+    parts = (bf16_round(taps),) if bf16 else tf32_split(taps)
+    packed = torch.zeros((len(parts), 3, 3, C8, F8), dtype=torch.float32,
                          device=weight.device)
-    packed[0, :, :, :C_in, :F] = hi
-    packed[1, :, :, :C_in, :F] = lo
+    for i, part in enumerate(parts):
+        packed[i, :, :, :C_in, :F] = part
     return packed
 
 
-def mccnn_weight_layout(weight: torch.Tensor) -> torch.Tensor:
+def mccnn_weight_layout(weight: torch.Tensor,
+                        bf16: bool = False) -> torch.Tensor:
     """(F, C_in, 3, 3) OIHW -> the one copy of the weights K8 reads, chosen
-    by C_in: ``conv_taps`` for C_in = 1 (the FP32 body),
-    ``mccnn_pack_weights`` otherwise (the 3xTF32 tensor-core body).
-    ValueError for F > ``MCCNN_MAX_FEATURES``, which K8 does not take."""
+    by C_in: ``conv_taps`` for C_in = 1 (the FP32 body; rounded to
+    bfloat16 for ``bf16``), ``mccnn_pack_weights`` otherwise (the
+    tensor-core body). ValueError for F > ``MCCNN_MAX_FEATURES``, which K8
+    does not take."""
     _check_mccnn_features(weight.shape[0])
-    return conv_taps(weight) if weight.shape[1] == 1 else \
-        mccnn_pack_weights(weight)
+    if weight.shape[1] > 1:
+        return mccnn_pack_weights(weight, bf16)
+    return conv_taps(bf16_round(weight) if bf16 else weight)
 
 
 def mccnn_conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
-                        bias: torch.Tensor, relu: bool,
-                        normalize: bool) -> torch.Tensor:
+                        bias: torch.Tensor, relu: bool, normalize: bool,
+                        bf16: bool = False) -> torch.Tensor:
     """One MC-CNN tower layer: (V, C_in, H, W) -> (V, F, H, W).
 
     ``F.conv2d`` with one pixel of zero padding (flax ``padding="SAME"``,
     per layer) and ``bias`` (``weight`` is OIHW), then ReLU when ``relu``,
     then each pixel's F-vector divided by sqrt(sum of squares + 1e-12)
     when ``normalize``. On the card cuDNN runs in full float32.
+
+    ``bf16``: the layer as flax computes it with ``compute_dtype``
+    bfloat16 (XLA on a CPU): x and the weights rounded to bfloat16, their
+    products summed in float32, the sum rounded to bfloat16, the bias
+    rounded to bfloat16 added and the result rounded again; then ReLU, or
+    the float32 norm of the rounded values. The output is float32 holding
+    bfloat16 values (but for the norm).
     """
+    if bf16:
+        x, weight = bf16_round(x), bf16_round(weight)
     with _fp32_cudnn() if x.is_cuda else contextlib.nullcontext():
-        y = Fn.conv2d(x, weight, bias, padding=1)
+        y = Fn.conv2d(x, weight, None if bf16 else bias, padding=1)
+    if bf16:
+        y = bf16_round(bf16_round(y) + bf16_round(bias)[:, None, None])
     if relu:
         y = torch.relu(y)
     if normalize:
@@ -1211,17 +1321,21 @@ def mccnn_conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
 
 def mccnn_conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   relu: bool, normalize: bool,
-                  layout: torch.Tensor | None = None) -> torch.Tensor:
+                  layout: torch.Tensor | None = None,
+                  bf16: bool = False) -> torch.Tensor:
     """One MC-CNN tower layer: (V, C_in, H, W) -> (V, F, H, W) (K8).
 
     ``weight`` (F, C_in, 3, 3) and ``bias`` (F,) float32. The kernel reads
-    ``layout``, ``mccnn_weight_layout(weight)``: the taps in the FP32 body
-    that runs C_in = 1, the TF32 hi/lo parts in the 3xTF32 tensor-core
-    body that runs C_in > 1. A caller that runs every frame
+    ``layout``, ``mccnn_weight_layout(weight, bf16)``: the taps in the
+    FP32 body that runs C_in = 1, the packed taps in the tensor-core body
+    that runs C_in > 1 (3xTF32 for float32, one TF32 product of bfloat16
+    operands for ``bf16``). A caller that runs every frame
     (``models/mccnn.py::MCCNNFeatures``) passes the copy it made once;
-    otherwise it is made here. On the card F is at most
-    ``MCCNN_MAX_FEATURES`` (128; a wider layer raises ValueError); the
-    plain layer on the CPU takes any F and needs no layout.
+    otherwise it is made here. ``bf16`` computes what
+    ``mccnn_conv3x3_plain(..., bf16=True)`` does; x and y stay float32.
+    On the card F is at most ``MCCNN_MAX_FEATURES`` (128; a wider layer
+    raises ValueError); the plain layer on the CPU takes any F and needs
+    no layout.
     """
     _check(x, "x", torch.float32, 4)
     _check(weight, "weight", torch.float32, 4)
@@ -1234,18 +1348,18 @@ def mccnn_conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                          "channels and 3x3 taps")
     if layout is not None:
         want = (3, 3, 1, F) if C_in == 1 else \
-            (2, 3, 3, *_mccnn_padded(C_in, F))
+            (1 if bf16 else 2, 3, 3, *_mccnn_padded(C_in, F))
         _check(layout, "layout", torch.float32, len(want))
         if tuple(layout.shape) != want:
             raise ValueError(f"layout {tuple(layout.shape)}: expected {want}")
     if _on_cpu(x, weight, bias, *(() if layout is None else (layout,))):
-        return mccnn_conv3x3_plain(x, weight, bias, relu, normalize)
+        return mccnn_conv3x3_plain(x, weight, bias, relu, normalize, bf16)
     _check_mccnn_features(F)
     if layout is None:
-        layout = mccnn_weight_layout(weight)
+        layout = mccnn_weight_layout(weight, bf16)
     y = torch.empty((V, F, H, W), dtype=torch.float32, device=x.device)
     _launch("mccnn_conv3x3", x.device, _ptr(x), _ptr(layout), _ptr(bias),
-            _ptr(y), V, C_in, F, H, W, int(relu), int(normalize))
+            _ptr(y), V, C_in, F, H, W, int(relu), int(normalize), int(bf16))
     return y
 
 

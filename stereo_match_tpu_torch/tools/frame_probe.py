@@ -11,7 +11,12 @@ with and without LR confidence, each through ``_match_core``, StereoBM
 speckle 100 through ``BlockMatcher``, and the 4-stage census-payload
 ``StreamingPipeline`` on one card. Each frame time is the mean of 10
 frames (12 stream steps after the fill) by CUDA events after 2 warm-up
-frames. Kernels, at KITTI on the headline's volume and total: K2
+frames; MC-CNN fast and accurate also with the towers in bfloat16
+(``compute_dtype``; a tree whose ``MCCNNFeatures`` has none reports
+"not available"). Kernels: K1 ``census_words`` at KITTI (5x5 and 7x9) and
+720p (5x5) on the scenes; K8 ``mccnn_conv3x3`` a layer of each shipped
+tower (C_in = 1 and C_in = F, float32 and bfloat16) on the KITTI scene's
+activations; at KITTI on the headline's volume and total: K2
 ``census_volume`` (float32, int16, transposed, 7x9, and one plane at D = 1
 as ELAS launches it) and K4's ``wta_lr``, ``wta_stats`` and ``right_wta``
 (float32 and int16), and K9 ``mccnn_volume`` on the shipped towers'
@@ -112,11 +117,21 @@ def _probe() -> dict:
     mc_cfg = head.replace(cost="mccnn")
     towers = {arch: from_flax_params(load_default_params(arch), arch).to(dev)
               for arch in ("fast", "accurate")}
+    try:
+        towers16 = {arch: from_flax_params(load_default_params(arch), arch,
+                                           torch.bfloat16).to(dev)
+                    for arch in towers}
+    except TypeError:                  # a tree without compute_dtype
+        towers16 = {}
     out = {}
     for arch, model in towers.items():
-        provider = MCCNNCost(model, mc_cfg)
-        out[f"mccnn {arch}"] = ms(lambda: _match_core(*kitti, mc_cfg,
-                                                      cost_fn=provider), 10)
+        for kind, m in (("", model), (" bf16", towers16.get(arch))):
+            if m is None:
+                out[f"mccnn {arch}{kind}"] = "not available"
+                continue
+            provider = MCCNNCost(m, mc_cfg)
+            out[f"mccnn {arch}{kind}"] = ms(lambda: _match_core(
+                *kitti, mc_cfg, cost_fn=provider), 10)
     with torch.no_grad():
         feats = {(arch, where): towers[arch](torch.stack(
             [normalize_image(im) for im in pair]))
@@ -191,6 +206,27 @@ def _probe() -> dict:
         D = 128 if where == "KITTI" else 160
         kernels[f"mccnn_volume {where} D={D} F={f.shape[1]}"] = \
             lambda f=f, D=D: K.mccnn_volume(f[0], f[1], D)
+    pairs = {"KITTI": torch.stack(kitti).contiguous(),
+             "720p": torch.stack(p720).contiguous()}
+    for where, window in (("KITTI", (5, 5)), ("KITTI", (7, 9)),
+                          ("720p", (5, 5))):
+        kernels[f"census_words {where} {window[0]}x{window[1]}"] = \
+            lambda im=pairs[where], w=window: K.census_words(im, w)
+    norm = torch.stack([normalize_image(im) for im in kitti])[:, None]
+    for arch, model in towers.items():
+        for kind, m in (("", model), (" bf16", towers16.get(arch))):
+            if m is None:
+                continue
+            bf16 = {"bf16": True} if kind else {}
+            h = norm
+            for i in range(2):              # C_in = 1, then C_in = F
+                args = (h, m.weights[i], m.biases[i], True, False)
+                layout = getattr(m, f"layout{i}")
+                name = (f"mccnn_conv3x3{kind} {arch} F={m.features} "
+                        f"{'C_in=1' if i == 0 else 'C_in=F'}")
+                kernels[name] = lambda a=args, lo=layout, kw=bf16: \
+                    K.mccnn_conv3x3(*a, layout=lo, **kw)
+                h = K.mccnn_conv3x3(*args, layout=layout, **bf16)
     kernel_ms = {name: graph_ms(fn) for name, fn in kernels.items()}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

@@ -29,7 +29,14 @@ transposed K2, K3's carries, K4's wta_stats, right_wta and lr_mask entries
 and K10 (census-fused scan) are integer or K3-ordered float arithmetic and
 must be bit-equal; so must the row-sharded exact total and the 4-stage
 stream on one card against the single-card path, K1 and K2 on 2, 3 and 4
-census words and K4's lr_mask at fractional tolerances. The sad, ssd and
+census words and K4's lr_mask at fractional tolerances. K1 (a staged tile,
+4 pixels a lane) is bit-equal at the frame's edges too: one pixel, one
+row, odd widths (every store alignment), windows of one row or column and
+of up to 8 words, NaN pixels. K8's bfloat16 mode sums in another order
+than its plain bfloat16 layer: without the norm at least 99.9 % of the
+outputs are bit-equal, each within one bfloat16 ulp of the sum plus one of
+the result; the shipped towers in bfloat16 within 1e-2 of their plain
+towers. The sad, ssd and
 bt volumes, StereoBM's sums and ELAS's dense stage are plain torch on both
 devices, whose float32 cumulative sums may round apart, so those matchers
 must agree with their CPU run on at least 99.5 % of the pixels.
@@ -47,6 +54,7 @@ from stereo_match_tpu_torch.data.synthetic import random_dot_pair, slanted_scene
 from stereo_match_tpu_torch.models.mccnn import (MCCNNFeatures,
                                                  from_flax_params,
                                                  load_default_params,
+                                                 mccnn_cost_volume,
                                                  normalize_image)
 from stereo_match_tpu_torch.ops import cuda_kernels as K
 from stereo_match_tpu_torch.ops import wls
@@ -92,6 +100,42 @@ def test_census_words_kernel(dev, H, W, window):
     torch.cuda.synchronize()
     assert got.is_cuda and got.dtype == torch.int32
     assert torch.equal(got, K.census_words_plain(imgs, window))
+
+
+@pytest.mark.parametrize("H,W,window", [
+    (1, 1, (1, 3)), (1, 2, (3, 1)), (1, 1243, (5, 5)), (5, 1241, (5, 5)),
+    (6, 1243, (7, 9)), (3, 1242, (7, 9)), (20, 257, (3, 11)),
+    (*KITTI, (3, 11)), (37, 150, (9, 9)), (20, 257, (15, 15)),
+    (10, 150, (3, 17)), (5, 70, (1, 33)), (9, 1243, (15, 17)),
+    (7, 3, (5, 5))])
+def test_census_words_kernel_edges(dev, H, W, window):
+    """K1's staged tile at the frame's edges: one pixel, one row, widths
+    one off the 128-column tile, odd widths (rows at every 16-byte
+    alignment, so 16-, 8- and 4-byte stores and scalar row ends), windows
+    of one row or one column, of 33 pixels (bit 31 set), of 3, 7 and 8
+    words and wider than a 16-column pass; small integer levels (equal
+    neighbours) and NaN pixels. One launch, bit-equal."""
+    rng = np.random.default_rng(H + W)
+    imgs = rng.integers(0, 8, (2, H, W)).astype(np.float32)
+    imgs[rng.random((2, H, W)) < 0.02] = np.nan
+    imgs = torch.from_numpy(imgs).to(dev)
+    K.reset_launches()
+    got = K.census_words(imgs, window)
+    assert K.launches["census_words"] == 1
+    want = K.census_words_plain(imgs, window)
+    torch.cuda.synchronize()
+    assert got.shape == (2, K.n_census_words(window), H, W)
+    assert torch.equal(got, want)
+
+
+def test_census_words_kernel_rejects_a_window_past_shared_memory(dev):
+    imgs = _images(8, 40, dev)
+    K.reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        K.census_words(imgs, (177, 177))
+    assert K.launches["census_words"] == 0
+    got = K.census_words(imgs, (175, 3))
+    assert torch.equal(got, K.census_words_plain(imgs, (175, 3)))
 
 
 @pytest.mark.parametrize("H,W,D,min_d", [(36, 150, 64, 0), (24, 160, 128, 4),
@@ -521,6 +565,121 @@ def test_mccnn_conv3x3_kernel(dev, F, first, relu, normalize, H, W):
     torch.cuda.synchronize()
     assert got.shape == (2, F, H, W)
     assert float((got - want).abs().max()) <= 1e-5
+
+
+def _bf16_ulp(v):
+    """The spacing of bfloat16 values at |v| (0 at 0)."""
+    _, e = torch.frexp(v.abs())
+    return torch.where(v == 0, torch.zeros_like(v),
+                       torch.ldexp(torch.ones_like(v), e - 8))
+
+
+@pytest.mark.parametrize("H,W", [(33, 131), (19, 1243)])
+@pytest.mark.parametrize("relu,normalize", [(True, False), (False, True),
+                                            (False, False)])
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("F", [7, 64, 112, 128])
+def test_mccnn_conv3x3_bf16_kernel(dev, F, first, relu, normalize, H, W):
+    """K8's bfloat16 mode against the plain bfloat16 layer (cuDNN in full
+    float32 on the rounded operands) on the same input, which is not
+    bfloat16-exact, so both round it. Only the order of the float32 sums
+    differs, which flips a rounding where a sum lies on a boundary: without
+    the norm at least 99.9 % of the outputs are bit-equal and each is
+    within one bfloat16 ulp of the sum before the bias plus one of the
+    result (a flip of the sum survives a bias that cancels it); with the
+    norm, each pixel's sum of squares is added in another order too, so no
+    bit-equality, and each output is within those ulps over the pixel's
+    norm plus 1e-6."""
+    rng = np.random.default_rng(F + H + 7)
+    C_in = 1 if first else F
+    x = rng.normal(size=(2, C_in, H, W)).astype(np.float32)
+    w = (rng.normal(size=(F, C_in, 3, 3)) / np.sqrt(9 * C_in)).astype(
+        np.float32)
+    b = rng.normal(0, 0.1, F).astype(np.float32)
+    x, w, b = (torch.from_numpy(a).to(dev) for a in (x, w, b))
+    K.reset_launches()
+    got = K.mccnn_conv3x3(x, w, b, relu, normalize, bf16=True)
+    assert K.launches["mccnn_conv3x3"] == 1
+    want = K.mccnn_conv3x3_plain(x, w, b, relu, normalize, bf16=True)
+    with K._fp32_cudnn():
+        pre = torch.nn.functional.conv2d(K.bf16_round(x), K.bf16_round(w),
+                                         padding=1)
+    raw = K.mccnn_conv3x3_plain(x, w, b, False, False, bf16=True)
+    torch.cuda.synchronize()
+    assert got.shape == (2, F, H, W)
+    tol = _bf16_ulp(pre) + _bf16_ulp(raw)
+    diff = (got - want).abs()
+    if normalize:
+        norm = torch.sqrt((raw * raw).sum(1, keepdim=True) + 1e-12)
+        assert bool((diff <= tol / norm + 1e-6).all())
+    else:
+        assert float((got == want).float().mean()) >= 0.999
+        assert bool((diff <= tol).all())
+    f32 = K.mccnn_conv3x3_plain(x, w, b, relu, normalize)
+    assert not torch.equal(want, f32)      # the mode did round
+
+
+@pytest.mark.parametrize("arch", ["fast", "accurate"])
+def test_mccnn_bf16_tower_on_card_matches_plain(dev, arch):
+    """The shipped towers with compute_dtype bfloat16: K8's bfloat16 mode a
+    layer against the plain bfloat16 layers, within JAX's bfloat16
+    contract of 1e-2 on the unit features; one K8 launch a layer."""
+    model = from_flax_params(load_default_params(arch), arch,
+                             torch.bfloat16).to(dev)
+    gt = slanted_scene(64, 257, 4.0, 40.0)
+    left, right = random_dot_pair(64, 257, gt, blur=1.0, seed=12)
+    imgs = torch.stack([normalize_image(torch.from_numpy(im).to(dev))
+                        for im in (left, right)])
+    K.reset_launches()
+    got = model(imgs)
+    assert K.launches["mccnn_conv3x3"] == model.num_layers
+    h = imgs[:, None]
+    for i in range(model.num_layers):
+        last = i == model.num_layers - 1
+        h = K.mccnn_conv3x3_plain(h, model.weights[i], model.biases[i],
+                                  not last, last, bf16=True)
+    torch.cuda.synchronize()
+    err = float((got - h).abs().max())
+    print(f"MC-CNN {arch} bfloat16 tower on the card: max |kernel - plain| "
+          f"= {err}")
+    assert err <= 1e-2
+
+
+def test_mccnn_use_bf16_twin_on_card(dev):
+    """``use_bf16=True`` on a float32 model runs its ``bf16_twin`` on K8's
+    bfloat16 mode: the bfloat16 model's volume bit for bit, one K8 launch a
+    layer; the twin is made once, and anew after the model moves device."""
+    params = load_default_params("fast")
+    model = from_flax_params(params, "fast")
+    cpu_twin = model.bf16_twin()
+    model.to(dev)
+    model16 = from_flax_params(params, "fast", torch.bfloat16).to(dev)
+    gt = slanted_scene(40, 203, 4.0, 30.0)
+    left, right = (torch.from_numpy(im).to(dev)
+                   for im in random_dot_pair(40, 203, gt, blur=1.0, seed=4))
+    want = mccnn_cost_volume(model16, left, right, 48)
+    K.reset_launches()
+    got = mccnn_cost_volume(model, left, right, 48, use_bf16=True)
+    torch.cuda.synchronize()
+    assert K.launches["mccnn_conv3x3"] == model.num_layers
+    assert torch.equal(got, want)
+    twin = model.bf16_twin()
+    assert twin is not cpu_twin and twin.layout1.device == want.device
+    assert model.bf16_twin() is twin
+
+
+def test_mccnn_bf16_card_limit(dev):
+    """F > 128 raises in the bfloat16 mode too, before any launch."""
+    K.reset_launches()
+    x = torch.zeros(2, 130, 6, 9, device=dev)
+    with pytest.raises(ValueError, match="128"):
+        K.mccnn_conv3x3(x, torch.zeros(130, 130, 3, 3, device=dev),
+                        torch.zeros(130, device=dev), True, False, bf16=True)
+    wide = MCCNNFeatures(features=160, num_layers=2,
+                         compute_dtype=torch.bfloat16).to(dev)
+    with pytest.raises(ValueError, match="128"):
+        wide(torch.zeros(2, 6, 9, device=dev))
+    assert sum(K.launches.values()) == 0
 
 
 @pytest.mark.parametrize("F,H,W,D,min_d,norm", [

@@ -374,8 +374,12 @@ def test_mccnn_path_raises_outside_the_slice(shipped):
     model = shipped["fast"][2]
     cfg = DisparityConfig(num_disparities=16, cost="mccnn", **HEADLINE)
     left, right = (torch.from_numpy(im) for im in _images(10, 40, seed=9))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmccnn.mccnn_cost_volume(model, left, right, 16, use_bf16=True)
+    # bfloat16 is computed (tests/test_torch_mccnn_bf16.py holds it to JAX)
+    bf16 = tmccnn.mccnn_cost_volume(model, left, right, 16, use_bf16=True)
+    assert bf16.shape == (16, 10, 40) and bf16.dtype == torch.float32
+    assert bool(torch.isfinite(bf16).all())
+    assert not torch.equal(bf16, tmccnn.mccnn_cost_volume(model, left, right,
+                                                          16))
     with pytest.raises(ValueError, match="does not support"):
         tmccnn.mccnn_cost_volume(model, left, right, 16, min_disparity=-2)
     with pytest.raises(ValueError, match="unknown cost family: mccnn"):
