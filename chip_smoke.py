@@ -128,6 +128,23 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    ``_match_core`` on at least 99.9 % of the pixels (P1 = 62/3 is
    fractional, so the total depends on the order of the paths and a
    near-tie may flip).
+4g. monodepth and the ``smt-torch`` CLI: the shipped small checkpoint and
+   the full arch (weights from a seeded ``torch.Generator``) on 375x1242
+   ray-traced frames (seeds 904, 905) through the 96x160 protocol and
+   natively (padded to 384x1248): the card's map within MONO_TOL of a
+   width fraction of the port's CPU path on the same weights, also with
+   TF32 allowed globally around the call (the net scopes it off; the error
+   without that scope is printed), no port kernel launched; on the shipped
+   checkpoint through 96x160 the affine-calibrated EPE at most MONO_BAR
+   times the constant predictor's, printed beside the JAX package's CPU
+   figures; ms a frame (CUDA events) and peak memory at both sizes. Then
+   ``main([...])`` in-process on KITTI-size PNGs of the seed-1 scene:
+   ``match`` (census, ``--write_ply``), ``match --method mccnn``, ``mono``,
+   ``reproject``, ``costbin`` and ``stream --stages 1``, each exiting 0
+   with its files written and its wall ms printed; the ``.npy`` maps
+   bit-equal to the direct call on the card (``StereoMatcher``,
+   ``predict_disparity``, ``external_volume_to_disparity``), ``match``'s
+   with the same launch counts.
 5. timing with CUDA events after a warm-up: frames/s of the main path with
    the kernels and with the plain versions at KITTI shape, and with the
    kernels at 720p; each kernel's time beside its plain version's and its
@@ -228,6 +245,19 @@ JAX_CPU = {"mccnn fast": (0.0013987, 0.99550),
            "mccnn fast noise=25": (0.0018325, 0.97948),
            "census": (0.0012966, 0.99447),
            "census noise=25": (0.0039023, 0.73009)}
+# Monodepth (phase 4g): the card's map against the port's CPU path on the
+# same weights within MONO_TOL of a width fraction; on the shipped
+# checkpoint through the 96x160 protocol the affine-calibrated EPE at most
+# MONO_BAR times the constant predictor's (tests/test_monodepth.py:86-107).
+# The JAX package's figures on a CPU, 375x1242 ray-traced frames:
+# (seed, protocol) -> (calibrated EPE, constant predictor's EPE)
+MONO_SEEDS = (904, 905)
+MONO_TOL = 1e-5
+MONO_BAR = 0.5
+JAX_MONO = {(904, "96x160"): (7.100965996639127, 19.97925567626953),
+            (905, "96x160"): (5.115472226638081, 18.470230102539062),
+            (904, "native"): (18.39172597540874, 19.97925567626953),
+            (905, "native"): (17.221547675555577, 18.470230102539062)}
 SPECKLE = dict(T=100, range=2)
 WIDE = (7, 9)      # a census window of 62 bits: two words
 LR_TOLS = (1.5, 2.0)   # fractional disp12 tolerances; 2.0 is ELAS's lr_tol
@@ -333,6 +363,230 @@ def graph_ms(fn, n: int) -> float:
         for _ in range(n):
             fn()
     return cuda_ms(graph.replay, 5) / n
+
+
+def calibrated_epe(pred: np.ndarray, gt: np.ndarray) -> tuple[float, float]:
+    """(EPE after a least-squares affine fit of pred to gt, the constant
+    predictor's EPE), over the pixels with a ground truth."""
+    m = np.isfinite(gt)
+    a, b = np.polyfit(pred[m], gt[m], 1)
+    return (float(np.mean(np.abs(a * pred[m] + b - gt[m]))),
+            float(np.mean(np.abs(np.median(gt[m]) - gt[m]))))
+
+
+def phase_4g(dev: torch.device, card: str, scene_pair) -> None:
+    """4g. monodepth on the card (the shipped small checkpoint and a seeded
+    full arch on 375x1242 ray-traced frames), then smt-torch's subcommands
+    in-process on KITTI-size PNGs of ``scene_pair`` (left, right float
+    images)."""
+    from stereo_match_tpu_torch.cli.main import main as smt_main
+    from stereo_match_tpu_torch.config import load_settings
+    from stereo_match_tpu_torch.costs import MCCNNCost, census_cost
+    from stereo_match_tpu_torch.data.costbin import (
+        external_volume_to_disparity, write_cost_bin)
+    from stereo_match_tpu_torch.data.image import (image_read, image_save,
+                                                   to_grayscale)
+    from stereo_match_tpu_torch.data.ply import read_ply
+    from stereo_match_tpu_torch.data.raytrace import render_stereo
+    from stereo_match_tpu_torch.models import mccnn
+    from stereo_match_tpu_torch.models import monodepth as md
+    from stereo_match_tpu_torch.ops import cuda_kernels as K
+    from stereo_match_tpu_torch.pipeline.stereo import StereoMatcher
+
+    H, W = KITTI["H"], KITTI["W"]
+    models = {"small (shipped)": (md.load_default(device="cpu"),
+                                  md.load_default(device=dev)),
+              "full (seeded)": (md.make_model("full", seed=7),
+                                md.make_model("full", seed=7).to(dev))}
+    frames = {}
+    for s in MONO_SEEDS:
+        l, _, gt = render_stereo(H, W, seed=s)
+        frames[s] = (np.repeat(l[..., None], 3, -1), gt)
+    protocols = {"96x160": (96, 160), "native": None}
+
+    def set_tf32(cudnn: bool, matmul: bool) -> None:
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+
+    tf32_was = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+    for arch, (cpu_model, card_model) in models.items():
+        for s, (img, gt) in frames.items():
+            for proto, internal in protocols.items():
+                what = f"monodepth {arch}, seed {s}, {proto}"
+                K.reset_launches()
+                d = md.predict_disparity(card_model, img, internal)
+                torch.cuda.synchronize()
+                check(not any(K.launches.values()), f"{what}: launches none "
+                      f"of the port's kernels ({dict(K.launches)})")
+                check(d.device == dev and d.shape == (H, W)
+                      and bool(torch.isfinite(d).all()),
+                      f"{what}: a finite (H, W) map on the card")
+                ref = md.predict_disparity(cpu_model, img, internal).numpy()
+                err = float(np.abs(d.cpu().numpy() - ref).max()) / W
+                check(err <= MONO_TOL, f"{what}: {err} width fractions "
+                      f"off the CPU path (> {MONO_TOL})")
+                try:
+                    set_tf32(True, True)
+                    d32 = md.predict_disparity(card_model, img, internal)
+                    scope = md.fp32_cudnn
+                    md.fp32_cudnn = contextlib.nullcontext
+                    try:
+                        unscoped = md.predict_disparity(card_model, img,
+                                                        internal)
+                    finally:
+                        md.fp32_cudnn = scope
+                finally:
+                    set_tf32(*tf32_was)
+                err32 = float(np.abs(d32.cpu().numpy() - ref).max()) / W
+                check(err32 <= MONO_TOL, f"{what} with TF32 allowed "
+                      f"globally: {err32} width fractions off the CPU path")
+                err_tf32 = float(np.abs(unscoped.cpu().numpy() - ref).max()
+                                 ) / W
+                line = (f"[4g] {what}: max |card - CPU| {err} width "
+                        f"fractions ({err * W} px); with TF32 allowed "
+                        f"globally {err32} (bit-equal to the first: "
+                        f"{torch.equal(d32, d)}); the same net with TF32 "
+                        f"not scoped off: {err_tf32}")
+                if arch.startswith("small"):
+                    epe, const = calibrated_epe(d.cpu().numpy(), gt)
+                    jepe, jconst = JAX_MONO[s, proto]
+                    line += (f"; calibrated EPE {epe} px against the "
+                             f"constant's {const} ({epe / const} of it); "
+                             f"JAX on a CPU {jepe} against {jconst}")
+                    if proto == "96x160":
+                        check(epe <= MONO_BAR * const,
+                              f"{what}: calibrated EPE {epe} > {MONO_BAR} "
+                              f"x the constant's {const}")
+                print(line + f" ({card})")
+        for proto, internal in protocols.items():
+            img_t = torch.from_numpy(frames[MONO_SEEDS[0]][0]).to(dev)
+            t = cuda_ms(lambda: md.predict_disparity(card_model, img_t,
+                                                     internal), 20, 2)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+            md.predict_disparity(card_model, img_t, internal)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) - before
+            print(f"[4g] monodepth {arch} {W}x{H} through {proto}: {t} "
+                  f"ms/frame = {1000.0 / t} frames/s (CUDA events, 20 "
+                  f"frames); peak device memory of a frame {peak} B "
+                  f"({card})")
+
+    cfg = load_settings(None, {"num_disparities": KITTI["D"]})
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        lp, rp = str(tmp / "left.png"), str(tmp / "right.png")
+        image_save(lp, scene_pair[0].astype(np.uint8))
+        image_save(rp, scene_pair[1].astype(np.uint8))
+        gray = [torch.from_numpy(to_grayscale(image_read(p)).astype(
+            np.float32)).to(dev) for p in (lp, rp)]
+
+        def smt(name: str, argv: list, outputs: list) -> dict:
+            K.reset_launches()
+            t0 = time.perf_counter()
+            rc = smt_main(argv + ["--device", str(dev)])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counts = dict(K.launches)
+            check(rc == 0, f"smt-torch {name}: exit code {rc}")
+            for out in outputs:
+                check(os.path.getsize(out) > 0, f"smt-torch {name}: {out}")
+            print(f"[4g] smt-torch {name} ({W}x{H}): exit 0, {wall} ms "
+                  f"wall, launches {({k: v for k, v in counts.items() if v})}"
+                  f" ({card})")
+            return counts
+
+        def direct(matcher) -> tuple[dict, np.ndarray, np.ndarray]:
+            K.reset_launches()
+            raw, filtered = matcher(*gray)
+            torch.cuda.synchronize()
+            return (dict(K.launches), raw.cpu().numpy(),
+                    filtered.cpu().numpy())
+
+        def same(npy: str, want: np.ndarray, what: str) -> None:
+            check(np.array_equal(np.load(npy), want, equal_nan=True),
+                  f"smt-torch {what}: its .npy is not bit-equal to the "
+                  f"direct call's map")
+
+        out = str(tmp / "census.png")
+        counts = smt("match", ["match", "--left", lp, "--right", rp,
+                               "--num_disparities", str(KITTI["D"]),
+                               "--disp_out", out, "--write_ply",
+                               "--ply_out", str(tmp / "census.ply")],
+                     [out, out + ".npy", str(tmp / "census.ply")])
+        want_counts, raw, filtered = direct(StereoMatcher(cfg, device=dev))
+        same(out + ".npy", filtered, "match")
+        check(counts == want_counts, f"smt-torch match launches {counts} != "
+              f"StereoMatcher's {want_counts}")
+        n_pts = len(read_ply(str(tmp / "census.ply"))[0])
+        check(n_pts == int(np.isfinite(raw).sum()),
+              f"smt-torch match: {n_pts} PLY points")
+
+        out = str(tmp / "mccnn.png")
+        counts = smt("match --method mccnn",
+                     ["match", "--left", lp, "--right", rp,
+                      "--num_disparities", str(KITTI["D"]), "--method",
+                      "mccnn", "--disp_out", out], [out, out + ".npy"])
+        mc_cfg = cfg.replace(cost="mccnn")
+        model = mccnn.from_flax_params(mccnn.load_default_params("fast"),
+                                       "fast").to(dev)
+        want_counts, _, mc_filtered = direct(StereoMatcher(
+            mc_cfg, cost_fn=MCCNNCost(model, mc_cfg), device=dev))
+        same(out + ".npy", mc_filtered, "match --method mccnn")
+        check(counts == want_counts, f"smt-torch match --method mccnn "
+              f"launches {counts} != StereoMatcher's {want_counts}")
+
+        out = str(tmp / "mono.png")
+        counts = smt("mono", ["mono", lp, "--output", out],
+                     [out, out + ".npy"])
+        check(not any(counts.values()), "smt-torch mono: no port kernel")
+        same(out + ".npy", md.predict_disparity(
+            models["small (shipped)"][1], image_read(lp)).cpu().numpy(),
+            "mono")
+
+        disp8 = str(tmp / "disp8.png")
+        d8 = np.clip(np.nan_to_num(filtered), 0, 255).astype(np.uint8)
+        image_save(disp8, d8)
+        smt("reproject", ["reproject", disp8, "--color", lp, "--output",
+                          str(tmp / "reproject.ply"), "--min_value", "1"],
+            [str(tmp / "reproject.ply")])
+        n_pts = len(read_ply(str(tmp / "reproject.ply"))[0])
+        check(n_pts == int((d8 > 1).sum()), f"smt-torch reproject: {n_pts} "
+              "PLY points")
+
+        vol = census_cost(gray[0], gray[1], cfg).cpu().numpy()
+        write_cost_bin(str(tmp / "left.bin"), vol)
+        out = str(tmp / "costbin.png")
+        smt("costbin", ["costbin", str(tmp / "left.bin"), "--disp-max",
+                        str(KITTI["D"]), "--width", str(W), "--height",
+                        str(H), "--left", lp, "--disp-out", out, "--ply-out",
+                        str(tmp / "costbin.ply")],
+            [out, out + ".npy", str(tmp / "costbin.ply")])
+        same(out + ".npy", external_volume_to_disparity(
+            vol, guide=gray[0], lmbda=80000.0, sigma=1.2, device=dev),
+            "costbin")
+        del vol
+
+        for i in range(3):    # a frame sequence: the pair, shifted
+            for side, p in (("l", lp), ("r", rp)):
+                image_save(str(tmp / f"{side}_{i}.png"),
+                           np.roll(image_read(p), 7 * i, axis=1))
+        out_dir = tmp / "stream"
+        smt("stream --stages 1", ["stream", "--left-glob",
+                                  str(tmp / "l_*.png"), "--right-glob",
+                                  str(tmp / "r_*.png"), "--out-dir",
+                                  str(out_dir), "--stages", "1",
+                                  "--num_disparities", str(KITTI["D"])],
+            [str(out_dir / f"disp_{i:04d}.npy") for i in range(3)])
+        matcher = StereoMatcher(cfg, device=dev)
+        for i in range(3):
+            frame = [torch.from_numpy(to_grayscale(image_read(str(
+                tmp / f"{side}_{i}.png"))).astype(np.float32)).to(dev)
+                for side in "lr"]
+            same(str(out_dir / f"disp_{i:04d}.npy"),
+                 matcher(*frame)[1].cpu().numpy(), f"stream frame {i}")
 
 
 def main() -> int:
@@ -487,7 +741,7 @@ def main() -> int:
         x, w, b, _, normalize = args
         y = K.mccnn_conv3x3(*args, layout=layout, bf16=True)
         y_ref = K.mccnn_conv3x3_plain(*args, bf16=True)
-        with K._fp32_cudnn():
+        with K.fp32_cudnn():
             pre = torch.nn.functional.conv2d(K.bf16_round(x),
                                              K.bf16_round(w), padding=1)
         raw = K.mccnn_conv3x3_plain(x, w, b, False, False, bf16=True)
@@ -1449,6 +1703,9 @@ def main() -> int:
           f"({card})")
     del outs, pipe, vol79, total79, ref79
 
+    # 4g. monodepth on the card, then smt-torch's subcommands in-process
+    phase_4g(dev, card, (left_np, right_np))
+
     # 5. timing (CUDA events, after a warm-up)
     # K1 takes less time than the host's call: its `ms` is the events' mean
     # over 50 back-to-back calls, as every other row's, which the host
@@ -1864,7 +2121,7 @@ def main() -> int:
 
     # the MC-CNN paths, K8 per layer and K9 (KITTI shape)
     def conv_cudnn(x, w, b):
-        with K._fp32_cudnn():
+        with K.fp32_cudnn():
             return torch.nn.functional.conv2d(x, w, b, padding=1)
 
     k8_layer = {}    # (arch, kind) -> (kernel, plain, library, bound) ms

@@ -1,12 +1,14 @@
 """PLY point-cloud I/O (numpy).
 
-The same code as ``write_ply`` / ``read_ply`` in
-``stereo_match_tpu/data/ply.py``, whose package imports JAX: capability
-parity with the reference ASCII writer (``io_functions.py:15-44``), plus a
-binary little-endian variant.
+The same code as ``stereo_match_tpu/data/ply.py``, whose package imports
+JAX: capability parity with the reference ASCII writer
+(``io_functions.py:15-44``), plus a binary little-endian variant, the mesh
+writer and the transform file.
 """
 
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 
@@ -92,3 +94,38 @@ def read_ply(path: str) -> tuple[np.ndarray, np.ndarray]:
             rec = np.fromfile(f, dtype=[("xyz", "<f4", 3), ("rgb", "u1", 3)], count=n)
             return rec["xyz"].copy(), rec["rgb"].copy()
         raise ValueError(f"unsupported PLY format: {fmt}")
+
+
+def write_mesh_ply(path: str, vertices: np.ndarray, faces: np.ndarray,
+                   colors: np.ndarray | None = None) -> None:
+    """Write a triangle mesh (capability parity with ``hf.mesh_to_ply``,
+    used at ``mapTo3D.py:159``)."""
+    verts = np.asarray(vertices, np.float32).reshape(-1, 3)
+    faces = np.asarray(faces, np.int32).reshape(-1, 3)
+    has_color = colors is not None
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n")
+        f.write(f"element vertex {len(verts)}\n")
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        if has_color:
+            cols = np.clip(np.asarray(colors).reshape(-1, 3), 0, 255).astype(np.uint8)
+            f.write("property uchar red\nproperty uchar green\nproperty uchar blue\n")
+        f.write(f"element face {len(faces)}\n")
+        f.write("property list uchar int vertex_indices\nend_header\n")
+        for i, v in enumerate(verts):
+            if has_color:
+                f.write(f"{v[0]:f} {v[1]:f} {v[2]:f} {cols[i][0]} {cols[i][1]} {cols[i][2]}\n")
+            else:
+                f.write(f"{v[0]:f} {v[1]:f} {v[2]:f}\n")
+        for face in faces:
+            f.write(f"3 {face[0]} {face[1]} {face[2]}\n")
+
+
+def write_transform(path: str, transform: np.ndarray) -> None:
+    """Persist a 4x4 transform (parity: ``io_functions.py:111-120``)."""
+    np.savez(path, transform=np.asarray(transform))
+
+
+def struct_size() -> int:
+    """Bytes per binary vertex record (x,y,z f32 + r,g,b u8)."""
+    return struct.calcsize("<fffBBB")

@@ -1192,7 +1192,7 @@ MCCNN_MAX_FEATURES = 128
 
 
 @contextlib.contextmanager
-def _fp32_cudnn():
+def fp32_cudnn():
     """cuDNN in full float32: its float32 convolutions default to TF32.
 
     ``cudnn.flags`` defaults to ``enabled=False``, which would turn cuDNN
@@ -1308,7 +1308,7 @@ def mccnn_conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
     """
     if bf16:
         x, weight = bf16_round(x), bf16_round(weight)
-    with _fp32_cudnn() if x.is_cuda else contextlib.nullcontext():
+    with fp32_cudnn() if x.is_cuda else contextlib.nullcontext():
         y = Fn.conv2d(x, weight, None if bf16 else bias, padding=1)
     if bf16:
         y = bf16_round(bf16_round(y) + bf16_round(bias)[:, None, None])

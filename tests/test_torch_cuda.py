@@ -601,7 +601,7 @@ def test_mccnn_conv3x3_bf16_kernel(dev, F, first, relu, normalize, H, W):
     got = K.mccnn_conv3x3(x, w, b, relu, normalize, bf16=True)
     assert K.launches["mccnn_conv3x3"] == 1
     want = K.mccnn_conv3x3_plain(x, w, b, relu, normalize, bf16=True)
-    with K._fp32_cudnn():
+    with K.fp32_cudnn():
         pre = torch.nn.functional.conv2d(K.bf16_round(x), K.bf16_round(w),
                                          padding=1)
     raw = K.mccnn_conv3x3_plain(x, w, b, False, False, bf16=True)

@@ -181,8 +181,9 @@ def test_default_config_and_bm_raise():
 
 def test_port_imports_no_jax():
     """Every submodule of the port, then the census, MC-CNN (random
-    weights), BT, BM, ELAS and flagship paths on the CPU: neither JAX nor
-    any module of the JAX package gets loaded."""
+    weights), BT, BM, ELAS, flagship and monodepth (shipped weights) paths
+    on the CPU: neither JAX nor any module of the JAX package gets
+    loaded."""
     code = (
         "import importlib, pkgutil, sys, numpy as np\n"
         "import stereo_match_tpu_torch as pkg\n"
@@ -198,7 +199,18 @@ def test_port_imports_no_jax():
         "'stereo_match_tpu_torch.pipeline.block_matching', "
         "'stereo_match_tpu_torch.pipeline.elas', "
         "'stereo_match_tpu_torch.ops.filters', "
-        "'stereo_match_tpu_torch.native'}\n"
+        "'stereo_match_tpu_torch.native', "
+        "'stereo_match_tpu_torch.models.monodepth', "
+        "'stereo_match_tpu_torch.cli.main', "
+        "'stereo_match_tpu_torch.data.raytrace', "
+        "'stereo_match_tpu_torch.data.kitti', "
+        "'stereo_match_tpu_torch.data.middlebury', "
+        "'stereo_match_tpu_torch.data.arkit', "
+        "'stereo_match_tpu_torch.pipeline.artifacts', "
+        "'stereo_match_tpu_torch.eval.parity', "
+        "'stereo_match_tpu_torch.utils.handy', "
+        "'stereo_match_tpu_torch.utils.profiling', "
+        "'stereo_match_tpu_torch.viz.plots'}\n"
         "assert need <= set(names), need - set(names)\n"
         "from stereo_match_tpu_torch.config import DisparityConfig\n"
         "from stereo_match_tpu_torch.costs import MCCNNCost\n"
@@ -232,6 +244,12 @@ def test_port_imports_no_jax():
         "K = np.array([[50.0, 0, 88], [0, 50.0, 6], [0, 0, 1]])\n"
         "res = run_pipeline(np.eye(4), pose_r, K, K, l, r, device='cpu')\n"
         "assert res.points.shape == (12, 176, 3)\n"
+        "from stereo_match_tpu_torch.data.raytrace import render_stereo\n"
+        "from stereo_match_tpu_torch.models import monodepth\n"
+        "img, _, _ = render_stereo(24, 40, seed=1)\n"
+        "model = monodepth.load_default(device='cpu')\n"
+        "d = monodepth.predict_disparity(model, np.stack([img] * 3, -1))\n"
+        "assert d.shape == (24, 40) and d.isfinite().all()\n"
         "assert 'jax' not in sys.modules, 'the port imported jax'\n"
         "ref = [m for m in sys.modules if m == 'stereo_match_tpu' or "
         "m.startswith('stereo_match_tpu.')]\n"
@@ -249,12 +267,14 @@ def test_port_imports_no_jax():
                                    "rectification_maps",
                                    "external_volume_to_disparity",
                                    "BlockMatcher", "block_match",
-                                   "compute_disparity_bm", "elas_match"])
+                                   "compute_disparity_bm", "elas_match",
+                                   "monodepth_load_default"])
 def test_entry_points_default_to_the_card(entry):
     """Called without a device, each entry point asks for the card and,
     without one, raises instead of running on the CPU."""
     from stereo_match_tpu_torch.core import rectify as trectify
     from stereo_match_tpu_torch.data import costbin as tcostbin
+    from stereo_match_tpu_torch.models import monodepth as tmonodepth
     from stereo_match_tpu_torch.pipeline import block_matching as tbm
     from stereo_match_tpu_torch.pipeline import elas as telas
     if torch.cuda.is_available():
@@ -280,6 +300,7 @@ def test_entry_points_default_to_the_card(entry):
         "compute_disparity_bm": lambda: tstereo.compute_disparity(
             img, img, method="BM"),
         "elas_match": lambda: telas.elas_match(img, img, 16),
+        "monodepth_load_default": lambda: tmonodepth.load_default(),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
