@@ -145,6 +145,35 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    bit-equal to the direct call on the card (``StereoMatcher``,
    ``predict_disparity``, ``external_volume_to_disparity``), ``match``'s
    with the same launch counts.
+4h. training on the card (no kernel in the train step: ``F.conv2d`` under
+   autograd and optax's Adam, as flax is XLA under ``jax.value_and_grad``):
+   the MC-CNN fast and accurate towers at ``tools/train_mccnn.py``'s
+   width (512 triplets of 16x16 patches, lr 2e-3) and the monodepth
+   small and full nets at ``tools/train_monodepth.py``'s (batch 16 at
+   96x160, lr 3e-4 cosine), card against CPU from the same weights and
+   batches: the first loss within TRAIN_RTOL, gradients within
+   TRAIN_GRAD_RTOL of their norm (MC-CNN on the card's branch: the CPU
+   takes the card's ReLU and hinge signs), a TF32 backward as the control
+   that must miss it; Adam on the same gradients within TRAIN_ADAM_TOL;
+   3 trainer steps' losses and weights' move within per-model bars, a
+   learning rate TRAIN_LR_FAULT off as the control that must miss one;
+   then ms a step (CUDA events, 20 steps after 3), the host's time to
+   issue a step, patches or images a second, the FP32 bound of the MC-CNN
+   step and peak memory;
+   the port's MC-CNN recipe end to end (fast, 27 scenes, 8 epochs): K8 on
+   the trained weights within K8_TOL of the F.conv2d chain (or against
+   float64 at most K8_F64_RATIO times cuDNN's error) and far from the
+   initial weights' tower, ``tests/test_mccnn.py:153-185``'s held-out bars
+   (clean within 0.03 of census; noise 25 below census and 0.25) through
+   K8 -> K9 -> K3 -> K4 with exact launch counts, and the tool's held-out
+   report; 200 monodepth distillation steps on ray-traced scenes labelled
+   by the census matcher (K1 -> K4, exact launch counts), the last 20
+   steps' mean loss below the first 20's; ``smt-torch train-mccnn`` on a
+   ray-traced 1242x375 pair, then ``match --method mccnn
+   --mccnn_checkpoint`` on its output, bit-equal to the direct call with
+   the same launches, wall ms of each; ``calibrate_camera`` on synthetic
+   views (``tests/test_calibration.py``'s bars) and ``undistort_image``
+   at 1242x375 on the card within 1e-3 gray levels of the CPU's.
 5. timing with CUDA events after a warm-up: frames/s of the main path with
    the kernels and with the plain versions at KITTI shape, and with the
    kernels at 720p; each kernel's time beside its plain version's and its
@@ -587,6 +616,513 @@ def phase_4g(dev: torch.device, card: str, scene_pair) -> None:
                 for side in "lr"]
             same(str(out_dir / f"disp_{i:04d}.npy"),
                  matcher(*frame)[1].cpu().numpy(), f"stream frame {i}")
+
+
+# Training (phase 4h): card against the CPU from the same weights and
+# batches, each bar with a control that must fail it.
+# * The first step: the loss within TRAIN_RTOL relative, every gradient
+#   within TRAIN_GRAD_RTOL of its norm. The MC-CNN tower's gradients are
+#   compared on one branch: a pre-activation within rounding of 0 puts a
+#   ReLU on either side in two float32 runs, and each such flip moves the
+#   first layers' gradients by up to 1e-4 of their norm (the accurate
+#   tower's). So the CPU (and float64) recompute the hinge loss with the
+#   card's ReLU and hinge signs (``hinge_branch``); the flips are counted.
+#   Control: the card's gradients with TF32 in the backward (the step
+#   without ``float32_scope``) must miss TRAIN_GRAD_RTOL.
+# * Adam on the card against the CPU on the same 3 gradients: parameters
+#   within TRAIN_ADAM_TOL; control: a learning rate TRAIN_LR_FAULT off.
+# * 3 steps of each trainer: the losses within TRAIN_STEP_RTOL and the
+#   displacement of the weights (after - before) within TRAIN_MOVE_RTOL of
+#   the CPU's, in norm; bars per model, set from their readings (PERF.md
+#   §6, PR 14). Adam's step is about lr * m / sqrt(v) element by element,
+#   so a weight whose gradient is at the rounding level of its sum moves by
+#   O(lr) either way, and the MC-CNN towers' flips change their gradients
+#   at each step: their moves differ by a few percent. Control: the card's
+#   trainer with the learning rate TRAIN_LR_FAULT off must miss a bar.
+TRAIN_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-5
+TRAIN_ADAM_TOL = 1e-5
+TRAIN_STEP_RTOL = {"fast": 1e-3, "accurate": 1e-3, "small": 1e-5,
+                   "full": 1e-5}
+TRAIN_MOVE_RTOL = {"fast": 0.03, "accurate": 0.08, "small": 1e-4,
+                   "full": 1e-4}
+TRAIN_LR_FAULT = 1.1
+TRAIN_TOL = 1e-5
+MCCNN_RECIPE = dict(batch=512, lr=2e-3)        # tools/train_mccnn.py
+MONO_RECIPE = dict(batch=16, lr=3e-4, steps=6000, alpha=0.05)
+MONO_SCENES = 32
+MONO_STEPS = 200
+
+
+def calibration_views(K, dist, n_views=6, cols=7, rows=5, seed=0):
+    """A chessboard projected into n synthetic views
+    (``tests/test_calibration.py``'s ``_render_views``)."""
+    from stereo_match_tpu_torch.core.calibration import \
+        chessboard_object_points
+    from stereo_match_tpu_torch.core.camera import rodrigues
+    rng = np.random.default_rng(seed)
+    obj = chessboard_object_points(cols, rows, square=0.03)
+    views = []
+    k1, k2 = dist
+    for _ in range(n_views):
+        rvec = rng.normal(scale=0.25, size=3)
+        t = np.array([rng.normal(scale=0.05), rng.normal(scale=0.05),
+                      0.5 + rng.uniform(0, 0.3)])
+        P = (rodrigues(rvec)[:, :2] @ obj.T).T + t
+        x, y = P[:, 0] / P[:, 2], P[:, 1] / P[:, 2]
+        r2 = x * x + y * y
+        rad = 1 + k1 * r2 + k2 * r2 ** 2
+        views.append(np.stack([K[0, 0] * x * rad + K[0, 2],
+                               K[1, 1] * y * rad + K[1, 2]], axis=-1))
+    return obj, views
+
+
+def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def flat_params(tree) -> np.ndarray:
+    """A flax-layout parameter tree as one float64 vector (sorted keys)."""
+    if isinstance(tree, dict):
+        return np.concatenate([flat_params(tree[k]) for k in sorted(tree)])
+    return np.ravel(np.asarray(tree, np.float64))
+
+
+def phase_4h(dev: torch.device, card: str) -> None:
+    """4h. training on the card: MC-CNN and monodepth at their recipes'
+    widths, card against CPU, their times; the MC-CNN recipe end to end
+    with its held-out check through K8 -> K9 -> K3 -> K4; smt-torch
+    train-mccnn then match; Zhang calibration and undistort_image."""
+    from stereo_match_tpu_torch.cli.main import main as smt_main
+    from stereo_match_tpu_torch.config import DisparityConfig, load_settings
+    from stereo_match_tpu_torch.core import calibration as cal
+    from stereo_match_tpu_torch.costs import MCCNNCost
+    from stereo_match_tpu_torch.data.image import (image_read, image_save,
+                                                   to_grayscale)
+    from stereo_match_tpu_torch.data.raytrace import render_stereo
+    from stereo_match_tpu_torch.data.synthetic import (random_dot_pair,
+                                                       rough_scene)
+    from stereo_match_tpu_torch.eval.metrics import bad_pixel_rate
+    from stereo_match_tpu_torch.models import mccnn
+    from stereo_match_tpu_torch.models import monodepth as md
+    from stereo_match_tpu_torch.models.optim import (Adam,
+                                                     cosine_decay_schedule,
+                                                     float32_scope)
+    from stereo_match_tpu_torch.ops import cuda_kernels as K
+    from stereo_match_tpu_torch.pipeline.stereo import StereoMatcher
+    from stereo_match_tpu_torch.tools import train_mccnn, train_monodepth
+
+    def rel(a: float, b: float) -> float:
+        return abs(a - b) / abs(b)
+
+    def peak_of(fn) -> int:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(dev) - before
+
+    def host_ms(fn, reps: int = 20) -> float:
+        """The host's time to issue ``fn`` (mean of ``reps``, the queue
+        drained before each): near the events' ms, the step is
+        host-bound."""
+        total = 0.0
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return total / reps * 1e3
+
+    def host_load() -> str:
+        return (f"load average {os.getloadavg()[0]}, "
+                f"{len(os.listdir('/proc/self/task'))} threads in the "
+                f"process, torch {torch.get_num_threads()} CPU threads")
+
+    def tf32_scope(x):
+        """The step without ``float32_scope``: cuDNN's default TF32 (the
+        layers' own FP32 scopes close before their backward runs)."""
+        return torch.backends.cudnn.flags(enabled=True, allow_tf32=True)
+
+    def hinge_branch(model, batch, signs=None, margin=0.2):
+        """``mccnn.hinge_loss`` as ``tower_plain`` computes it, each ReLU's
+        and the hinge's active set taken from ``signs`` where given, else
+        from the pre-activations: ``(loss, signs)``. With another run's
+        signs its gradient is that of the branch the other run took."""
+        n = batch[0].shape[0]
+        h, out = torch.cat(batch)[:, None], []
+        with float32_scope(h):
+            for i in range(model.num_layers):
+                z = torch.nn.functional.conv2d(h, model.weights[i],
+                                               model.biases[i], padding=1)
+                if i == model.num_layers - 1:
+                    h = z / torch.sqrt(torch.sum(z * z, 1, keepdim=True)
+                                       + 1e-12)
+                    break
+                out.append(z > 0 if signs is None else signs[i])
+                h = z * out[-1].to(z.dtype)
+            c = h.shape[2] // 2
+            fa, fp, fn = h[:, :, c, c].split(n)
+            x = margin + torch.sum(fa * fn, -1) - torch.sum(fa * fp, -1)
+            out.append(x > 0 if signs is None else signs[-1])
+            return torch.mean(x * out[-1].to(x.dtype)), out
+
+    def grads_of(model, loss_fn, batch, scope):
+        model.requires_grad_(True)
+        with scope(batch[0]):
+            loss = loss_fn(model, *batch)
+            loss.backward()
+        return float(loss.detach()), [q.grad.detach().cpu().double()
+                                      for q in model.parameters()]
+
+    def grad_err(got, want) -> float:
+        return max(float((g - w).abs().max() / w.norm())
+                   for g, w in zip(got, want))
+
+    def card_vs_cpu(what, arch, make, loss_fn, cpu_batch, card_batch,
+                    train, to_flax, lr, branch=False) -> str:
+        """The checks of TRAIN_RTOL ... TRAIN_MOVE_RTOL and their controls
+        for ``make()``'s model; ``train(model, where, lr)`` runs its
+        trainer for 3 steps. Returns a line of the readings."""
+        loss_cpu, g_cpu = grads_of(make(), loss_fn, cpu_batch, float32_scope)
+        loss_card, g_card = grads_of(make().to(dev), loss_fn, card_batch,
+                                     float32_scope)
+        _, g_tf32 = grads_of(make().to(dev), loss_fn, card_batch, tf32_scope)
+        b64 = [x.double() if x.is_floating_point() else x for x in card_batch]
+        ref_loss, note = loss_fn, ""
+        if branch:
+            with torch.no_grad():
+                signs = hinge_branch(make().to(dev), card_batch)[1]
+                own = hinge_branch(make().to(dev).double(), b64)[1]
+            flips = [int((s != o).sum()) for s, o in zip(signs, own)]
+            e_raw = grad_err(g_card, g_cpu)
+
+            def ref_loss(model, *b):
+                return hinge_branch(model, b, [x.to(b[0].device)
+                                               for x in signs])[0]
+
+            _, g_cpu = grads_of(make(), ref_loss, cpu_batch, float32_scope)
+            note = (f"; {flips} signs of the card's ReLUs (by layer) and "
+                    f"hinge differ from float64's; on their own branches "
+                    f"the card's gradients are {e_raw} of their norm off "
+                    f"the CPU's")
+        _, g_64 = grads_of(make().to(dev).double(), ref_loss, b64,
+                           float32_scope)
+        loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        e, e_tf32 = grad_err(g_card, g_cpu), grad_err(g_tf32, g_cpu)
+        check(loss_err <= TRAIN_RTOL, f"{what}: first loss on the card "
+              f"{loss_card} vs the CPU's {loss_cpu}")
+        check(e <= TRAIN_GRAD_RTOL, f"{what}: gradients on the card {e} of "
+              f"their norm off the CPU's")
+        check(e_tf32 > TRAIN_GRAD_RTOL, f"{what}: control: a TF32 backward "
+              f"is only {e_tf32} off the CPU's gradients")
+        # Adam on the same gradients (scaled 1, -0.5, 2), card and CPU
+        moved = {}
+        for where, scale in (("cpu", 1.0), ("card", 1.0),
+                             ("card", TRAIN_LR_FAULT)):
+            ps = [q.detach().to("cpu" if where == "cpu" else dev)
+                  .requires_grad_(True) for q in make().parameters()]
+            opt = Adam(ps, lambda c: scale * (lr(c) if callable(lr) else lr))
+            for k in (1.0, -0.5, 2.0):
+                for q, g in zip(ps, g_cpu):
+                    q.grad = (k * g).float().to(q.device)
+                opt.step()
+            moved[where, scale] = torch.cat([q.detach().cpu().double()
+                                             .ravel() for q in ps])
+        adam = max_abs(moved["card", 1.0], moved["cpu", 1.0])
+        adam_ctrl = max_abs(moved["card", TRAIN_LR_FAULT], moved["cpu", 1.0])
+        check(adam <= TRAIN_ADAM_TOL < adam_ctrl, f"{what}: Adam on the "
+              f"same gradients, card vs CPU {adam} (lr x {TRAIN_LR_FAULT}: "
+              f"{adam_ctrl})")
+        # 3 steps of the trainer, card and CPU; the control on the card
+        p0 = flat_params(to_flax(make()))
+        runs = {}
+        for where, scale in (("cpu", 1.0), (dev, 1.0), (dev, TRAIN_LR_FAULT)):
+            model, losses = train(make(), where, lambda c: scale * (
+                lr(c) if callable(lr) else lr))
+            runs[scale, str(where)] = (flat_params(to_flax(model)) - p0,
+                                       losses)
+        m_cpu, l_cpu = runs[1.0, "cpu"]
+
+        def errs(move, losses):
+            check(len(losses) == len(l_cpu) == 3, f"{what}: {len(losses)} "
+                  f"and {len(l_cpu)} steps")
+            return (max(abs(c - w) / abs(w) for c, w in zip(losses, l_cpu)),
+                    float(np.linalg.norm(move - m_cpu)
+                          / np.linalg.norm(m_cpu)))
+
+        step_err, move_err = errs(*runs[1.0, str(dev)])
+        step_ctrl, move_ctrl = errs(*runs[TRAIN_LR_FAULT, str(dev)])
+        check(step_err <= TRAIN_STEP_RTOL[arch]
+              and move_err <= TRAIN_MOVE_RTOL[arch], f"{what}: 3 steps, "
+              f"losses {runs[1.0, str(dev)][1]} vs the CPU's {l_cpu}, "
+              f"{step_err} relative; the weights' move {move_err} off the "
+              f"CPU's")
+        check(step_ctrl > TRAIN_STEP_RTOL[arch]
+              or move_ctrl > TRAIN_MOVE_RTOL[arch], f"{what}: control: lr x "
+              f"{TRAIN_LR_FAULT} passes (losses {step_ctrl}, move "
+              f"{move_ctrl})")
+        off = int((np.abs(runs[1.0, str(dev)][0] - m_cpu) > TRAIN_TOL).sum())
+        return (f"card vs CPU: first loss within {loss_err} relative, "
+                f"gradients within {e} of their norm (float64: card "
+                f"{grad_err(g_card, g_64)}, CPU {grad_err(g_cpu, g_64)}; "
+                f"TF32 backward {e_tf32}, float64 "
+                f"{grad_err(g_tf32, g_64)}){note}; Adam on the same "
+                f"3 gradients within {adam} (lr x {TRAIN_LR_FAULT}: "
+                f"{adam_ctrl}); 3 trainer steps: losses within {step_err} "
+                f"(bar {TRAIN_STEP_RTOL[arch]}; lr x {TRAIN_LR_FAULT}: "
+                f"{step_ctrl}), the weights' move within {move_err} of the "
+                f"CPU's (bar {TRAIN_MOVE_RTOL[arch]}; lr x {TRAIN_LR_FAULT}: "
+                f"{move_ctrl}), {off} of {p0.size} weights more than "
+                f"{TRAIN_TOL} apart")
+
+    # MC-CNN at the recipe's width: 512 triplets of 16x16 patches, lr 2e-3
+    bs = MCCNN_RECIPE["batch"]
+    pool = mccnn.make_training_pool(2, seed=1)
+    batches = [tuple(torch.from_numpy(x[i * bs:(i + 1) * bs]) for x in pool)
+               for i in range(3)]
+    card_batches = [tuple(x.to(dev) for x in b) for b in batches]
+    for arch in ("fast", "accurate"):
+        flax = mccnn.to_flax_params(mccnn.make_model(arch, seed=0))
+        parity = card_vs_cpu(
+            f"MC-CNN {arch}", arch, lambda: mccnn.from_flax_params(flax, arch),
+            mccnn.hinge_loss, batches[0], card_batches[0],
+            lambda m, where, lr: mccnn.train(
+                m, batches if where == "cpu" else card_batches, lr,
+                device=where),
+            mccnn.to_flax_params, MCCNN_RECIPE["lr"], branch=True)
+        model = mccnn.make_model(arch, seed=0).to(dev).requires_grad_(True)
+        step = mccnn.make_train_step(model, Adam(model.parameters(),
+                                                 MCCNN_RECIPE["lr"]))
+        a, p, n = card_batches[0]
+        for _ in range(3):
+            step(a, p, n)
+        t = cuda_ms(lambda: step(a, p, n), 20, 0)
+        t_host = host_ms(lambda: step(a, p, n))
+        peak = peak_of(lambda: step(a, p, n))
+        model.requires_grad_(False)
+        # operations of a step: each layer's forward, its weight gradient
+        # and (but the first layer's) its input gradient, 2 * 9 * C_in * F
+        # a pixel each, on 3 * bs patches of 16x16; FP32 (no TF32)
+        F_, L_ = model.features, model.num_layers
+        fwd = [2 * 9 * (1 if i == 0 else F_) * F_ for i in range(L_)]
+        ops = 3 * bs * 256 * (2 * sum(fwd) + sum(fwd[1:]))
+        b_ms = bound(0.0, ops, "fp32")[0]
+        print(f"[4h] MC-CNN {arch} train step ({bs} triplets of 16x16 "
+              f"patches, lr {MCCNN_RECIPE['lr']}): {parity}; {t} ms a step "
+              f"(CUDA events, 20 steps after 3; the host issues a step in "
+              f"{t_host} ms), {bs / t * 1e3} triplets/s "
+              f"= {3 * bs / t * 1e3} patches/s; {ops} FP32 operations a "
+              f"step, bound {b_ms} ms ({b_ms / t} of it); peak device "
+              f"memory of a step {peak} B ({card})")
+        del model, step
+
+    # the port's MC-CNN recipe end to end on the card (fast, its defaults)
+    t0 = time.perf_counter()
+    model, losses, n_pool = train_mccnn.train_recipe("fast", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    init = mccnn.make_model("fast", seed=0).to(dev)
+    gt = rough_scene(96, 160, 999, 2, 24)
+    clean = random_dot_pair(96, 160, gt, blur=1.0, seed=555)
+    imgs = torch.stack([mccnn.normalize_image(torch.from_numpy(x).to(dev))
+                        for x in clean])
+    K.reset_launches()
+    feats = model(imgs)
+    torch.cuda.synchronize()
+    check(K.launches["mccnn_conv3x3"] == model.num_layers,
+          f"the trained tower launched K8 {K.launches['mccnn_conv3x3']}x")
+    plain = mccnn.tower_plain(model, imgs)
+    err = max_abs(feats, plain)
+    if err > K8_TOL:
+        ref = mccnn.tower_plain(mccnn.from_flax_params(
+            mccnn.to_flax_params(model), "fast").to(dev).double(),
+            imgs.double())
+        e_k8, e_cudnn = max_abs(feats, ref), max_abs(plain, ref)
+        check(e_k8 <= K8_F64_RATIO * e_cudnn, f"K8 on the trained weights: "
+              f"{err} off the F.conv2d chain; against float64 {e_k8} > "
+              f"{K8_F64_RATIO} x cuDNN's {e_cudnn}")
+    stale = max_abs(feats, mccnn.tower_plain(init, imgs))
+    check(stale > 100 * max(err, K8_TOL), f"K8's features are within "
+          f"{stale} of the initial weights' tower: stale copies")
+    cfg_c = DisparityConfig(num_disparities=32, cost="census",
+                            uniqueness_ratio=15, disp12_max_diff=1,
+                            wls=False)
+    cfg_m = cfg_c.replace(cost="mccnn")
+    m_census = StereoMatcher(cfg_c, device=dev)
+    m_mccnn = StereoMatcher(cfg_m, cost_fn=MCCNNCost(model, cfg_m),
+                            device=dev)
+    bars = {}
+    for noise in (0.0, 25.0):
+        l, r = random_dot_pair(96, 160, gt, blur=1.0, seed=555, noise=noise)
+        l, r = (torch.from_numpy(x).to(dev) for x in (l, r))
+        dc, _ = m_census(l, r)
+        K.reset_launches()
+        dm, _ = m_mccnn(l, r)
+        torch.cuda.synchronize()
+        counts = dict(K.launches)
+        want = {"mccnn_conv3x3": 4, "mccnn_volume": 1, "sgm_path_scan": 8,
+                "wta_lr": 1}
+        check({k: v for k, v in counts.items() if v} == want,
+              f"trained MC-CNN matcher launches {counts}")
+        bars[noise] = (float(bad_pixel_rate(dc, gt, 3.0, 0.0)),
+                       float(bad_pixel_rate(dm, gt, 3.0, 0.0)))
+    (clean_c, clean_m), (noisy_c, noisy_m) = bars[0.0], bars[25.0]
+    check(clean_m <= clean_c + 0.03, f"port-trained fast tower on the clean "
+          f"held-out scene: bad-3px {clean_m} vs census {clean_c}")
+    check(noisy_m < noisy_c and noisy_m < 0.25, f"port-trained fast tower "
+          f"at noise 25: bad-3px {noisy_m} vs census {noisy_c}")
+    report, oor = train_mccnn.held_out(model, dev)
+    print(f"[4h] MC-CNN recipe (fast, 27 scenes, 8 epochs, {len(losses)} "
+          f"steps on a pool of {n_pool}): {wall * 1e3} ms host wall, pool "
+          f"made on the host; hinge loss {losses[0]} -> {losses[-1]}; K8 on "
+          f"the trained weights within {err} of the F.conv2d chain, "
+          f"{stale} off the initial weights' tower; held-out scene (tests/"
+          f"test_mccnn.py:153-185) bad-3px clean {clean_m} vs census "
+          f"{clean_c}, noise 25 {noisy_m} vs census {noisy_c}; launches of "
+          f"the matcher {want}; the tool's held-out report {report}, out of "
+          f"renderer {oor} ({card})")
+    del model, init, m_mccnn
+
+    # monodepth at the recipe's width: 96x160, batch 16, lr 3e-4 cosine
+    scenes = [train_monodepth.scene_native(s, "raytrace")
+              for s in range(MONO_SCENES)]
+    lefts = np.stack([x[0] for x in scenes])
+    rights = np.stack([x[1] for x in scenes])
+    K.reset_launches()
+    targets, valids = train_monodepth.stereo_labels(lefts, rights, dev)
+    torch.cuda.synchronize()
+    label_counts = {k: v for k, v in K.launches.items() if v}
+    n = MONO_SCENES
+    check(label_counts == {"census_words": n, "census_volume": n,
+                           "sgm_path_scan": 8 * n, "wta_lr": n},
+          f"monodepth labels: launches {label_counts}")
+    sched = cosine_decay_schedule(MONO_RECIPE["lr"], MONO_RECIPE["steps"],
+                                  MONO_RECIPE["alpha"])
+    rng = np.random.default_rng(0)
+    picks = rng.choice(n, (MONO_STEPS, MONO_RECIPE["batch"]))
+    flips = rng.uniform(size=picks.shape) < 0.5
+    cpu_labels = (targets.cpu(), valids.cpu())
+    cpu_batch = (md._nchw(lefts, "cpu")[picks[0]], targets.cpu()[picks[0]],
+                 valids.cpu()[picks[0]])
+    card_batch = tuple(x.to(dev) for x in cpu_batch)
+    for arch in ("small", "full"):
+        flax = md.to_flax_params(md.make_model(arch, seed=0))
+        parity = card_vs_cpu(
+            f"monodepth {arch}", arch, lambda: md.from_flax_params(flax),
+            md.distillation_loss, cpu_batch, card_batch,
+            lambda m, where, lr: md.train_distilled_on_device(
+                m, lefts, *(cpu_labels if where == "cpu"
+                            else (targets, valids)), picks[:3], lr,
+                chunk=3, flips=flips[:3], device=where),
+            md.to_flax_params, sched)
+        model = md.make_model(arch, seed=0).to(dev).requires_grad_(True)
+        step = md.make_train_step(model, Adam(model.parameters(), sched),
+                                  md.distillation_loss)
+        idx = torch.as_tensor(picks[0], device=dev)
+        batch = (md._nchw(lefts, dev)[idx], targets[idx], valids[idx])
+        for _ in range(3):
+            step(*batch)
+        t = cuda_ms(lambda: step(*batch), 20, 0)
+        t_host = host_ms(lambda: step(*batch))
+        peak = peak_of(lambda: step(*batch))
+        print(f"[4h] monodepth {arch} distillation step (batch "
+              f"{MONO_RECIPE['batch']} at 96x160, lr {MONO_RECIPE['lr']} "
+              f"cosine): {parity}; {t} ms a step (CUDA events, 20 steps "
+              f"after 3; the host issues a step in {t_host} ms; "
+              f"{host_load()}), {MONO_RECIPE['batch'] / t * 1e3} images/s; "
+              f"peak device memory of a step {peak} B ({card})")
+        del model, step
+    t0 = time.perf_counter()
+    model, losses = md.train_distilled_on_device(
+        md.make_model("small", seed=0), lefts, targets, valids, picks, sched,
+        flips=flips, device=dev)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    check(len(losses) == MONO_STEPS and last < first, f"monodepth small: "
+          f"{len(losses)} steps, mean loss of the first 20 {first}, of the "
+          f"last 20 {last}")
+    print(f"[4h] monodepth small, {MONO_STEPS} distillation steps on "
+          f"{MONO_SCENES} ray-traced scenes labelled by the census matcher "
+          f"(launches {label_counts}): mean loss of the first 20 steps "
+          f"{first}, of the last 20 {last}; {wall} ms host wall "
+          f"({wall / MONO_STEPS} ms a step) ({card})")
+    del model
+
+    # smt-torch train-mccnn, then match --method mccnn on its checkpoint
+    H, W = KITTI["H"], KITTI["W"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        left, right, gt = render_stereo(H, W, seed=3)
+        lp, rp, gp = (str(tmp / f) for f in ("l.png", "r.png", "gt.npy"))
+        image_save(lp, np.clip(left, 0, 255).astype(np.uint8))
+        image_save(rp, np.clip(right, 0, 255).astype(np.uint8))
+        np.save(gp, gt)
+        ckpt = tmp / "mccnn_ckpt.npz"
+        walls = {}
+        for name, argv in (
+                ("train-mccnn", ["train-mccnn", "--left", lp, "--right", rp,
+                                 "--gt", gp, "--output", str(ckpt)]),
+                ("match --method mccnn --mccnn_checkpoint",
+                 ["match", "--left", lp, "--right", rp, "--method", "mccnn",
+                  "--mccnn_checkpoint", str(ckpt), "--num_disparities",
+                  str(KITTI["D"]), "--disp_out", str(tmp / "d.png")])):
+            K.reset_launches()
+            t0 = time.perf_counter()
+            rc = smt_main(argv + ["--device", str(dev)])
+            torch.cuda.synchronize()
+            walls[name] = (time.perf_counter() - t0) * 1e3
+            check(rc == 0, f"smt-torch {name}: exit code {rc}")
+        counts = dict(K.launches)
+        check(ckpt.stat().st_size > 0, "smt-torch train-mccnn wrote nothing")
+        cfg = load_settings(None, {"num_disparities": KITTI["D"]}).replace(
+            cost="mccnn")
+        trained = mccnn.from_flax_params(mccnn.load_params_npz(ckpt),
+                                         "fast").to(dev)
+        gray = [torch.from_numpy(to_grayscale(image_read(x)).astype(
+            np.float32)).to(dev) for x in (lp, rp)]
+        K.reset_launches()
+        _, want_map = StereoMatcher(cfg, cost_fn=MCCNNCost(trained, cfg),
+                                    device=dev)(*gray)
+        torch.cuda.synchronize()
+        check(counts == dict(K.launches), f"smt-torch match launches "
+              f"{counts} != StereoMatcher's {dict(K.launches)}")
+        check(np.array_equal(np.load(str(tmp / "d.png.npy")),
+                             want_map.cpu().numpy(), equal_nan=True),
+              "smt-torch match on the trained checkpoint: its .npy is not "
+              "bit-equal to the direct call's map")
+    print(f"[4h] smt-torch on a ray-traced {W}x{H} pair: train-mccnn "
+          f"{walls['train-mccnn']} ms wall (4096 patches of 12x12, 4 "
+          f"epochs of 256), match --method mccnn on its checkpoint "
+          f"{walls['match --method mccnn --mccnn_checkpoint']} ms wall, "
+          f"launches {({k: v for k, v in counts.items() if v})} ({card})")
+
+    # Zhang calibration (host float64), undistort_image on the card
+    K_true = np.array([[600.0, 0, 310], [0, 600.0, 230], [0, 0, 1]])
+    obj, views = calibration_views(K_true, (-0.15, 0.05), n_views=8, seed=3)
+    t0 = time.perf_counter()
+    res = cal.calibrate_camera(obj, views)
+    t_cal = (time.perf_counter() - t0) * 1e3
+    check(res.rms < 0.05 and abs(res.dist[0] + 0.15) <= 0.02
+          and abs(res.K[0, 0] / 600.0 - 1) <= 5e-3,
+          f"calibrate_camera: K {res.K.tolist()}, dist {res.dist}, rms "
+          f"{res.rms}")
+    img = render_stereo(H, W, seed=5)[0]
+    got = cal.undistort_image(img, res.K, res.dist, device=dev)
+    want_img = cal.undistort_image(img, res.K, res.dist, device="cpu")
+    u_err = max_abs(got.cpu(), want_img)
+    check(got.device == dev and got.shape == (H, W) and u_err <= 1e-3,
+          f"undistort_image on the card: {u_err} gray levels off the CPU's")
+    t_und = cuda_ms(lambda: cal.undistort_image(img, res.K, res.dist,
+                                                device=dev), 10)
+    print(f"[4h] calibrate_camera (8 views of 7x5, k1 -0.15): {t_cal} ms "
+          f"host, K {res.K.tolist()}, dist {res.dist.tolist()}, rms "
+          f"{res.rms} px; undistort_image {W}x{H} on the card {t_und} ms "
+          f"(CUDA events, host upload and maps included), {u_err} gray "
+          f"levels off the CPU's ({card})")
 
 
 def main() -> int:
@@ -1705,6 +2241,8 @@ def main() -> int:
 
     # 4g. monodepth on the card, then smt-torch's subcommands in-process
     phase_4g(dev, card, (left_np, right_np))
+    # 4h. training on the card, the training CLI and calibration
+    phase_4h(dev, card)
 
     # 5. timing (CUDA events, after a warm-up)
     # K1 takes less time than the host's call: its `ms` is the events' mean

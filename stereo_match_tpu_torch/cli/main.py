@@ -13,7 +13,8 @@ each run on the port, plus ``--device`` on every subcommand that computes
 * ``costbin``        <- mapTo3D_mc_cnn.py (external cost .bin -> PLY)
 * ``mono``           <- monodepth/script.py (single-image depth)
 * ``stream``         — frame sequence through the stage pipeline
-* ``train-mccnn``    — not ported yet (ROADMAP.md, queue 1 item 6): exits 2
+* ``train-mccnn``    — train the MC-CNN tower on a pair with GT disparity;
+  writes a flax-layout ``.npz`` (JAX's command writes an orbax directory)
 * ``benchmark``      — the port has no benchmark yet: exits 2
 
 Outputs are written as the JAX CLI writes them; device tensors become
@@ -272,10 +273,31 @@ def cmd_eval(args) -> int:
 
 
 def cmd_train_mccnn(args) -> int:
-    print("error: train-mccnn is not ported yet (ROADMAP.md, queue 1 item "
-          "6: training); run the JAX package's `smt train-mccnn`",
-          file=sys.stderr)
-    return 2
+    """Train the MC-CNN cost tower on a pair with GT disparity."""
+    from stereo_match_tpu_torch.data.image import image_read, to_grayscale
+    from stereo_match_tpu_torch.data.kitti import read_kitti_disparity
+    from stereo_match_tpu_torch.models import mccnn
+    device = entry_device(args.device)
+    left = to_grayscale(image_read(args.left)).astype(np.float32)
+    right = to_grayscale(image_read(args.right)).astype(np.float32)
+    gt = np.load(args.gt) if args.gt.endswith(".npy") \
+        else read_kitti_disparity(args.gt)
+    model = mccnn.make_model(args.arch, seed=args.seed)
+    # mine from normalized frames: inference normalizes the same way
+    ln = mccnn.normalize_image(left).numpy()
+    rn = mccnn.normalize_image(right).numpy()
+    a, p, n = (torch.from_numpy(x).to(device)
+               for x in mccnn.sample_training_patches(ln, rn, gt,
+                                                      args.samples,
+                                                      patch=args.patch))
+    bs = args.batch_size
+    batches = [(a[i:i + bs], p[i:i + bs], n[i:i + bs])
+               for i in range(0, len(a), bs)] * args.epochs
+    model, losses = mccnn.train(model, batches, args.lr, device=device)
+    out = mccnn.save_params_npz(args.output, model)
+    print(f"trained {len(batches)} steps, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; saved to {out}")
+    return 0
 
 
 def cmd_mono(args) -> int:
@@ -470,7 +492,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="matcher family (reference: SGBM/BM modes, "
                         "libelas, mc-cnn)")
     m.add_argument("--mccnn_checkpoint", default=None,
-                   help="MC-CNN weights as a flax .npz checkpoint")
+                   help="MC-CNN weights as a flax .npz checkpoint (from "
+                        "smt-torch train-mccnn)")
     m.add_argument("--arch", default="fast", choices=["fast", "accurate"],
                    help="MC-CNN tower variant")
     _add_settings_args(m)
@@ -498,12 +521,13 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device_arg(e)
     e.set_defaults(fn=cmd_eval)
 
-    t = sub.add_parser("train-mccnn", help="train the learned matching cost "
-                                           "(not ported yet: exits 2)")
+    t = sub.add_parser("train-mccnn", help="train the learned matching cost")
     t.add_argument("--left", required=True)
     t.add_argument("--right", required=True)
     t.add_argument("--gt", required=True, help="GT disparity (.npy or KITTI png)")
-    t.add_argument("--output", default="mccnn_ckpt")
+    t.add_argument("--output", default="mccnn_ckpt.npz",
+                   help="flax-layout .npz (.npz is appended to a name "
+                        "without it)")
     t.add_argument("--arch", default="fast", choices=["fast", "accurate"])
     t.add_argument("--samples", type=int, default=4096)
     t.add_argument("--patch", type=int, default=12)
@@ -511,6 +535,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--epochs", type=int, default=4)
     t.add_argument("--lr", type=float, default=1e-3)
     t.add_argument("--seed", type=int, default=0)
+    _add_device_arg(t)
     t.set_defaults(fn=cmd_train_mccnn)
 
     o = sub.add_parser("mono", help="monocular depth (single image)")

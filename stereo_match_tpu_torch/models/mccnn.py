@@ -1,22 +1,28 @@
-"""MC-CNN learned matching cost, inference (PyTorch).
+"""MC-CNN learned matching cost (PyTorch): inference and training.
 
 Counterpart of ``stereo_match_tpu/models/mccnn.py``: the siamese feature
-tower, its cost volume and the weight carrier that reads the JAX package's
-flax checkpoints (``stereo_match_tpu/models/weights/mccnn_*.npz``) with
-numpy alone. Each tower layer runs on K8 and the volume on K9
+tower, its cost volume, the patch-pair hinge-loss trainer, and the weight
+carrier that reads and writes the JAX package's flax checkpoints
+(``stereo_match_tpu/models/weights/mccnn_*.npz``) with numpy alone. In
+inference each tower layer runs on K8 and the volume on K9
 (``ops/cuda_kernels.py``) for CUDA tensors, on their plain versions for CPU
-tensors.
+tensors. The train step is the plain differentiable tower (``F.conv2d``,
+the float32 body of ``mccnn_conv3x3_plain``) under autograd and
+:class:`~stereo_match_tpu_torch.models.optim.Adam`, as flax's
+``model.apply`` is XLA convolutions under ``jax.value_and_grad`` and
+``optax.adam``; no Pallas kernel has a backward to port.
 
 The TPU's weight stacks (``_tower_weight_stacks``) and its fused
 tower + volume kernel (``mccnn_cost_volume_fused``) are MXU layout and
-fusion; K8 then K9 compute what they compute. Training, the sharding
-rules and the orbax checkpoints are not ported (ROADMAP.md, queue 1 item
-6).
+fusion; K8 then K9 compute what they compute. The sharding rules, the
+``mesh=`` argument of the trainer and the orbax checkpoints are not ported
+(ROADMAP.md, queue 1 item 8).
 """
 
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 from pathlib import Path
 from typing import Any
 
@@ -24,29 +30,37 @@ import numpy as np
 import torch
 from torch import nn
 
+from stereo_match_tpu_torch.models.optim import (Adam, LearningRate,
+                                                 make_step)
 from stereo_match_tpu_torch.ops.cost_volume import check_min_disparity
 from stereo_match_tpu_torch.ops.cuda_kernels import (MCCNN_MAX_FEATURES,
                                                      mccnn_conv3x3,
+                                                     mccnn_conv3x3_plain,
                                                      mccnn_volume,
                                                      mccnn_weight_layout)
+from stereo_match_tpu_torch.utils.backend import entry_device
 
 ARCHS = {"fast": (64, 4), "accurate": (112, 5)}   # arch -> (F, layers)
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _lecun_normal(shape: tuple[int, ...]) -> torch.Tensor:
-    """flax's default kernel initialisation (truncated at two std)."""
+def _lecun_normal(shape: tuple[int, ...],
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax's default kernel initialisation (truncated at two std), drawn
+    from ``generator`` (torch's default one if None)."""
     std = math.sqrt(1.0 / (shape[1] * shape[2] * shape[3])) / 0.87962566
     return nn.init.trunc_normal_(torch.empty(shape), std=std, a=-2.0 * std,
-                                 b=2.0 * std)
+                                 b=2.0 * std, generator=generator)
 
 
 class MCCNNFeatures(nn.Module):
     """Siamese feature tower: ``num_layers`` 3x3 convs, L2-normalized.
 
     Weights ``weights[i]`` (F, C_in, 3, 3) and biases ``biases[i]`` (F,)
-    are float32 parameters without gradients (inference only), whatever
-    ``compute_dtype`` is (flax's ``param_dtype``). ``compute_dtype``, as
+    are float32 parameters, whatever ``compute_dtype`` is (flax's
+    ``param_dtype``); they take no gradients but while :func:`train`
+    runs, which differentiates the plain tower (:func:`tower_plain`), not
+    K8. ``compute_dtype``, as
     flax's: float32, or bfloat16, where each layer rounds its input and
     weights to bfloat16, sums in float32 and rounds its output (K8's
     ``bf16`` mode, ``mccnn_conv3x3_plain``); the L2 norm is float32 either
@@ -54,8 +68,11 @@ class MCCNNFeatures(nn.Module):
     layer i's weights that K8 reads (``mccnn_weight_layout`` for
     ``compute_dtype``: the (3, 3, 1, F) taps of the first layer, the packed
     taps of the others), made when the weights are set (construction,
-    ``load_state_dict``) and moved with the module; after changing a
-    weight in place, call :meth:`relayout`. :meth:`bf16_twin` is the same
+    ``load_state_dict``) and moved with the module. Whoever changes a
+    weight in place (an optimizer step, ``copy_``) must call
+    :meth:`relayout` after it, or K8 on the card goes on reading the old
+    weights while the CPU's plain path reads the new ones; :func:`train`
+    does. :meth:`bf16_twin` is the same
     tower computing in bfloat16 (``mccnn_cost_volume(use_bf16=True)``).
     A tower wider than K8 takes
     (``MCCNN_MAX_FEATURES``) keeps no copy: it builds, loads and runs on
@@ -64,7 +81,8 @@ class MCCNNFeatures(nn.Module):
 
     def __init__(self, features: int = 64, num_layers: int = 4,
                  kernel: int = 3,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 seed: int | None = None):
         super().__init__()
         if kernel != 3:
             raise ValueError("the MC-CNN tower takes 3x3 kernels (K8)")
@@ -74,8 +92,9 @@ class MCCNNFeatures(nn.Module):
         self.compute_dtype = compute_dtype
         shapes = [(features, 1 if i == 0 else features, 3, 3)
                   for i in range(num_layers)]
+        gen = None if seed is None else torch.Generator().manual_seed(seed)
         self.weights = nn.ParameterList(
-            nn.Parameter(_lecun_normal(s), requires_grad=False)
+            nn.Parameter(_lecun_normal(s, gen), requires_grad=False)
             for s in shapes)
         self.biases = nn.ParameterList(
             nn.Parameter(torch.zeros(features), requires_grad=False)
@@ -135,10 +154,14 @@ def _check_compute_dtype(dtype: torch.dtype) -> None:
 
 
 def make_model(arch: str | tuple[int, int] = "fast",
-               compute_dtype: torch.dtype = torch.float32) -> MCCNNFeatures:
+               compute_dtype: torch.dtype = torch.float32,
+               seed: int | None = None) -> MCCNNFeatures:
     """`fast` (4x64, the KITTI-fast analog), `accurate` (5x112), or any
     (features, num_layers) pair, as the flax module takes; computing in
-    ``compute_dtype``."""
+    ``compute_dtype``. The weights are flax's distribution drawn from a
+    ``torch.Generator`` seeded with ``seed`` (torch's default generator if
+    None): not flax's random stream, so carry flax's weights across with
+    :func:`from_flax_params` to compare the two."""
     if isinstance(arch, tuple):
         features, num_layers = arch
     elif arch in ARCHS:
@@ -146,7 +169,7 @@ def make_model(arch: str | tuple[int, int] = "fast",
     else:
         raise ValueError(f"unknown arch: {arch}")
     return MCCNNFeatures(features=features, num_layers=num_layers,
-                         compute_dtype=compute_dtype)
+                         compute_dtype=compute_dtype, seed=seed)
 
 
 def normalize_image(img: torch.Tensor) -> torch.Tensor:
@@ -174,6 +197,189 @@ def mccnn_cost_volume(model: MCCNNFeatures, left: torch.Tensor,
     feats = (model.bf16_twin() if use_bf16 else model)(imgs)
     return mccnn_volume(feats[0], feats[1], num_disparities, min_disparity,
                         scale)
+
+
+# ------------------------------------------------------------- training ----
+
+def sample_training_patches(left: np.ndarray, right: np.ndarray,
+                            gt_disparity: np.ndarray, n: int,
+                            patch: int = 16,
+                            neg_offset: tuple[int, int] = (4, 9),
+                            seed: int = 0):
+    """Host-side patch miner: (anchor, positive, negative) float32 stacks
+    (n, patch, patch), the JAX package's numpy code as it is.
+
+    Anchors are sampled where GT is valid and the matching patch fits;
+    negatives shift the right patch by a random offset in +-[lo, hi) --
+    the MC-CNN training recipe.
+    """
+    rng = np.random.default_rng(seed)
+    H, W = left.shape
+    r = patch // 2
+    ys, xs = np.where(np.isfinite(gt_disparity))
+    keep = (ys >= r) & (ys < H - r) & (xs >= r) & (xs < W - r)
+    ys, xs = ys[keep], xs[keep]
+    d = gt_disparity[ys, xs]
+    xr = np.round(xs - d).astype(int)
+    lo, hi = neg_offset
+    off = rng.integers(lo, hi, size=len(ys)) * rng.choice([-1, 1],
+                                                          size=len(ys))
+    xn = xr + off
+    ok = (xr >= r) & (xr < W - r) & (xn >= r) & (xn < W - r)
+    ys, xs, xr, xn = ys[ok], xs[ok], xr[ok], xn[ok]
+    if len(ys) == 0:
+        raise ValueError("no valid training anchors")
+    pick = rng.choice(len(ys), size=min(n, len(ys)), replace=len(ys) < n)
+    ys, xs, xr, xn = ys[pick], xs[pick], xr[pick], xn[pick]
+
+    def crop(img, yy, xx):
+        out = np.empty((len(yy), patch, patch), np.float32)
+        for i, (y, x) in enumerate(zip(yy, xx)):
+            out[i] = img[y - r:y + r, x - r:x + r]
+        return out
+
+    return crop(left, ys, xs), crop(right, ys, xr), crop(right, ys, xn)
+
+
+def tower_plain(model: MCCNNFeatures, x: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) -> (N, F, H, W): the tower as ``mccnn_conv3x3_plain``
+    layers (``F.conv2d``, ReLU, the L2 norm) on ``model``'s weights, which
+    autograd differentiates, in the model's compute dtype. What flax's
+    ``model.apply`` is in the JAX package's train step."""
+    bf16 = model.compute_dtype == torch.bfloat16
+    h = x[:, None]
+    for i in range(model.num_layers):
+        last = i == model.num_layers - 1
+        h = mccnn_conv3x3_plain(h, model.weights[i], model.biases[i],
+                                relu=not last, normalize=last, bf16=bf16)
+    return h
+
+
+def hinge_loss(model: MCCNNFeatures, anchor: torch.Tensor,
+               positive: torch.Tensor, negative: torch.Tensor,
+               margin: float = 0.2) -> torch.Tensor:
+    """mean(max(0, margin + s_neg - s_pos)) on the centre pixel's feature
+    similarity of (N, P, P) patch stacks; the three stacks go through the
+    tower as one batch."""
+    n = anchor.shape[0]
+    f = tower_plain(model, torch.cat([anchor, positive, negative]))
+    c = f.shape[2] // 2
+    centre = f[:, :, c, c]
+    fa, fp, fn = centre[:n], centre[n:2 * n], centre[2 * n:]
+    s_pos = torch.sum(fa * fp, dim=-1)
+    s_neg = torch.sum(fa * fn, dim=-1)
+    return torch.mean(torch.clamp_min(margin + s_neg - s_pos, 0.0))
+
+
+def make_train_step(model: MCCNNFeatures, optimizer: torch.optim.Optimizer,
+                    margin: float = 0.2):
+    """``(anchor, positive, negative) -> loss``: one step of ``optimizer``
+    (over ``model``'s parameters, which must take gradients) on the hinge
+    loss of the batch, in full float32 (``optim.make_step``). The caller
+    calls ``model.relayout()`` after its last step (:func:`train` does)."""
+    return make_step(lambda a, p, n: hinge_loss(model, a, p, n, margin),
+                     optimizer)
+
+
+def train(model: MCCNNFeatures, batches, learning_rate: LearningRate = 3e-3,
+          device: torch.device | str = "cuda"
+          ) -> tuple[MCCNNFeatures, list[float]]:
+    """Adam (optax's) over an iterable of (anchor, positive, negative)
+    batches (arrays or tensors); returns ``(model, losses)``, the model
+    moved to ``device`` (the card unless the caller asks for the CPU) and
+    trained in place, its K8 copies rebuilt. A batch already on ``device``
+    is not copied. The JAX trainer's ``mesh=`` (data and model parallel
+    training) is not ported: ROADMAP.md, queue 1 item 8."""
+    dev = entry_device(device)
+    model.to(dev).requires_grad_(True)
+    try:
+        step = make_train_step(model, Adam(model.parameters(), learning_rate))
+        losses = [step(*(torch.as_tensor(x).to(dev, torch.float32)
+                         for x in batch)) for batch in batches]
+    finally:
+        model.requires_grad_(False)
+        model.relayout()
+    return model, torch.stack(losses).tolist() if losses else []
+
+
+def make_training_pool(n_scenes: int, seed: int = 1,
+                       height: int = 96, width: int = 160,
+                       patches_per_scene: int = 1500, patch: int = 16,
+                       num_disparities: int = 32,
+                       families: tuple = ("dots", "shaded", "adversarial")):
+    """Multi-renderer synthetic (anchor, positive, negative) patch pool,
+    host numpy, the JAX package's recipe draw for draw.
+
+    Scenes cycle the renderer families ``dots`` (random-dot stereograms
+    over box / slanted / rough GT, sensor noise, blur), ``shaded``
+    (``data/synthetic.shaded_shapes_pair``) and ``adversarial`` (right-view
+    photometric asymmetry, ``data/synthetic.adversarial_pair``); ``raytrace``
+    is available but held out of the default mix, for the out-of-renderer
+    evaluation. A random third of the scenes get salt-and-pepper noise.
+    Patches are mined from :func:`normalize_image`'s frames (within 1e-6
+    of JAX's: its float32 reductions run in another order), as inference
+    normalizes.
+    """
+    from stereo_match_tpu_torch.data.synthetic import (adversarial_pair,
+                                                       box_scene,
+                                                       random_dot_pair,
+                                                       rough_scene,
+                                                       shaded_shapes_pair,
+                                                       slanted_scene)
+    rng = np.random.default_rng(seed)
+    d_hi = num_disparities - 2
+    A, Ps, N = [], [], []
+    for i in range(n_scenes):
+        fam = families[i % len(families)]
+        kind = (i // len(families)) % 3
+        if kind == 0:
+            gt = box_scene(height, width, rng.uniform(2, 8),
+                           rng.uniform(10, d_hi * 0.8))
+        elif kind == 1:
+            gt = slanted_scene(height, width, rng.uniform(1, 4),
+                               rng.uniform(12, d_hi))
+        else:
+            gt = rough_scene(height, width, seed * 100 + i, 2.0, d_hi)
+        blur = float(rng.choice([0.6, 1.0, 1.5]))
+        if fam == "raytrace":
+            from stereo_match_tpu_torch.data.raytrace import render_stereo
+            left, right, gt = render_stereo(
+                height, width, seed=seed * 100 + i,
+                noise=float(rng.choice([0.0, 3.0, 6.0])),
+                gain_right=float(rng.choice([1.0, 1.1, 1.2])))
+        elif fam == "shaded":
+            left, right = shaded_shapes_pair(
+                height, width, gt, seed=seed * 100 + i,
+                noise_saltpepper=float(rng.choice([0.0, 0.01, 0.02])),
+                gain_right=float(rng.choice([1.0, 1.1, 1.15])))
+        elif fam == "adversarial":
+            left, right = adversarial_pair(
+                height, width, gt, blur=blur, seed=seed * 100 + i,
+                gain=float(rng.uniform(0.9, 1.25)),
+                bias=float(rng.uniform(-10.0, 10.0)),
+                vignette=float(rng.uniform(0.0, 0.4)),
+                noise_left=float(rng.uniform(0.0, 8.0)),
+                noise_right=float(rng.uniform(0.0, 8.0)))
+        else:
+            noise = float(rng.choice([0.0, 5.0, 10.0, 20.0]))
+            left, right = random_dot_pair(height, width, gt, blur=blur,
+                                          seed=seed * 100 + i, noise=noise)
+        if rng.uniform() < 1.0 / 3.0:
+            frac = float(rng.uniform(0.005, 0.03))
+            for img in (left, right):
+                m = rng.uniform(size=img.shape)
+                img[m < frac / 2] = 0.0
+                img[m > 1 - frac / 2] = 255.0
+        ln = normalize_image(left).numpy()
+        rn = normalize_image(right).numpy()
+        a, p, n = sample_training_patches(ln, rn, gt, patches_per_scene,
+                                          patch=patch, seed=seed * 100 + i)
+        A.append(a)
+        Ps.append(p)
+        N.append(n)
+    A, Ps, N = map(np.concatenate, (A, Ps, N))
+    perm = rng.permutation(len(A))
+    return A[perm], Ps[perm], N[perm]
 
 
 # ------------------------------------------------------ weight carrier ----
@@ -223,6 +429,50 @@ def from_flax_params(params: Any, arch: str | tuple[int, int] = "fast",
                              f"{tuple(own[name].shape)}")
     model.load_state_dict(state)
     return model
+
+
+def to_flax_params(model: MCCNNFeatures) -> dict:
+    """``model`` -> its flax parameter tree of numpy float32 arrays, the
+    inverse of :func:`from_flax_params`: OIHW -> HWIO is ``permute(2, 3,
+    1, 0)``, under ``params/conv{i}/kernel|bias``."""
+    return {"params": {
+        f"conv{i}": {"kernel": w.detach().permute(2, 3, 1, 0).cpu().numpy(),
+                     "bias": b.detach().cpu().numpy()}
+        for i, (w, b) in enumerate(zip(model.weights, model.biases))}}
+
+
+def save_flax_npz(path: str | Path, params: Mapping) -> Path:
+    """A flax parameter tree -> one ``.npz``, its keys the tree's paths
+    joined by "/" (what the JAX package's ``save_params_npz`` writes and
+    its ``load_params_npz`` reads). Returns the path written:
+    ``np.savez_compressed`` appends ``.npz`` to a name without it. Refuses
+    to write among the JAX package's shipped checkpoints."""
+    path = Path(path)
+    if path.suffix != ".npz":
+        path = path.with_name(path.name + ".npz")
+    if path.resolve().parent == default_checkpoint_path().parent:
+        raise ValueError(f"{path}: the port does not write the JAX "
+                         "package's shipped checkpoints")
+    flat = {}
+
+    def walk(node: Mapping, prefix: str) -> None:
+        for key, value in node.items():
+            name = f"{prefix}/{key}" if prefix else str(key)
+            if isinstance(value, Mapping):
+                walk(value, name)
+            else:
+                flat[name] = np.asarray(value)
+
+    walk(params, "")
+    np.savez_compressed(path, **flat)
+    return path
+
+
+def save_params_npz(path: str | Path, model: MCCNNFeatures) -> Path:
+    """``model``'s weights as a flax ``.npz`` (:func:`save_flax_npz`), which
+    :func:`load_params_npz` and the JAX package's ``load_params_npz``
+    read; returns the path written."""
+    return save_flax_npz(path, to_flax_params(model))
 
 
 def default_checkpoint_path(arch: str = "fast") -> Path:

@@ -1,15 +1,20 @@
-"""Monocular depth estimation, inference (PyTorch).
+"""Monocular depth estimation (PyTorch): inference and training.
 
 Counterpart of ``stereo_match_tpu/models/monodepth.py``: the encoder-decoder
 that predicts disparity from a single image (the reference's single-image
-path, ``monodepth/script.py:8-10``), the weight carrier that reads the JAX
-package's flax checkpoints (``monodepth_*.npz``) with numpy alone, and
-``predict_disparity``. The network is cuDNN convolutions on the card: flax
-computes it on XLA, with no Pallas kernel to port. TF32 is off inside the
-forward pass, as flax on a CPU computes in float32.
+path, ``monodepth/script.py:8-10``), the weight carrier that reads and
+writes the JAX package's flax checkpoints (``monodepth_*.npz``) with numpy
+alone, ``predict_disparity``, and the trainers: the self-supervised
+monodepth objective (``monodepth_loss``) and the distillation from the
+port's own stereo matcher (``distillation_loss``), under autograd and
+optax's Adam (``models/optim.py``). The network is cuDNN convolutions on
+the card: flax computes it on XLA, with no Pallas kernel to port. TF32 is
+off inside the forward pass, and around a whole train step (forward,
+backward and update), as flax on a CPU computes in float32.
 
-Training (``monodepth_loss``, ``distillation_loss``, the trainers) is not
-ported (ROADMAP.md, queue 1 item 6).
+Layout: the JAX package is NHWC, the port NCHW, so a disparity map is
+(B, 2, H, W), channel 0 the left view's. The trainers take the JAX
+package's (N, H, W, 3) scene arrays and permute them once on the device.
 """
 
 from __future__ import annotations
@@ -26,7 +31,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from stereo_match_tpu_torch.models.mccnn import load_params_npz
+from stereo_match_tpu_torch.models.mccnn import (load_params_npz,
+                                                 save_flax_npz)
+from stereo_match_tpu_torch.models.optim import (Adam, LearningRate,
+                                                 make_step)
 from stereo_match_tpu_torch.ops.cuda_kernels import fp32_cudnn
 from stereo_match_tpu_torch.utils.backend import entry_device
 
@@ -258,3 +266,234 @@ def predict_disparity(model: MonodepthNet, image,
     Hp, Wp = -(-H // s) * s, -(-W // s) * s
     padded = F.pad(x, (0, Wp - W, 0, Hp - H), mode="replicate")
     return model(padded)[0][0, 0, :H, :W] * W
+
+
+# ----------------------------------------------------------- checkpoints ----
+
+def to_flax_params(model: MonodepthNet) -> dict:
+    """``model`` -> its flax parameter tree of numpy float32 arrays, the
+    inverse of :func:`from_flax_params`: blocks[i] under
+    ``params/ConvBlock_{i}/Conv_0``, the heads under ``params/disp0`` and
+    ``params/disp1``, kernels HWIO (``permute(2, 3, 1, 0)``)."""
+    names = [f"ConvBlock_{i}" for i in range(len(model.blocks))]
+
+    def layer(conv: nn.Conv2d) -> dict:
+        return {"kernel": conv.weight.detach().permute(2, 3, 1, 0).cpu()
+                .numpy(), "bias": conv.bias.detach().cpu().numpy()}
+
+    tree = {name: {"Conv_0": layer(block.conv)}
+            for name, block in zip(names, model.blocks)}
+    tree["disp0"], tree["disp1"] = layer(model.disp0), layer(model.disp1)
+    return {"params": tree}
+
+
+def save_params_npz(path: str | Path, model: MonodepthNet) -> Path:
+    """``model``'s weights as a flax ``.npz`` that :func:`load_params_npz`
+    and the JAX package's ``load_params_npz`` read (its ``infer_arch``
+    finds the arch); returns the path written."""
+    return save_flax_npz(path, to_flax_params(model))
+
+
+# -------------------------------------------------------------- training ----
+
+def _warp_horizontal(img: torch.Tensor, disp_frac: torch.Tensor,
+                     direction: float) -> torch.Tensor:
+    """Bilinear warp of (B, C, H, W) along x by a (B, 1, H, W) per-pixel
+    disparity in width fractions, clamped at the borders."""
+    B, C, H, W = img.shape
+    x = torch.arange(W, dtype=torch.float32, device=img.device)
+    xs = x + direction * disp_frac[:, 0] * W
+    x0 = torch.floor(xs)
+    f = (xs - x0)[:, None]
+    x0i = torch.clamp(x0.long(), 0, W - 1)
+    x1i = torch.clamp(x0i + 1, 0, W - 1)
+    g0 = torch.gather(img, 3, x0i[:, None].expand(B, C, H, W))
+    g1 = torch.gather(img, 3, x1i[:, None].expand(B, C, H, W))
+    return g0 * (1 - f) + g1 * f
+
+
+def _ssim(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Simplified 3x3 mean-pooled SSIM (monodepth's appearance term), as a
+    dissimilarity in [0, 1]; VALID pooling."""
+    def pool(x):
+        return F.avg_pool2d(x, 3, 1)
+    mu_a, mu_b = pool(a), pool(b)
+    sa = pool(a * a) - mu_a ** 2
+    sb = pool(b * b) - mu_b ** 2
+    sab = pool(a * b) - mu_a * mu_b
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    ssim = ((2 * mu_a * mu_b + c1) * (2 * sab + c2)) / (
+        (mu_a ** 2 + mu_b ** 2 + c1) * (sa + sb + c2))
+    return torch.clamp((1 - ssim) / 2, 0, 1)
+
+
+def _smoothness(disp: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
+    """Edge-aware smoothness of a (B, 1, H, W) disparity on its (B, C, H,
+    W) image."""
+    dx_d = torch.abs(disp[..., 1:] - disp[..., :-1])
+    dy_d = torch.abs(disp[..., 1:, :] - disp[..., :-1, :])
+    dx_i = torch.mean(torch.abs(img[..., 1:] - img[..., :-1]), 1,
+                      keepdim=True)
+    dy_i = torch.mean(torch.abs(img[..., 1:, :] - img[..., :-1, :]), 1,
+                      keepdim=True)
+    return (torch.mean(dx_d * torch.exp(-dx_i))
+            + torch.mean(dy_d * torch.exp(-dy_i)))
+
+
+def monodepth_loss(model: MonodepthNet, left: torch.Tensor,
+                   right: torch.Tensor, alpha_ssim: float = 0.85,
+                   w_smooth: float = 0.1, w_lr: float = 1.0) -> torch.Tensor:
+    """The monodepth self-supervised objective on a rectified pair.
+
+    left/right: (B, 3, H, W) in [0, 1]. At each scale: SSIM + L1 of each
+    view rebuilt from the other by its disparity, edge-aware smoothness of
+    the left disparity, and the left-right consistency of the two maps.
+    """
+    total = 0.0
+    for scale, d in enumerate(model(left)):
+        factor = 2 ** scale
+        l = left[..., ::factor, ::factor]
+        r = right[..., ::factor, ::factor]
+        dl, dr = d[:, :1], d[:, 1:]
+        # rebuild left from right by sampling at x - d (d = x_l - x_r)
+        recon_l = _warp_horizontal(r, dl, -1.0)
+        recon_r = _warp_horizontal(l, dr, +1.0)
+        ap_l = alpha_ssim * torch.mean(_ssim(recon_l, l)) \
+            + (1 - alpha_ssim) * torch.mean(torch.abs(recon_l - l))
+        ap_r = alpha_ssim * torch.mean(_ssim(recon_r, r)) \
+            + (1 - alpha_ssim) * torch.mean(torch.abs(recon_r - r))
+        dr_warped = _warp_horizontal(dr, dl, -1.0)
+        lr = torch.mean(torch.abs(dl - dr_warped))
+        sm = _smoothness(dl, l) / factor
+        total = total + ap_l + ap_r + w_smooth * sm + w_lr * lr
+    return total
+
+
+def distillation_loss(model: MonodepthNet, left: torch.Tensor,
+                      target_frac: torch.Tensor, valid: torch.Tensor,
+                      w_smooth: float = 0.05) -> torch.Tensor:
+    """Stereo distillation: L1 to a stereo matcher's disparity.
+
+    ``left`` (B, 3, H, W) in [0, 1]; ``target_frac`` (B, H, W) pseudo-label
+    disparity in width fractions from the port's own stereo matcher (no
+    ground truth); ``valid`` (B, H, W), where the label exists. Both decoder
+    scales are supervised; edge-aware smoothness fills in where the label
+    is missing.
+    """
+    total = 0.0
+    for scale, d in enumerate(model(left)):
+        f = 2 ** scale
+        l = left[..., ::f, ::f]
+        t = target_frac[..., ::f, ::f]
+        v = valid[..., ::f, ::f].to(torch.float32)
+        l1 = torch.sum(torch.abs(d[:, 0] - t) * v) / torch.clamp_min(
+            torch.sum(v), 1.0)
+        sm = _smoothness(d[:, :1], l) / f
+        total = total + l1 + w_smooth * sm
+    return total
+
+
+def make_train_step(model: MonodepthNet, optimizer: torch.optim.Optimizer,
+                    loss=monodepth_loss):
+    """``(*batch) -> loss``: one step of ``optimizer`` (over ``model``'s
+    parameters, which must take gradients) on ``loss(model, *batch)``
+    (:func:`monodepth_loss` on (left, right), or :func:`distillation_loss`
+    on (left, target, valid)), in full float32 (``optim.make_step``)."""
+    return make_step(lambda *batch: loss(model, *batch), optimizer)
+
+
+@contextlib.contextmanager
+def _training(model: MonodepthNet, device):
+    """``model`` on ``device`` with gradients on, off again afterwards (the
+    inference state of :func:`make_model`)."""
+    dev = entry_device(device)
+    model.to(dev).requires_grad_(True)
+    try:
+        yield dev
+    finally:
+        model.requires_grad_(False)
+
+
+def _nchw(x, dev: torch.device, dtype=torch.float32) -> torch.Tensor:
+    """(N, H, W, C) array or tensor -> (N, C, H, W) on ``dev``, one copy."""
+    return torch.as_tensor(x).to(dev, dtype).permute(0, 3, 1, 2) \
+        .contiguous()
+
+
+def train(model: MonodepthNet, pairs, learning_rate: LearningRate = 1e-4,
+          device: torch.device | str = "cuda"
+          ) -> tuple[MonodepthNet, list[float]]:
+    """Adam on :func:`monodepth_loss` over an iterable of (left, right)
+    batches, (B, H, W, 3) in [0, 1] as the JAX trainer takes them; returns
+    ``(model, losses)``, the model moved to ``device`` (the card unless the
+    caller asks for the CPU) and trained in place."""
+    with _training(model, device) as dev:
+        step = make_train_step(model, Adam(model.parameters(),
+                                           learning_rate))
+        losses = [step(_nchw(left, dev), _nchw(right, dev))
+                  for left, right in pairs]
+    return model, torch.stack(losses).tolist() if losses else []
+
+
+def _run_chunks(step, batch_at, steps: int, chunk: int) -> list[float]:
+    """``step(*batch_at(i))`` for i < steps - steps % chunk (the JAX
+    trainers run whole chunks only, so the trailing steps are dropped);
+    the losses are read once a chunk."""
+    losses = []
+    for s0 in range(0, steps - steps % chunk, chunk):
+        out = [step(*batch_at(i)) for i in range(s0, s0 + chunk)]
+        losses.extend(torch.stack(out).tolist())
+    return losses
+
+
+def train_on_device(model: MonodepthNet, lefts, rights, picks,
+                    learning_rate: LearningRate = 1e-4, chunk: int = 100,
+                    device: torch.device | str = "cuda"
+                    ) -> tuple[MonodepthNet, list[float]]:
+    """Device-resident training on :func:`monodepth_loss`: the scene pool
+    ``lefts``/``rights`` ((N, H, W, 3) float32 in [0, 1]) is uploaded once
+    and each step's batch gathered on the device by ``picks`` ((steps,
+    batch) scene indices). As in the JAX trainer, ``steps - steps % chunk``
+    steps run, ``chunk`` steps between host reads of the losses."""
+    with _training(model, device) as dev:
+        lefts, rights = _nchw(lefts, dev), _nchw(rights, dev)
+        picks = torch.as_tensor(picks).to(dev, torch.long)
+        step = make_train_step(model, Adam(model.parameters(),
+                                           learning_rate))
+        losses = _run_chunks(step, lambda i: (lefts[picks[i]],
+                                              rights[picks[i]]),
+                             picks.shape[0], chunk)
+    return model, losses
+
+
+def train_distilled_on_device(model: MonodepthNet, lefts, targets_frac,
+                              valids, picks,
+                              learning_rate: LearningRate = 1e-4,
+                              chunk: int = 100, flips=None,
+                              device: torch.device | str = "cuda"
+                              ) -> tuple[MonodepthNet, list[float]]:
+    """Device-resident training on :func:`distillation_loss` (see
+    :func:`train_on_device`): ``lefts`` (N, H, W, 3), ``targets_frac`` and
+    ``valids`` (N, H, W). ``flips``: optional (steps, batch) bools that
+    mirror those samples and their labels horizontally (augmentation; the
+    image -> disparity map is flip-equivariant)."""
+    with _training(model, device) as dev:
+        lefts = _nchw(lefts, dev)
+        targets = torch.as_tensor(targets_frac).to(dev, torch.float32)
+        valids = torch.as_tensor(valids).to(dev, torch.bool)
+        picks = torch.as_tensor(picks).to(dev, torch.long)
+        flips = torch.zeros(picks.shape, dtype=torch.bool, device=dev) \
+            if flips is None else torch.as_tensor(flips).to(dev, torch.bool)
+
+        def batch_at(i: int):
+            idx, flip = picks[i], flips[i][:, None, None]
+            l, t, v = lefts[idx], targets[idx], valids[idx]
+            return (torch.where(flip[:, None], l.flip(3), l),
+                    torch.where(flip, t.flip(2), t),
+                    torch.where(flip, v.flip(2), v))
+
+        step = make_train_step(model, Adam(model.parameters(),
+                                           learning_rate),
+                               distillation_loss)
+        losses = _run_chunks(step, batch_at, picks.shape[0], chunk)
+    return model, losses

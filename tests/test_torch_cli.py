@@ -276,10 +276,43 @@ def test_stream_cli(tmp_path):
     assert rcs == (1, 1)
 
 
-def test_train_and_benchmark_exit_2(tmp_path, capsys):
-    assert tmain(["train-mccnn", "--left", "l.png", "--right", "r.png",
-                  "--gt", "g.npy"]) == 2
-    assert "queue 1 item 6" in capsys.readouterr().err
+def test_train_and_benchmark_exit_2(pair_files, tmp_path, capsys):
+    """`train-mccnn` trains and writes a flax-layout .npz (a bare --output
+    name gets .npz appended) that `match --method mccnn
+    --mccnn_checkpoint` of both packages reads; `benchmark` exits 2 (the
+    port has no benchmark yet). The name dates from when `train-mccnn`
+    exited 2 as well; it is kept so that the test's record follows it."""
+    lp, rp = pair_files
+    np.save(tmp_path / "gt.npy", box_scene(48, 64))
+    assert tmain(["train-mccnn", "--left", lp, "--right", rp, "--gt",
+                  str(tmp_path / "gt.npy"), "--samples", "256", "--patch",
+                  "12", "--batch_size", "128", "--epochs", "2", "--output",
+                  str(tmp_path / "ckpt"), "--device", "cpu"]) == 0
+    ckpt = tmp_path / "ckpt.npz"
+    out = capsys.readouterr().out
+    assert "trained 4 steps" in out and str(ckpt) in out
+    from stereo_match_tpu.models.mccnn import load_params_npz
+    from stereo_match_tpu_torch.models import mccnn as tm
+    params = load_params_npz(str(ckpt))
+    assert sorted(params["params"]) == [f"conv{i}" for i in range(4)]
+    assert params["params"]["conv1"]["kernel"].shape == (3, 3, 64, 64)
+    rcs, _ = _both(lambda k: ["match", "--left", lp, "--right", rp,
+                              "--num_disparities", "16", "--method",
+                              "mccnn", "--mccnn_checkpoint", str(ckpt),
+                              "--disp_out", str(tmp_path / f"{k}.png")])
+    assert rcs == (0, 0)
+    got, want = (np.load(tmp_path / f"{k}.png.npy") for k in "tj")
+    assert _agreement(got, want) >= AGREE, _agreement(got, want)
+    from stereo_match_tpu_torch.config import load_settings
+    from stereo_match_tpu_torch.costs import MCCNNCost
+    from stereo_match_tpu_torch.pipeline.stereo import StereoMatcher
+    cfg = load_settings(None, {"num_disparities": 16}).replace(cost="mccnn")
+    model = tm.from_flax_params(tm.load_params_npz(ckpt), "fast")
+    left, right = (image_read(p, grayscale=True).astype(np.float32)
+                   for p in (lp, rp))
+    _, direct = StereoMatcher(cfg, cost_fn=MCCNNCost(model, cfg),
+                              device="cpu")(left, right)
+    np.testing.assert_array_equal(got, direct.numpy())
     assert tmain(["benchmark"]) == 2
     assert "benchmark" in capsys.readouterr().err
 

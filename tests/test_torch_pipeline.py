@@ -182,8 +182,8 @@ def test_default_config_and_bm_raise():
 def test_port_imports_no_jax():
     """Every submodule of the port, then the census, MC-CNN (random
     weights), BT, BM, ELAS, flagship and monodepth (shipped weights) paths
-    on the CPU: neither JAX nor any module of the JAX package gets
-    loaded."""
+    and one train step of each model on the CPU: neither JAX nor any
+    module of the JAX package gets loaded."""
     code = (
         "import importlib, pkgutil, sys, numpy as np\n"
         "import stereo_match_tpu_torch as pkg\n"
@@ -210,7 +210,11 @@ def test_port_imports_no_jax():
         "'stereo_match_tpu_torch.eval.parity', "
         "'stereo_match_tpu_torch.utils.handy', "
         "'stereo_match_tpu_torch.utils.profiling', "
-        "'stereo_match_tpu_torch.viz.plots'}\n"
+        "'stereo_match_tpu_torch.viz.plots', "
+        "'stereo_match_tpu_torch.models.optim', "
+        "'stereo_match_tpu_torch.core.calibration', "
+        "'stereo_match_tpu_torch.tools.train_mccnn', "
+        "'stereo_match_tpu_torch.tools.train_monodepth'}\n"
         "assert need <= set(names), need - set(names)\n"
         "from stereo_match_tpu_torch.config import DisparityConfig\n"
         "from stereo_match_tpu_torch.costs import MCCNNCost\n"
@@ -250,6 +254,15 @@ def test_port_imports_no_jax():
         "model = monodepth.load_default(device='cpu')\n"
         "d = monodepth.predict_disparity(model, np.stack([img] * 3, -1))\n"
         "assert d.shape == (24, 40) and d.isfinite().all()\n"
+        "from stereo_match_tpu_torch.models import mccnn\n"
+        "p = rng.normal(size=(4, 12, 12)).astype(np.float32)\n"
+        "tower, ls = mccnn.train(mccnn.make_model((8, 2), seed=0), "
+        "[(p, p[::-1].copy(), p[:, ::-1].copy())], 1e-3, device='cpu')\n"
+        "assert len(ls) == 1 and np.isfinite(ls[0])\n"
+        "x = rng.uniform(0, 1, (1, 32, 48, 3)).astype(np.float32)\n"
+        "net, ls = monodepth.train(monodepth.make_model('small'), "
+        "[(x, x[:, :, ::-1].copy())], 1e-4, device='cpu')\n"
+        "assert len(ls) == 1 and np.isfinite(ls[0])\n"
         "assert 'jax' not in sys.modules, 'the port imported jax'\n"
         "ref = [m for m in sys.modules if m == 'stereo_match_tpu' or "
         "m.startswith('stereo_match_tpu.')]\n"
