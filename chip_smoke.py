@@ -5,6 +5,9 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+(Phase 4i starts this script twice more, as the two ranks of a process
+group, with ``--multihost-rank``.)
+
 Phases, each of which raises (exit code 1, no result lines) on failure:
 
 1. device: the card must be a Hopper (sm_90); prints its name and power limit.
@@ -99,8 +102,10 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    device list repeating the card: exact bit-equal to the whole-frame K3
    total and to the plain chain (float32 and int16), halo 48 agreeing on
    the argmin for
-   >= 0.985 of the pixels; ``StreamingPipeline`` with 4 stages on one card
-   over 6 frames, volume and census payloads: the float32 wire bit-equal to
+   >= 0.985 of the pixels; ``StreamingPipeline`` with 4 stages on the
+   device list cuda:{k % cards}, k < 4 (as 4i: one card repeated, or four
+   cards), printed, over 6 frames, volume and census payloads: the float32
+   wire bit-equal to
    ``_match_core`` frame by frame, the int16 wire bit-equal to the float32
    run with the 1024 sentinel, a 2-stage run with speckle 100 + WLS within
    1e-5 (raw) and 5e-3 (filtered); ``StereoMatcher`` with
@@ -174,6 +179,37 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    the same launches, wall ms of each; ``calibrate_camera`` on synthetic
    views (``tests/test_calibration.py``'s bars) and ``undistort_image``
    at 1242x375 on the card within 1e-3 gray levels of the CPU's.
+4i. multi-device, on the device list cuda:{k % cards} for k < 4 (4 cards:
+   one shard each; one card: the list repeats it), printed: K1 and K2 over
+   32-plane slices at min_d 0, 32, 64, 96, K3 over 96-row blocks (exact
+   carries and halo 48) and K4 a block, each bit-equal to its plain
+   version at 1242x384, float32 and int16; ``match_dsharded`` at KITTI
+   D=128 over 4 shards, float32 and int16, exact and halo 48, with exact
+   launch counts (K1 4, K2 4, K3 32, K4 4), bit-equal to the same call on
+   the plain versions, bad-3px < 0.05 and density > 0.8 (its agreement
+   with ``_match_core`` printed: the padded rows), at 1242x384 (no
+   padding) in exact mode bit-equal to ``StereoMatcher``, and its peak
+   memory on each card beside ``_match_core``'s; ``wta_dsharded`` on the
+   headline total bit-equal to K4 ``wta_lr`` (no launch: plain torch);
+   ``batched_matcher_multihost`` over 2 simulated hosts x 2 chips, 8 KITTI
+   frames each bit-equal to ``_match_core`` (K1 8, K2 8, K3 64, K4 8),
+   then in 2 processes (this script with ``--multihost-rank``: nccl with a
+   card a rank when 2 or more cards are visible, else gloo on the one
+   card, said on its own line), each loading and matching its own frames,
+   the rows gathered by ``all_gather`` bit-equal to the one-process run;
+   the MC-CNN fast mesh trainer (data 2 x model 2, 512 triplets of 16x16)
+   against the single-device trainer on the card: its first step's loss
+   and gradients (on the mesh's branch, the flips counted) within
+   MESH_LOSS_RTOL and MESH_GRAD_RTOL, a TF32 backward missing the latter;
+   3 steps within MESH_STEP_RTOL and MESH_MOVE_RTOL of the single-device
+   and of the CPU trainer (the single-device trainer on the batches
+   permuted printed as the floor), a learning rate TRAIN_LR_FAULT off
+   missing them; gradients and Adam's state on each slice's device; then the ms a frame of each
+   ``match_dsharded`` beside ``_match_core``'s, of ``wta_dsharded``, the
+   multihost frames/s and the mesh train step's ms (host clock, every
+   card synchronised), and K1, K2, K3 and K4 at the shard shapes beside
+   the whole frame's (CUDA events). (The stream over the device list is
+   4e's.)
 5. timing with CUDA events after a warm-up: frames/s of the main path with
    the kernels and with the plain versions at KITTI shape, and with the
    kernels at 720p; each kernel's time beside its plain version's and its
@@ -225,6 +261,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -688,6 +725,54 @@ def flat_params(tree) -> np.ndarray:
     return np.ravel(np.asarray(tree, np.float64))
 
 
+def tf32_scope(x):
+    """The step without ``float32_scope``: cuDNN's default TF32 (the
+    layers' own FP32 scopes close before their backward runs)."""
+    return torch.backends.cudnn.flags(enabled=True, allow_tf32=True)
+
+
+def hinge_branch(model, batch, signs=None, margin=0.2):
+    """``mccnn.hinge_loss`` as ``tower_plain`` computes it, each ReLU's
+    and the hinge's active set taken from ``signs`` where given, else
+    from the pre-activations: ``(loss, signs)``. With another run's
+    signs its gradient is that of the branch the other run took."""
+    from stereo_match_tpu_torch.models.optim import float32_scope
+    n = batch[0].shape[0]
+    h, out = torch.cat(batch)[:, None], []
+    with float32_scope(h):
+        for i in range(model.num_layers):
+            z = torch.nn.functional.conv2d(h, model.weights[i],
+                                           model.biases[i], padding=1)
+            if i == model.num_layers - 1:
+                h = z / torch.sqrt(torch.sum(z * z, 1, keepdim=True)
+                                   + 1e-12)
+                break
+            out.append(z > 0 if signs is None else signs[i])
+            h = z * out[-1].to(z.dtype)
+        c = h.shape[2] // 2
+        fa, fp, fn = h[:, :, c, c].split(n)
+        x = margin + torch.sum(fa * fn, -1) - torch.sum(fa * fp, -1)
+        out.append(x > 0 if signs is None else signs[-1])
+        return torch.mean(x * out[-1].to(x.dtype)), out
+
+
+def grads_of(model, loss_fn, batch, scope):
+    """``(loss, gradients)`` of ``loss_fn(model, *batch)`` under ``scope``,
+    the gradients on the host in float64."""
+    model.requires_grad_(True)
+    with scope(batch[0]):
+        loss = loss_fn(model, *batch)
+        loss.backward()
+    return float(loss.detach()), [q.grad.detach().cpu().double()
+                                  for q in model.parameters()]
+
+
+def grad_err(got, want) -> float:
+    """The largest gradient error, each over its reference's norm."""
+    return max(float((g - w).abs().max() / w.norm())
+               for g, w in zip(got, want))
+
+
 def phase_4h(dev: torch.device, card: str) -> None:
     """4h. training on the card: MC-CNN and monodepth at their recipes'
     widths, card against CPU, their times; the MC-CNN recipe end to end
@@ -740,46 +825,6 @@ def phase_4h(dev: torch.device, card: str) -> None:
         return (f"load average {os.getloadavg()[0]}, "
                 f"{len(os.listdir('/proc/self/task'))} threads in the "
                 f"process, torch {torch.get_num_threads()} CPU threads")
-
-    def tf32_scope(x):
-        """The step without ``float32_scope``: cuDNN's default TF32 (the
-        layers' own FP32 scopes close before their backward runs)."""
-        return torch.backends.cudnn.flags(enabled=True, allow_tf32=True)
-
-    def hinge_branch(model, batch, signs=None, margin=0.2):
-        """``mccnn.hinge_loss`` as ``tower_plain`` computes it, each ReLU's
-        and the hinge's active set taken from ``signs`` where given, else
-        from the pre-activations: ``(loss, signs)``. With another run's
-        signs its gradient is that of the branch the other run took."""
-        n = batch[0].shape[0]
-        h, out = torch.cat(batch)[:, None], []
-        with float32_scope(h):
-            for i in range(model.num_layers):
-                z = torch.nn.functional.conv2d(h, model.weights[i],
-                                               model.biases[i], padding=1)
-                if i == model.num_layers - 1:
-                    h = z / torch.sqrt(torch.sum(z * z, 1, keepdim=True)
-                                       + 1e-12)
-                    break
-                out.append(z > 0 if signs is None else signs[i])
-                h = z * out[-1].to(z.dtype)
-            c = h.shape[2] // 2
-            fa, fp, fn = h[:, :, c, c].split(n)
-            x = margin + torch.sum(fa * fn, -1) - torch.sum(fa * fp, -1)
-            out.append(x > 0 if signs is None else signs[-1])
-            return torch.mean(x * out[-1].to(x.dtype)), out
-
-    def grads_of(model, loss_fn, batch, scope):
-        model.requires_grad_(True)
-        with scope(batch[0]):
-            loss = loss_fn(model, *batch)
-            loss.backward()
-        return float(loss.detach()), [q.grad.detach().cpu().double()
-                                      for q in model.parameters()]
-
-    def grad_err(got, want) -> float:
-        return max(float((g - w).abs().max() / w.norm())
-                   for g, w in zip(got, want))
 
     def card_vs_cpu(what, arch, make, loss_fn, cpu_batch, card_batch,
                     train, to_flax, lr, branch=False) -> str:
@@ -1125,6 +1170,572 @@ def phase_4h(dev: torch.device, card: str) -> None:
           f"levels off the CPU's ({card})")
 
 
+SHARDS = 4          # phase 4i: the device list is cuda:{k % cards}, k < 4
+MULTIHOST_FRAMES = 8
+UNPADDED_H = 384    # KITTI's width at a height every 4i unit divides
+
+
+# The mesh trainer (phase 4i) against the single-device trainer, both on
+# the card in full float32, from the same weights and batches; bars set
+# from their readings (PERF.md §6, PR 15).
+# * The first step: the loss within MESH_LOSS_RTOL relative, every gradient
+#   (the slices joined) within MESH_GRAD_RTOL of its norm, the single-device
+#   gradient taken on the mesh's branch (``hinge_branch`` with the ReLU and
+#   hinge signs of the mesh's forward, ``mesh_branch``; the flips are
+#   counted). Control: the mesh step with TF32 in the backward (without
+#   ``float32_scope``) must miss MESH_GRAD_RTOL.
+# * 3 steps: the losses within MESH_STEP_RTOL and the weights' move within
+#   MESH_MOVE_RTOL of the single-device trainer's on the card and of the
+#   CPU trainer's. From first gradients within 2e-6 of each other, Adam
+#   moves a weight whose gradient is at the rounding level of its sum by
+#   O(lr) either way, so two float32 runs that sum in other orders drift
+#   apart by up to 1e-2 of the move; the single-device trainer on the
+#   batches permuted (the same loss) is printed beside the mesh as that
+#   floor. Control: the mesh trainer with the learning rate TRAIN_LR_FAULT
+#   off must miss a bar.
+MESH_LOSS_RTOL = 1e-6
+MESH_GRAD_RTOL = 1e-5
+MESH_STEP_RTOL = 5e-4
+MESH_MOVE_RTOL = 0.02
+
+
+def spread(n: int) -> list[torch.device]:
+    """The device list cuda:{k % cards}, k < n: n distinct cards where that
+    many are visible, else the visible cards repeated (phases 4e and 4i)."""
+    cards = torch.cuda.device_count()
+    return [torch.device("cuda", k % cards) for k in range(n)]
+
+
+def wall_ms(fn, reps: int, devices) -> float:
+    """Mean milliseconds of ``fn()`` by the host's clock, every card of
+    ``devices`` synchronised before and after (the time of work spread
+    over several cards)."""
+    def sync():
+        for d in devices:
+            torch.cuda.synchronize(d)
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+@contextlib.contextmanager
+def plain_kernels(module, *names):
+    """``module``'s calls of the kernel wrappers ``names`` run their plain
+    versions (same arguments, no launch)."""
+    from stereo_match_tpu_torch.ops import cuda_kernels as K
+    saved = {name: getattr(module, name) for name in names}
+    try:
+        for name in names:
+            setattr(module, name, getattr(K, f"{name}_plain"))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def bit_equal(a: torch.Tensor, b: torch.Tensor, what: str) -> float:
+    """Check two disparity maps for the same NaN mask and equal values
+    (``b`` brought to ``a``'s device); returns the max |diff| (0.0 once
+    both checks pass)."""
+    b = b.to(a.device)
+    check(torch.equal(torch.isnan(a), torch.isnan(b)),
+          f"{what}: NaN masks differ")
+    check(torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)),
+          f"{what}: values differ")
+    return float((a - b).abs().nan_to_num(0.0).max())
+
+
+def kitti_frame(i: int, H: int | None = None):
+    """The i-th KITTI-width frame of phase 4i (i = 0: the seed-1 scene), of
+    KITTI's height unless ``H`` is given."""
+    from stereo_match_tpu_torch.data.synthetic import (random_dot_pair,
+                                                       slanted_scene)
+    H = KITTI["H"] if H is None else H
+    gt = slanted_scene(H, KITTI["W"], KITTI["d_min"], KITTI["d_max"] - i)
+    left, right = random_dot_pair(H, KITTI["W"], gt, blur=1.0,
+                                  seed=KITTI["seed"] + i)
+    return left, right, gt
+
+
+def mesh_branch(tower, batch, margin=0.2) -> list[torch.Tensor]:
+    """The ReLU and hinge signs of the mesh trainer's forward on ``batch``
+    as ``ShardedTower.features`` computes it (data row r takes triplets
+    [r N / R, (r + 1) N / R), each "model" device its output channels of
+    every layer), in ``hinge_branch``'s order, on the mesh's first
+    device."""
+    from stereo_match_tpu_torch.ops.cuda_kernels import fp32_cudnn
+    N, rows = batch[0].shape[0], tower.mesh.shape["data"]
+    per, dev0, signs = N // rows, tower.mesh.devices[0, 0], None
+    with torch.no_grad():
+        for r in range(rows):
+            part = torch.arange(r * per, (r + 1) * per)
+            devs = list(tower.mesh.devices[r])
+            h = torch.cat([x[part.to(x.device)] for x in batch])[:, None]
+            out = []
+            for i in range(tower.num_layers):
+                z = []
+                for m, d in enumerate(devs):
+                    with fp32_cudnn():
+                        z.append(torch.nn.functional.conv2d(
+                            h.to(d), *tower.slices[r][m][i], padding=1)
+                            .to(devs[0]))
+                z = torch.cat(z, 1)
+                if i == tower.num_layers - 1:
+                    h = z / torch.sqrt(torch.sum(z * z, 1, keepdim=True)
+                                       + 1e-12)
+                    break
+                out.append(z > 0)
+                h = torch.relu(z)
+            c = h.shape[2] // 2
+            fa, fp, fn = h[:, :, c, c].split(per)
+            out.append(margin + torch.sum(fa * fn, -1)
+                       - torch.sum(fa * fp, -1) > 0)
+            if signs is None:
+                signs = [torch.empty((3 * N,) + o.shape[1:], dtype=torch.bool,
+                                     device=dev0) for o in out[:-1]]
+                signs.append(torch.empty(N, dtype=torch.bool, device=dev0))
+            at = torch.cat([part + k * N for k in range(3)]).to(dev0)
+            for sign, o in zip(signs[:-1], out[:-1]):
+                sign[at] = o.to(dev0)
+            signs[-1][part.to(dev0)] = out[-1].to(dev0)
+    return signs
+
+
+def multihost_rank(argv: list[str]) -> int:
+    """One rank of phase 4i's two-process run: ``--multihost-rank RANK
+    PORT BACKEND OUT``. Joins the group, loads its own half of the
+    frames, matches them on its card, gathers every rank's rows to rank 0,
+    which writes them to ``OUT``."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from stereo_match_tpu_torch.config import DisparityConfig
+    from stereo_match_tpu_torch.parallel import (batched_matcher_multihost,
+                                                 initialize_multihost,
+                                                 load_host_sharded,
+                                                 make_host_mesh)
+    rank, port, backend, out = int(argv[0]), argv[1], argv[2], argv[3]
+    initialize_multihost(f"127.0.0.1:{port}", 2, rank, backend)
+    try:
+        mesh = make_host_mesh()        # this rank's visible card
+        check(mesh.shape == {"host": 2, "chip": 1}, f"mesh {mesh.shape}")
+        loaded = {}
+
+        def load(i, view):
+            if i not in loaded:
+                loaded[i] = kitti_frame(i)
+            return loaded[i][view]
+
+        shape = (KITTI["H"], KITTI["W"])
+        n = MULTIHOST_FRAMES
+        lb = load_host_sharded(lambda i: load(i, 0), n, mesh, shape)
+        rb = load_host_sharded(lambda i: load(i, 1), n, mesh, shape)
+        mine = list(range(rank * n // 2, (rank + 1) * n // 2))
+        check(sorted(loaded) == mine, f"rank {rank} loaded {sorted(loaded)}")
+        cfg = DisparityConfig(num_disparities=KITTI["D"], cost="census",
+                              uniqueness_ratio=15, disp12_max_diff=1,
+                              wls=False, speckle_window_size=0)
+        fn = batched_matcher_multihost(cfg, mesh)
+        fn(lb, rb)
+        dev = lb.shards[0].device
+        ms = wall_ms(lambda: fn(lb, rb), 3, [dev])
+        local = fn(lb, rb)[0].local()
+        if backend == "gloo":          # gloo gathers host tensors
+            local = local.cpu()
+        parts = [torch.empty_like(local) for _ in range(2)]
+        dist.all_gather(parts, local)
+        if rank == 0:
+            np.save(out, torch.cat(parts).cpu().numpy())
+        check("jax" not in sys.modules, "the rank imported jax")
+        print(f"[4i] rank {rank} ({backend}, {dev}, "
+              f"{torch.cuda.get_device_name(dev)}): matched frames {mine} in "
+              f"{ms} ms ({len(mine) / ms * 1e3} frames/s), gathered "
+              f"{tuple(torch.cat(parts).shape)}")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_4i(dev: torch.device, card: str) -> None:
+    """4i. multi-device: the D-sharded matcher, the sharded WTA, the
+    multihost matcher in one process and in two, and the MC-CNN mesh
+    trainer, on the device list cuda:{k % cards}, k < SHARDS."""
+    from stereo_match_tpu_torch.config import DisparityConfig
+    from stereo_match_tpu_torch.costs import census_cost
+    from stereo_match_tpu_torch.eval.metrics import bad_pixel_rate, density
+    from stereo_match_tpu_torch.models import mccnn
+    from stereo_match_tpu_torch.models.optim import Adam, float32_scope
+    from stereo_match_tpu_torch.ops import cuda_kernels as K
+    from stereo_match_tpu_torch.parallel import dsharding
+    from stereo_match_tpu_torch.ops.sgm import PATH_DIRECTIONS_8
+    from stereo_match_tpu_torch.parallel import (batched_matcher_multihost,
+                                                 load_host_sharded,
+                                                 make_host_mesh)
+    from stereo_match_tpu_torch.parallel.mesh import named_mesh
+    from stereo_match_tpu_torch.parallel.tiling import sgm_aggregate_blocks
+    from stereo_match_tpu_torch.pipeline.stereo import (StereoMatcher,
+                                                        _match_core)
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    devices = spread(SHARDS)
+    cards = sorted(set(devices), key=lambda d: d.index)
+    where = f"on {[str(d) for d in devices]}"
+    print(f"[4i] device list {[str(d) for d in devices]}: {n_cards} card(s) "
+          f"visible ({card})")
+
+    def counts_of(fn):
+        K.reset_launches()
+        out = fn()
+        for d in cards:
+            torch.cuda.synchronize(d)
+        return out, {k: v for k, v in K.launches.items() if v}
+
+    def peaks_of(fn):
+        """(peak bytes above the start on each card of ``cards``)."""
+        for d in cards:
+            torch.cuda.synchronize(d)
+            torch.cuda.reset_peak_memory_stats(d)
+        before = [torch.cuda.memory_allocated(d) for d in cards]
+        fn()
+        for d in cards:
+            torch.cuda.synchronize(d)
+        return [torch.cuda.max_memory_allocated(d) - b
+                for d, b in zip(cards, before)]
+
+    mesh = dsharding.make_disp_mesh(devices=devices)
+    headline = DisparityConfig(num_disparities=KITTI["D"], cost="census",
+                               uniqueness_ratio=15, disp12_max_diff=1,
+                               wls=False, speckle_window_size=0)
+    wta_args = (headline.min_disparity, headline.uniqueness_ratio,
+                headline.disp12_max_diff, headline.subpixel)
+    left_np, right_np, gt = kitti_frame(0)
+    left, right = (torch.from_numpy(x).to(dev, torch.float32)
+                   for x in (left_np, right_np))
+    left_u, right_u, _ = kitti_frame(0, UNPADDED_H)
+    left_u, right_u = (torch.from_numpy(x).to(dev, torch.float32)
+                       for x in (left_u, right_u))
+    D, W = KITTI["D"], KITTI["W"]
+    D_loc = D // SHARDS
+
+    # each kernel at the shard shapes, against its plain version
+    for dtype in ("float32", "int16"):
+        k2 = [(dsharding._local_census_volume(left_u, right_u, D_loc, k * D_loc,
+                                              (5, 5), 0, dtype),
+               K.census_volume_plain(*K.census_words_plain(
+                   torch.stack([left_u, right_u]))[:, 0], D_loc, k * D_loc,
+                   dtype)) for k in range(SHARDS)]
+        for k, (got, want) in enumerate(k2):
+            check(torch.equal(got, want), f"K2 {dtype} shard {k} (planes "
+                  f"{k * D_loc}..{(k + 1) * D_loc - 1}) bit-equal")
+        rows = UNPADDED_H // SHARDS
+        blocks = [torch.cat([s[:, j * rows:(j + 1) * rows] for s, _ in k2])
+                  for j in range(SHARDS)]
+        for mode in ("exact", "halo"):
+            got = sgm_aggregate_blocks(blocks, headline.P1, headline.P2, 8,
+                                       mode, 48)
+            want = sgm_aggregate_blocks(blocks, headline.P1, headline.P2, 8,
+                                        mode, 48, K.sgm_path_scan_plain)
+            for j, (g, w) in enumerate(zip(got, want)):
+                check(torch.equal(g, w), f"K3 {dtype} {mode} block {j} "
+                      f"({rows} rows) bit-equal")
+                bit_equal(K.wta_lr(g, *wta_args)[0],
+                          K.wta_lr_plain(g, *wta_args)[0],
+                          f"K4 {dtype} {mode} block {j}")
+        del k2, blocks, got, want
+    imgs_u = torch.stack([left_u, right_u]).contiguous()
+    words_u = K.census_words(imgs_u)
+    slice_u = K.census_volume(words_u[0], words_u[1], D_loc, D_loc)
+    block = K.census_volume(words_u[0, :, :UNPADDED_H // SHARDS],
+                            words_u[1, :, :UNPADDED_H // SHARDS], D)
+    whole = K.census_volume(words_u[0], words_u[1], D)
+    scratch = torch.empty_like(block)
+
+    def block_scans():
+        for i, (dy, dx) in enumerate(PATH_DIRECTIONS_8):
+            K.sgm_path_scan(block, scratch, dy, dx, headline.P1,
+                            headline.P2, i > 0)
+
+    shard_ms = {"K1 both views, whole frame (a shard's)":
+                cuda_ms(lambda: K.census_words(imgs_u), 20),
+                f"K2 {D_loc} planes at min_d {D_loc}":
+                cuda_ms(lambda: K.census_volume(words_u[0], words_u[1],
+                                                D_loc, D_loc), 20),
+                f"K2 {D} planes, whole frame":
+                cuda_ms(lambda: K.census_volume(words_u[0], words_u[1], D),
+                        20),
+                f"K3 8 directions, {UNPADDED_H // SHARDS}-row block":
+                cuda_ms(block_scans, 10),
+                f"K4 wta_lr, {UNPADDED_H // SHARDS}-row block":
+                cuda_ms(lambda: K.wta_lr(block, *wta_args), 20),
+                "K4 wta_lr, whole frame":
+                cuda_ms(lambda: K.wta_lr(whole, *wta_args), 20)}
+    print(f"[timing] kernels at 4i's shard shapes, float32, {W}x"
+          f"{UNPADDED_H} D={D} on {dev}: "
+          f"{'; '.join(f'{k} {v} ms' for k, v in shard_ms.items())} "
+          f"({card})")
+    del words_u, slice_u, block, whole, scratch
+    print(f"[4i] at the shard shapes ({W}x{UNPADDED_H}, the padded height "
+          f"of either dtype): K1 and K2 over {D_loc}-plane slices at min_d "
+          f"0, {D_loc}, {2 * D_loc}, {3 * D_loc}, K3 over "
+          f"{UNPADDED_H // SHARDS}-row "
+          f"blocks with carries (exact) and halo 48, K4 a block: bit-equal "
+          f"to their plain versions, float32 and int16 ({card})")
+
+    # the D-sharded matcher at KITTI, 4 shards
+    want_counts = {"census_words": SHARDS, "census_volume": SHARDS,
+                   "sgm_path_scan": 8 * SHARDS, "wta_lr": SHARDS}
+    core_ms = cuda_ms(lambda: _match_core(left, right, headline), 10)
+    core_peak = peaks_of(lambda: _match_core(left, right, headline))
+    core = _match_core(left, right, headline)[0]
+    timings = {}
+    for dtype in ("float32", "int16"):
+        cfg = headline.replace(dtype=dtype)
+        for mode in ("exact", "halo"):
+            unit = SHARDS * ((8 if dtype == "float32" else 16)
+                             if mode == "exact" else 1)
+            Hp = -(-KITTI["H"] // unit) * unit
+            def run(lv=left, rv=right, cfg=cfg, mode=mode):
+                return dsharding.match_dsharded(lv, rv, cfg, mesh, mode, 48)
+            out, c = counts_of(run)
+            check(c == want_counts, f"match_dsharded {dtype} {mode} "
+                  f"launches {c} != {want_counts}")
+            with plain_kernels(dsharding, "census_words", "census_volume",
+                                "sgm_path_scan", "wta_lr"):
+                plain, c_plain = counts_of(run)
+            check(not c_plain, f"the plain path launched {c_plain}")
+            bit_equal(out, plain, f"match_dsharded {dtype} {mode} vs its "
+                      f"plain path")
+            bad = float(bad_pixel_rate(out.cpu().numpy(), gt, 3.0, 0.0))
+            dens = float(density(out.cpu().numpy()))
+            check(bad < 0.05 and dens > 0.8, f"match_dsharded {dtype} "
+                  f"{mode}: bad-3px {bad}, density {dens}")
+            same = (out.nan_to_num(-1.0) == core.nan_to_num(-1.0))
+            agree = float(same.float().mean())
+            line = ""
+            if mode == "exact":
+                bit_equal(run(left_u, right_u), StereoMatcher(cfg, device=dev)(
+                    left_u, right_u)[0], f"match_dsharded {dtype} at {UNPADDED_H} rows vs "
+                    f"StereoMatcher")
+                line = (f"; at {W}x{UNPADDED_H} (no padding) bit-equal to "
+                        f"StereoMatcher")
+            peaks = peaks_of(run)
+            timings[dtype, mode] = wall_ms(run, 10, cards)
+            print(f"[4i] match_dsharded {dtype} {mode} {label(KITTI)} over "
+                  f"{SHARDS} shards {where}: launches {c}; bit-equal to its "
+                  f"plain path on the card{line}; bad-3px {bad}, density "
+                  f"{dens}; equal to _match_core on {agree} of the pixels "
+                  f"(rows padded to {Hp}); "
+                  f"peak memory by card {dict(zip(map(str, cards), peaks))} "
+                  f"B, _match_core's {core_peak[cards.index(dev)]} B "
+                  f"({card})")
+    del out, plain
+    for (dtype, mode), t in timings.items():
+        print(f"[timing] match_dsharded {dtype} {mode} {label(KITTI)} "
+              f"{where}: {t} ms/frame (host clock, every card synchronised, "
+              f"10 frames after 1); _match_core float32 on {dev} {core_ms} "
+              f"ms/frame (CUDA events) ({card})")
+
+    # the sharded WTA on the headline total
+    vol = census_cost(left, right, headline)
+    total = K.aggregate_paths(vol, headline.P1, headline.P2, 8)
+    del vol
+    want = K.wta_lr(total, *wta_args)[0]
+    got, c = counts_of(lambda: dsharding.wta_dsharded(total, mesh,
+                                                       headline))
+    check(not c, f"wta_dsharded launched {c}: it is plain torch")
+    bit_equal(got, want, "wta_dsharded vs K4 wta_lr")
+    t_wta = wall_ms(lambda: dsharding.wta_dsharded(total, mesh, headline),
+                    5, cards)
+    t_k4 = cuda_ms(lambda: K.wta_lr(total, *wta_args), 20)
+    print(f"[4i] wta_dsharded {label(KITTI)} over {SHARDS} shards {where}: "
+          f"bit-equal to K4 wta_lr's map, no kernel launched ({card})")
+    print(f"[timing] wta_dsharded {label(KITTI)} {where}: {t_wta} ms (plain "
+          f"torch pmin rounds); K4 wta_lr {t_k4} ms ({card})")
+    del total, got, want
+
+    # the multihost matcher: 2 simulated hosts x 2 chips, then 2 processes
+    frames = [kitti_frame(i) for i in range(MULTIHOST_FRAMES)]
+    host_mesh = make_host_mesh(n_hosts=2, devices=devices)
+    shape = (KITTI["H"], KITTI["W"])
+    lb = load_host_sharded(lambda i: frames[i][0], MULTIHOST_FRAMES,
+                           host_mesh, shape)
+    rb = load_host_sharded(lambda i: frames[i][1], MULTIHOST_FRAMES,
+                           host_mesh, shape)
+    fn = batched_matcher_multihost(headline, host_mesh)
+    (raw, _), c = counts_of(lambda: fn(lb, rb))
+    n = MULTIHOST_FRAMES
+    check(c == {"census_words": n, "census_volume": n,
+                "sgm_path_scan": 8 * n, "wta_lr": n},
+          f"multihost matcher launches {c}")
+    single = raw.local(dev)
+    for i, (l, r, _) in enumerate(frames):
+        bit_equal(single[i], _match_core(torch.from_numpy(l).to(dev),
+                                         torch.from_numpy(r).to(dev),
+                                         headline)[0],
+                  f"multihost frame {i} vs _match_core")
+    t_mh = wall_ms(lambda: fn(lb, rb), 3, cards)
+    print(f"[4i] batched_matcher_multihost, 2 simulated hosts x 2 chips "
+          f"{where}, {n} frames {label(KITTI)}: each bit-equal to "
+          f"_match_core; launches {c} ({card})")
+    print(f"[timing] batched_matcher_multihost 2 x 2 {where}: {t_mh} ms for "
+          f"{n} frames = {n / t_mh * 1e3} frames/s (host clock) ({card})")
+
+    backend = "nccl" if n_cards >= 2 else "gloo"
+    if backend == "gloo":
+        print(f"[4i] multihost 2 processes: gloo, both ranks on {dev}: one "
+              f"card is visible, so the NCCL leg (a rank a card) is not run")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "gathered.npy")
+        procs = []
+        for rank in range(2):
+            env = dict(os.environ)
+            if backend == "nccl":
+                env["CUDA_VISIBLE_DEVICES"] = str(rank)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--multihost-rank", str(rank), str(port), backend,
+                 out_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                env=env, text=True))
+        t0 = time.perf_counter()
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        wall = time.perf_counter() - t0
+        for rank, (p, text) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"multihost rank {rank} exited "
+                  f"{p.returncode}:\n{text[-4000:]}")
+            for line in text.splitlines():
+                if line.startswith("[4i] rank"):
+                    print(f"{line} ({card})")
+        gathered = torch.from_numpy(np.load(out_path)).to(dev)
+    bit_equal(gathered, single, f"2 processes ({backend}) vs the "
+              f"single-process multihost run")
+    print(f"[4i] batched_matcher_multihost in 2 processes ({backend}, "
+          f"tcp://127.0.0.1): each rank loaded and matched its own "
+          f"{n // 2} frames; the gathered rows bit-equal to the single-"
+          f"process run; {wall} s wall for both ranks, start-up included "
+          f"({card})")
+    del lb, rb, raw, single, gathered
+
+    # the MC-CNN mesh trainer: fast at the recipe's width, (data 2, model 2)
+    train_mesh = named_mesh(devices, (2, 2), ("data", "model"))
+    bs, lr = MCCNN_RECIPE["batch"], MCCNN_RECIPE["lr"]
+    pool = mccnn.make_training_pool(2, seed=1)
+    batches = [tuple(torch.from_numpy(x[i * bs:(i + 1) * bs]).to(dev)
+                     for x in pool) for i in range(3)]
+    flax = mccnn.to_flax_params(mccnn.make_model("fast", seed=0))
+
+    def fresh():
+        return mccnn.from_flax_params(flax, "fast")
+
+    def mesh_first_step(scope):
+        """(loss, gradients in the order of ``fresh().parameters()``,
+        tower) of one mesh step with ``scope`` in ``float32_scope``'s place
+        (SGD at lr 0: the weights stay)."""
+        tower = mccnn.shard_params(fresh(), train_mesh)
+        saved, mccnn.float32_scope = mccnn.float32_scope, scope
+        try:
+            loss = float(mccnn.make_train_step(tower, torch.optim.SGD(
+                tower.parameters(), lr=0.0), train_mesh)(*batches[0]))
+        finally:
+            mccnn.float32_scope = saved
+        return loss, [torch.cat([col[i][k].grad.to(dev)
+                                 for col in tower.slices[0]]).cpu().double()
+                      for k in (0, 1) for i in range(tower.num_layers)], tower
+
+    loss_mesh, g_mesh, tower = mesh_first_step(float32_scope)
+    signs = mesh_branch(tower, batches[0])
+    loss_one, g_one = grads_of(fresh().to(dev), mccnn.hinge_loss,
+                               batches[0], float32_scope)
+    with torch.no_grad():
+        own = hinge_branch(fresh().to(dev), batches[0])[1]
+    flips = [int((s != o).sum()) for s, o in zip(signs, own)]
+    _, g_ref = grads_of(fresh().to(dev), lambda m, *b: hinge_branch(
+        m, b, signs)[0], batches[0], float32_scope)
+    g_tf32 = mesh_first_step(tf32_scope)[1]
+    del tower, signs, own
+    loss_err = abs(loss_mesh - loss_one) / abs(loss_one)
+    e, e_tf32 = grad_err(g_mesh, g_ref), grad_err(g_tf32, g_ref)
+    check(loss_err <= MESH_LOSS_RTOL, f"mesh trainer: first loss "
+          f"{loss_mesh} vs the single-device step's {loss_one}")
+    check(e <= MESH_GRAD_RTOL, f"mesh trainer: first gradients {e} of "
+          f"their norm off the single-device step's")
+    check(e_tf32 > MESH_GRAD_RTOL, f"mesh trainer control: a TF32 backward "
+          f"is only {e_tf32} off the single-device gradients")
+    # 3 steps of each trainer from the same weights
+    p0 = flat_params(flax)
+    perm = torch.randperm(bs, generator=torch.Generator().manual_seed(0))
+
+    def trained(bt, where=dev, scale=1.0, mesh=None):
+        model, losses = mccnn.train(fresh(), bt, lr * scale, device=where,
+                                    mesh=mesh)
+        return flat_params(mccnn.to_flax_params(model)) - p0, losses
+
+    runs = {"single": trained(batches),
+            "CPU": trained([tuple(x.cpu() for x in b) for b in batches],
+                           "cpu"),
+            "permuted": trained([tuple(x[perm.to(dev)] for x in b)
+                                 for b in batches]),
+            "mesh": trained(batches, mesh=train_mesh),
+            "lr": trained(batches, scale=TRAIN_LR_FAULT, mesh=train_mesh)}
+
+    def gap(run, ref):
+        """(largest relative loss error, relative error of the move)."""
+        (m, losses), (m_ref, l_ref) = runs[run], runs[ref]
+        check(len(losses) == len(l_ref) == 3, f"{run}: {len(losses)} steps")
+        return (max(abs(x - y) / abs(y) for x, y in zip(losses, l_ref)),
+                float(np.linalg.norm(m - m_ref) / np.linalg.norm(m_ref)))
+
+    def within(g) -> bool:
+        return g[0] <= MESH_STEP_RTOL and g[1] <= MESH_MOVE_RTOL
+
+    for ref in ("single", "CPU"):
+        check(within(gap("mesh", ref)), f"mesh trainer vs the {ref} "
+              f"trainer, 3 steps: (losses, move) {gap('mesh', ref)}")
+    check(not within(gap("lr", "single")), f"mesh trainer control: lr x "
+          f"{TRAIN_LR_FAULT} passes {gap('lr', 'single')}")
+    tower = mccnn.shard_params(fresh(), train_mesh)
+    opt = Adam(tower.parameters(), lr)
+    step = mccnn.make_train_step(tower, opt, train_mesh)
+    a, p, n_ = batches[0]
+    step(a, p, n_)
+    for q in tower.parameters():
+        check(q.grad.device == q.device and all(
+            s.device == q.device for s in opt.state[q].values()),
+              "a gradient or Adam state off its slice's device")
+    t_mesh = wall_ms(lambda: step(a, p, n_), 10, cards)
+    model = mccnn.make_model("fast", seed=0).to(dev).requires_grad_(True)
+    one = mccnn.make_train_step(model, Adam(model.parameters(), lr))
+    t_one = wall_ms(lambda: one(a, p, n_), 10, [dev])
+    print(f"[4i] MC-CNN fast mesh trainer (data 2 x model 2 {where}, {bs} "
+          f"triplets of 16x16, lr {lr}) against the single-device trainer "
+          f"on {dev}, both in float32: first step, loss within {loss_err} "
+          f"(bar {MESH_LOSS_RTOL}), gradients within {e} of their norm on "
+          f"the mesh's branch (bar {MESH_GRAD_RTOL}; {flips} signs of the "
+          f"ReLUs (by layer) and hinge differ; as they are "
+          f"{grad_err(g_mesh, g_one)}; TF32 backward {e_tf32}); 3 steps, "
+          f"(losses, move) within {gap('mesh', 'single')} (bars "
+          f"{MESH_STEP_RTOL}, {MESH_MOVE_RTOL}; lr x {TRAIN_LR_FAULT}: "
+          f"{gap('lr', 'single')}) and of the CPU trainer's within "
+          f"{gap('mesh', 'CPU')} (the single-device trainer "
+          f"{gap('single', 'CPU')}; on the batches permuted, "
+          f"{gap('permuted', 'single')} off its own run); gradients and "
+          f"Adam's state on each slice's device ({card})")
+    print(f"[timing] MC-CNN fast mesh train step (data 2 x model 2 {where}): "
+          f"{t_mesh} ms a step (host clock, 10 steps after 1); the "
+          f"single-device step {t_one} ms ({card})")
+    print(f"[4i] the phase took {time.perf_counter() - t_phase} s ({card})")
+
+
 def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from stereo_match_tpu_torch import native
@@ -1202,19 +1813,6 @@ def main() -> int:
         out = K.wta_lr_plain(total, cfg.min_disparity, cfg.uniqueness_ratio,
                              cfg.disp12_max_diff, cfg.subpixel)
         return out if both_views else out[0]
-
-    @contextlib.contextmanager
-    def plain_kernels(module, *names):
-        """Run ``module``'s calls of the kernel wrappers ``names`` as their
-        plain versions (same arguments, no launch)."""
-        saved = {name: getattr(module, name) for name in names}
-        try:
-            for name in names:
-                setattr(module, name, getattr(K, f"{name}_plain"))
-            yield
-        finally:
-            for name, fn in saved.items():
-                setattr(module, name, fn)
 
     def plain_speckle(d, cfg, max_iters=64):
         if cfg.speckle_window_size <= 0:
@@ -1304,13 +1902,6 @@ def main() -> int:
         close = (a - b).abs().nan_to_num(0.0) <= 0.01
         return float(((nan_a == nan_b) & (close | nan_a | nan_b)).float()
                      .mean())
-
-    def bit_equal(a, b, what):
-        check(torch.equal(torch.isnan(a), torch.isnan(b)),
-              f"{what}: NaN masks differ")
-        check(torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)),
-              f"{what}: values differ")
-        return float((a - b).abs().nan_to_num(0.0).max())
 
     def exact_counts(counts, want, what):
         """The launch counts must be ``want`` and 0 for every other
@@ -2041,8 +2632,12 @@ def main() -> int:
                    "census_volume": 2 * n, "sgm_path_scan": 6 * n,
                    "wta_lr": n}}
 
+    stages = spread(4)
+    stage_cards = sorted(set(stages), key=lambda d: d.index)
+    on_stages = f"on {[str(d) for d in stages]}"
+
     def stream(mode, wire, n_stages=4, config=cfg, clamp=None):
-        mesh = make_stage_mesh(n_stages, devices=[dev] * n_stages)
+        mesh = make_stage_mesh(n_stages, devices=stages[:n_stages])
         return StreamingPipeline(config, mesh, (KITTI["H"], KITTI["W"]),
                                  payload_mode=mode, payload_dtype=wire,
                                  _invalid_clamp=clamp)
@@ -2053,7 +2648,8 @@ def main() -> int:
         pipe = stream(mode, "float32")
         K.reset_launches()
         outs = pipe.run(pairs)
-        torch.cuda.synchronize()
+        for d in stage_cards:
+            torch.cuda.synchronize(d)
         c = stream_counts[mode] = dict(K.launches)
         exact_counts(c, stream_want[mode], f"{mode} stream")
         check(len(outs) == len(frames), f"{mode} stream: one result a frame")
@@ -2064,7 +2660,7 @@ def main() -> int:
                 zip(clamped, stream(mode, "int16").run(pairs))):
             bit_equal(r16, raw, f"{mode} int16 wire frame {i}")
             bit_equal(f16, filt, f"{mode} int16 wire frame {i} filtered")
-        print(f"[4e] StreamingPipeline 4 stages on one card, {mode} payload, "
+        print(f"[4e] StreamingPipeline 4 stages {on_stages}, {mode} payload, "
               f"{len(frames)} frames {label(KITTI)}: float32 wire bit-equal "
               f"to _match_core frame by frame; int16 wire bit-equal to the "
               f"float32 run with the 1024 sentinel; launches {c} ({card})")
@@ -2072,6 +2668,7 @@ def main() -> int:
     e_raw = e_filt = 0.0
     post = stream("volume", "float32", 2, spk_wls).run(pairs[:3])
     for (raw, filt), (lf, rf) in zip(post, pairs):
+        raw, filt = raw.to(dev), filt.to(dev)
         ref_raw, ref_filt = _match_core(lf, rf, spk_wls)
         check(torch.equal(torch.isnan(raw), torch.isnan(ref_raw)),
               "2-stage stream with speckle + WLS: raw NaN masks")
@@ -2209,7 +2806,8 @@ def main() -> int:
     pipe = stream("volume", "float32", config=cfg79)
     K.reset_launches()
     outs = pipe.run(pairs[:3])
-    torch.cuda.synchronize()
+    for d in stage_cards:
+        torch.cuda.synchronize(d)
     c = other_counts["stream 7x9"] = dict(K.launches)
     exact_counts(c, {"census_words": 3, "census_volume": 3,
                      "sgm_path_scan": 24, "wta_lr": 3}, "7x9 volume stream")
@@ -2218,6 +2816,7 @@ def main() -> int:
     stage_order = PATH_DIRECTIONS_8[:2] + DOWN + UP
     e79, share79 = 0.0, 1.0
     for i, ((raw, _), (lf, rf)) in enumerate(zip(outs, pairs)):
+        raw = raw.to(dev)
         vol79 = census_cost(lf, rf, cfg79)
         total79 = torch.empty_like(vol79)
         for j, (dy, dx) in enumerate(stage_order):
@@ -2231,7 +2830,7 @@ def main() -> int:
         e79 = max(e79, float((raw - ref79).abs().nan_to_num(0.0).max()))
     check(share79 >= STREAM_AGREE, f"7x9 volume stream: {share79} of the "
           f"pixels agree with _match_core (< {STREAM_AGREE})")
-    print(f"[4f] StreamingPipeline 4 stages on one card, volume payload, "
+    print(f"[4f] StreamingPipeline 4 stages {on_stages}, volume payload, "
           f"census {WIDE}, 3 frames {label(KITTI)}: bit-equal to the plain "
           f"scans added in the stream's order; against _match_core "
           f"{share79} of the pixels agree, max |diff| {e79} (P1 = "
@@ -2243,6 +2842,8 @@ def main() -> int:
     phase_4g(dev, card, (left_np, right_np))
     # 4h. training on the card, the training CLI and calibration
     phase_4h(dev, card)
+    # 4i. multi-device: D-sharding, multihost, the MC-CNN mesh trainer
+    phase_4i(dev, card)
 
     # 5. timing (CUDA events, after a warm-up)
     # K1 takes less time than the host's call: its `ms` is the events' mean
@@ -2429,10 +3030,16 @@ def main() -> int:
             pipe.reset()
             for lf, rf in pairs[:3]:
                 pipe.step(lf, rf)                  # fill
-            t = cuda_ms(lambda: pipe.step(left, right), 12, warmup=2)
-            print(f"[timing] StreamingPipeline 4 stages on one card, {mode} "
-                  f"payload, {wire} wire, {label(KITTI)}: {t} ms/frame = "
-                  f"{1000.0 / t} frames/s; {pipe.wire_bytes()} B a hop; "
+            if len(stage_cards) == 1:
+                t = cuda_ms(lambda: pipe.step(left, right), 12, warmup=2)
+                clock = "CUDA events"
+            else:
+                t = wall_ms(lambda: pipe.step(left, right), 12, stage_cards)
+                clock = "host clock, every card synchronised"
+            print(f"[timing] StreamingPipeline 4 stages {on_stages}, {mode} "
+                  f"payload, {wire} wire, {label(KITTI)}: {t} ms/frame "
+                  f"({clock}) = {1000.0 / t} frames/s; {pipe.wire_bytes()} "
+                  f"B a hop; "
                   f"_match_core {matcher_ms} ms/frame = "
                   f"{1000.0 / matcher_ms} frames/s ({card})")
             del pipe
@@ -2853,4 +3460,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-rank"]:
+        sys.exit(multihost_rank(sys.argv[2:]))
     sys.exit(main())

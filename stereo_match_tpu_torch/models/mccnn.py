@@ -14,24 +14,30 @@ the float32 body of ``mccnn_conv3x3_plain``) under autograd and
 
 The TPU's weight stacks (``_tower_weight_stacks``) and its fused
 tower + volume kernel (``mccnn_cost_volume_fused``) are MXU layout and
-fusion; K8 then K9 compute what they compute. The sharding rules, the
-``mesh=`` argument of the trainer and the orbax checkpoints are not ported
-(ROADMAP.md, queue 1 item 8).
+fusion; K8 then K9 compute what they compute. The sharding rules
+(:data:`PARTITION_RULES`, :func:`match_partition_rules`,
+:func:`shard_params`) and the ``mesh=`` trainer (data parallel over
+"data", conv output channels over "model") run in one process over a
+device mesh, autograd carrying the backward across its devices. The
+checkpoints are the flax-layout ``.npz`` the JAX package reads; its orbax
+``save_params`` / ``load_params`` are not ported (orbax is not on the
+card's machine).
 """
 
 from __future__ import annotations
 
 import math
+import re
 from collections.abc import Mapping
 from pathlib import Path
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
 import numpy as np
 import torch
 from torch import nn
 
 from stereo_match_tpu_torch.models.optim import (Adam, LearningRate,
-                                                 make_step)
+                                                 float32_scope, make_step)
 from stereo_match_tpu_torch.ops.cost_volume import check_min_disparity
 from stereo_match_tpu_torch.ops.cuda_kernels import (MCCNN_MAX_FEATURES,
                                                      mccnn_conv3x3,
@@ -39,6 +45,9 @@ from stereo_match_tpu_torch.ops.cuda_kernels import (MCCNN_MAX_FEATURES,
                                                      mccnn_volume,
                                                      mccnn_weight_layout)
 from stereo_match_tpu_torch.utils.backend import entry_device
+
+if TYPE_CHECKING:   # parallel/ imports the pipeline, which imports this
+    from stereo_match_tpu_torch.parallel.mesh import DeviceMesh
 
 ARCHS = {"fast": (64, 4), "accurate": (112, 5)}   # arch -> (F, layers)
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
@@ -261,8 +270,13 @@ def hinge_loss(model: MCCNNFeatures, anchor: torch.Tensor,
     """mean(max(0, margin + s_neg - s_pos)) on the centre pixel's feature
     similarity of (N, P, P) patch stacks; the three stacks go through the
     tower as one batch."""
-    n = anchor.shape[0]
     f = tower_plain(model, torch.cat([anchor, positive, negative]))
+    return _centre_hinge(f, anchor.shape[0], margin)
+
+
+def _centre_hinge(f: torch.Tensor, n: int, margin: float) -> torch.Tensor:
+    """The hinge loss from the (3n, F, P, P) features of the anchors,
+    positives and negatives, in that order."""
     c = f.shape[2] // 2
     centre = f[:, :, c, c]
     fa, fp, fn = centre[:n], centre[n:2 * n], centre[2 * n:]
@@ -271,26 +285,218 @@ def hinge_loss(model: MCCNNFeatures, anchor: torch.Tensor,
     return torch.mean(torch.clamp_min(margin + s_neg - s_pos, 0.0))
 
 
-def make_train_step(model: MCCNNFeatures, optimizer: torch.optim.Optimizer,
-                    margin: float = 0.2):
+# ------------------------------------------------------------ sharding ----
+
+# Regex on a parameter's flax path -> its spec, an axis name or None per
+# dimension of the flax array (() replicated): the JAX package's rules,
+# its PartitionSpecs as tuples.
+PARTITION_RULES = (
+    # conv kernels (kh, kw, in, out): shard output channels over "model"
+    (r"conv\d+/kernel", (None, None, None, "model")),
+    (r"conv\d+/bias", ("model",)),
+    (r".*", ()),
+)
+FLAX_TO_OIHW = (3, 2, 0, 1)   # torch's dim j is flax's kernel dim [j]
+
+
+def match_partition_rules(rules, params: Mapping) -> dict:
+    """A flax-named parameter tree (``params/conv{i}/kernel|bias``, as
+    :func:`to_flax_params` gives) -> the same tree of specs: for each leaf
+    the spec of the first rule whose regex ``re.search``-es its path joined
+    by "/", () where none does."""
+
+    def walk(node, path: str):
+        if isinstance(node, Mapping):
+            return {key: walk(value, f"{path}/{key}" if path else str(key))
+                    for key, value in node.items()}
+        return next((spec for rule, spec in rules if re.search(rule, path)),
+                    ())
+
+    return walk(params, "")
+
+
+class ShardedTower:
+    """An MC-CNN tower's parameters on a ("data", "model") mesh, placed by
+    :data:`PARTITION_RULES` (:func:`shard_params`).
+
+    ``slices[r][m]`` is the list of layer (weight, bias) pairs that device
+    ``mesh.devices[r, m]`` holds: each layer's output channels
+    ``[m F / M, (m + 1) F / M)`` (dim 0 of torch's (F, C_in, 3, 3), the
+    last of flax's kernel) for M "model" devices, the same slices on every
+    "data" row. Each slice is a leaf tensor of its own that takes
+    gradients. :meth:`features` runs row r's tower: each "model" device
+    computes its output channels of a layer from the row's full input
+    (``mccnn_conv3x3_plain``), and the channels are joined on the row's
+    first device for the next layer; autograd carries the backward across
+    the devices.
+    """
+
+    def __init__(self, model: MCCNNFeatures, mesh: DeviceMesh):
+        if mesh.axis_names != ("data", "model"):
+            raise ValueError(f"the tower shards over a ('data', 'model') "
+                             f"mesh, not {mesh.axis_names}")
+        self.mesh = mesh
+        self.num_layers = model.num_layers
+        self.compute_dtype = model.compute_dtype
+        specs = match_partition_rules(PARTITION_RULES, to_flax_params(model))
+        rows, cols = mesh.devices.shape
+        self.slices = [[[] for _ in range(cols)] for _ in range(rows)]
+        for i in range(model.num_layers):
+            spec = specs["params"][f"conv{i}"]
+            kernel = tuple(spec["kernel"]) or (None,) * 4
+            layer = ((model.weights[i],
+                      tuple(kernel[j] for j in FLAX_TO_OIHW)),
+                     (model.biases[i], tuple(spec["bias"]) or (None,)))
+            for r in range(rows):
+                for m in range(cols):
+                    self.slices[r][m].append(tuple(
+                        self._place(t, s, r, m) for t, s in layer))
+
+    def _place(self, t: torch.Tensor, spec, r: int, m: int) -> torch.Tensor:
+        """``t``'s block of device (r, m) by ``spec``, a leaf of its own."""
+        at = {"data": r, "model": m}
+        for dim, axis in enumerate(spec):
+            if axis is None:
+                continue
+            n = self.mesh.shape[axis]
+            if t.shape[dim] % n:
+                raise ValueError(f"{t.shape[dim]} channels do not split "
+                                 f"over the {n} devices of {axis!r}")
+            size = t.shape[dim] // n
+            t = t.narrow(dim, at[axis] * size, size)
+        return t.detach().to(self.mesh.devices[r, m], copy=True) \
+            .requires_grad_(True)
+
+    def parameters(self) -> list[torch.Tensor]:
+        return [t for row in self.slices for col in row for layer in col
+                for t in layer]
+
+    def features(self, x: torch.Tensor, r: int) -> torch.Tensor:
+        """(N, P, P) patches -> (N, F, P, P) unit features, on data row
+        ``r``'s first device."""
+        devs = list(self.mesh.devices[r])
+        bf16 = self.compute_dtype == torch.bfloat16
+        h = x[:, None].to(devs[0])
+        for i in range(self.num_layers):
+            last = i == self.num_layers - 1
+            parts = [mccnn_conv3x3_plain(h.to(dev), *self.slices[r][m][i],
+                                         relu=not last, normalize=False,
+                                         bf16=bf16)
+                     for m, dev in enumerate(devs)]
+            h = torch.cat([p.to(devs[0]) for p in parts], dim=1)
+        return h / torch.sqrt(torch.sum(h * h, dim=1, keepdim=True) + 1e-12)
+
+    def reduce_gradients(self) -> None:
+        """Each slice's gradient summed over the "data" rows (on row 0's
+        device) and handed to every row's copy of the slice."""
+        rows, cols = self.mesh.devices.shape
+        for m in range(cols):
+            for i in range(self.num_layers):
+                for k in range(2):
+                    grads = [self.slices[r][m][i][k].grad for r in range(rows)]
+                    total = grads[0]
+                    for g in grads[1:]:
+                        total = total + g.to(total.device)
+                    for r in range(rows):
+                        self.slices[r][m][i][k].grad = total.to(
+                            self.mesh.devices[r, m], copy=True)
+
+    def gather_into(self, model: MCCNNFeatures) -> None:
+        """Write row 0's slices into ``model``'s weights and biases (on the
+        model's device) and rebuild its K8 copies."""
+        with torch.no_grad():
+            for i in range(self.num_layers):
+                for k, full in enumerate((model.weights[i], model.biases[i])):
+                    full.copy_(torch.cat([col[i][k].to(full.device)
+                                          for col in self.slices[0]]))
+        model.relayout()
+
+
+def shard_params(model: MCCNNFeatures, mesh: DeviceMesh) -> ShardedTower:
+    """``model``'s parameters placed on a ("data", "model") mesh by
+    :data:`PARTITION_RULES`: each conv layer's output channels split over
+    "model", replicated over "data" (:class:`ShardedTower`)."""
+    return ShardedTower(model, mesh)
+
+
+def _mesh_step(tower: ShardedTower, optimizer: torch.optim.Optimizer,
+               margin: float):
+    rows = tower.mesh.shape["data"]
+
+    def loss(a, p, n):
+        if a.shape[0] % rows:
+            raise ValueError(f"a batch of {a.shape[0]} does not split over "
+                             f"the {rows} rows of 'data'")
+        per = a.shape[0] // rows
+        total = None
+        for r in range(rows):
+            part = slice(r * per, (r + 1) * per)
+            f = tower.features(torch.cat([a[part], p[part], n[part]]), r)
+            share = _centre_hinge(f, per, margin) / rows
+            total = share if total is None else total + share.to(total.device)
+        return total
+
+    def step(a, p, n):
+        with float32_scope(tower.parameters()[0]):
+            optimizer.zero_grad(set_to_none=True)
+            value = loss(a, p, n)
+            value.backward()
+            tower.reduce_gradients()
+            optimizer.step()
+        return value.detach()
+
+    return step
+
+
+def make_train_step(model, optimizer: torch.optim.Optimizer,
+                    mesh: DeviceMesh | None = None, margin: float = 0.2):
     """``(anchor, positive, negative) -> loss``: one step of ``optimizer``
-    (over ``model``'s parameters, which must take gradients) on the hinge
-    loss of the batch, in full float32 (``optim.make_step``). The caller
-    calls ``model.relayout()`` after its last step (:func:`train` does)."""
-    return make_step(lambda a, p, n: hinge_loss(model, a, p, n, margin),
-                     optimizer)
+    on the hinge loss of the batch, in full float32 (``optim.make_step``).
+
+    Without ``mesh``, ``model`` is an :class:`MCCNNFeatures` whose
+    parameters take gradients and over which ``optimizer`` runs; the
+    caller calls ``model.relayout()`` after its last step (:func:`train`
+    does). With a ("data", "model") ``mesh``, ``model`` is the tower's
+    :func:`shard_params` on that mesh and ``optimizer`` runs over its
+    ``parameters()``: data row r takes rows ``[r N / R, (r + 1) N / R)``
+    of the N triplets (N must split evenly), its loss counts 1 / R of the
+    step's, so the gradients summed over the rows are those of the mean
+    over the whole batch, and every row's copy of a slice takes that sum;
+    the optimizer then updates each slice on its own device.
+    """
+    if mesh is None:
+        return make_step(lambda a, p, n: hinge_loss(model, a, p, n, margin),
+                         optimizer)
+    if not isinstance(model, ShardedTower) or model.mesh is not mesh:
+        raise ValueError("with a mesh, the step takes shard_params(model, "
+                         "mesh)")
+    return _mesh_step(model, optimizer, margin)
 
 
 def train(model: MCCNNFeatures, batches, learning_rate: LearningRate = 3e-3,
-          device: torch.device | str = "cuda"
+          device: torch.device | str = "cuda", mesh: DeviceMesh | None = None
           ) -> tuple[MCCNNFeatures, list[float]]:
     """Adam (optax's) over an iterable of (anchor, positive, negative)
     batches (arrays or tensors); returns ``(model, losses)``, the model
     moved to ``device`` (the card unless the caller asks for the CPU) and
     trained in place, its K8 copies rebuilt. A batch already on ``device``
-    is not copied. The JAX trainer's ``mesh=`` (data and model parallel
-    training) is not ported: ROADMAP.md, queue 1 item 8."""
+    is not copied.
+
+    With a ("data", "model") ``mesh`` the steps run on the mesh
+    (:func:`make_train_step`): the parameters are sharded there
+    (:func:`shard_params`), Adam updates each slice on its device, and
+    the trained slices are gathered into ``model`` at the end.
+    """
     dev = entry_device(device)
+    if mesh is not None:
+        tower = shard_params(model, mesh)
+        step = make_train_step(tower, Adam(tower.parameters(),
+                                           learning_rate), mesh)
+        losses = [step(*(torch.as_tensor(x).to(torch.float32)
+                         for x in batch)) for batch in batches]
+        model.to(dev)
+        tower.gather_into(model)
+        return model, torch.stack(losses).tolist() if losses else []
     model.to(dev).requires_grad_(True)
     try:
         step = make_train_step(model, Adam(model.parameters(), learning_rate))

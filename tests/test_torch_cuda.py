@@ -60,9 +60,15 @@ from stereo_match_tpu_torch.ops import cuda_kernels as K
 from stereo_match_tpu_torch.ops import wls
 from stereo_match_tpu_torch.ops.sgm import PATH_DIRECTIONS_8
 from stereo_match_tpu_torch.ops.speckle import speckle_filter
+from stereo_match_tpu_torch.models import mccnn
+from stereo_match_tpu_torch.models.optim import Adam
 from stereo_match_tpu_torch.parallel import (StreamingPipeline, make_mesh,
                                              make_stage_mesh,
                                              sgm_aggregate_sharded)
+from stereo_match_tpu_torch.parallel.dsharding import (make_disp_mesh,
+                                                       match_dsharded,
+                                                       wta_dsharded)
+from stereo_match_tpu_torch.parallel.mesh import named_mesh
 from stereo_match_tpu_torch.pipeline.stereo import StereoMatcher, _match_core
 from stereo_match_tpu_torch.utils.backend import require_hopper
 
@@ -1058,6 +1064,29 @@ def test_stream_on_one_card(dev, mode, wire):
             _assert_same_disparity(raw, want)
 
 
+@pytest.mark.parametrize("mode", ["exact", "halo"])
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_match_dsharded_on_one_card(dev, dtype, mode):
+    """4 D-shards on one card (K1, K2 at shifted minima, K3 row blocks, K4
+    a block) equal the same shards on the CPU; so does the sharded WTA."""
+    gt = slanted_scene(53, 150, 3.0, 40.0)
+    left, right = random_dot_pair(53, 150, gt, blur=1.0, seed=3)
+    cfg = DisparityConfig(num_disparities=64, dtype=dtype, wls=False,
+                          speckle_window_size=0)
+    got = match_dsharded(left, right, cfg, make_disp_mesh(devices=[dev] * 4),
+                         mode, 8)
+    want = match_dsharded(left, right, cfg,
+                          make_disp_mesh(devices=["cpu"] * 4), mode, 8)
+    _assert_same_disparity(got.cpu(), want)
+    imgs = torch.from_numpy(np.stack([left, right]).astype(np.float32))
+    total = K.aggregate_paths(K.census_volume(
+        *K.census_words(imgs.to(dev))[:, 0], 64), 8.0, 96.0)
+    wta = wta_dsharded(total, make_disp_mesh(devices=[dev] * 4), cfg)
+    _assert_same_disparity(wta, K.wta_lr(
+        total, cfg.min_disparity, cfg.uniqueness_ratio, cfg.disp12_max_diff,
+        cfg.subpixel)[0])
+
+
 # ------------------------------------------------------ several cards ----
 
 @pytest.fixture(scope="module")
@@ -1139,3 +1168,46 @@ def test_stream_over_cards(cards, mode):
         want, _ = _match_core(torch.from_numpy(l).to(cards[0]),
                               torch.from_numpy(r).to(cards[0]), cfg)
         _assert_same_disparity(raw.to(cards[0]), want)
+
+
+def test_dsharded_over_cards(cards):
+    """D-shards on distinct cards (the default device list) equal the same
+    shards on one card."""
+    n = len(cards)
+    gt = slanted_scene(53, 150, 3.0, 40.0)
+    left, right = random_dot_pair(53, 150, gt, blur=1.0, seed=3)
+    cfg = DisparityConfig(num_disparities=16 * n, wls=False,
+                          speckle_window_size=0)
+    for mode in ("exact", "halo"):
+        got = match_dsharded(left, right, cfg, make_disp_mesh(), mode, 8)
+        want = match_dsharded(left, right, cfg,
+                              make_disp_mesh(devices=[cards[0]] * n), mode, 8)
+        assert got.device == cards[0]
+        _assert_same_disparity(got, want)
+
+
+def test_mesh_trainer_over_cards(cards):
+    """The MC-CNN mesh trainer over (data, model) = (n / 2, 2) cards: each
+    slice's gradient and Adam state on its own card, the loss that of the
+    single-card step."""
+    rows = len(cards) // 2
+    mesh = named_mesh(cards[:2 * rows], (rows, 2), ("data", "model"))
+    rng = np.random.default_rng(9)
+    batch = [torch.from_numpy(rng.uniform(0, 1, (4 * rows, 16, 16)).astype(
+        np.float32)).to(cards[0]) for _ in range(3)]
+    flax = mccnn.to_flax_params(mccnn.make_model("fast", seed=0))
+    tower = mccnn.shard_params(mccnn.from_flax_params(flax, "fast"), mesh)
+    opt = Adam(tower.parameters(), 1e-3)
+    loss = mccnn.make_train_step(tower, opt, mesh)(*batch)
+    for r in range(rows):
+        for m in range(2):
+            for q in (t for layer in tower.slices[r][m] for t in layer):
+                assert q.device == mesh.devices[r, m]
+                assert q.grad.device == q.device
+                assert all(s.device == q.device
+                           for s in opt.state[q].values())
+    model = mccnn.from_flax_params(flax, "fast").to(cards[0])
+    model.requires_grad_(True)
+    want = mccnn.make_train_step(model, Adam(model.parameters(), 1e-3))(
+        *batch)
+    assert abs(float(loss) - float(want)) <= 1e-5 * abs(float(want))

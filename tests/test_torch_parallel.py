@@ -312,6 +312,27 @@ def test_parallel_imports_no_jax():
         "pipe = StreamingPipeline(cfg, make_stage_mesh(2, ['cpu'] * 2), "
         "(12, 40), payload_mode='census', payload_dtype='int16')\n"
         "assert len(pipe.run([(l, r)])) == 1\n"
+        "from stereo_match_tpu_torch.parallel import (HostBatch, "
+        "batched_matcher_multihost, host_local_slice, initialize_multihost, "
+        "load_host_sharded, make_host_mesh)\n"
+        "from stereo_match_tpu_torch.parallel.dsharding import ("
+        "make_disp_mesh, match_dsharded, wta_dsharded)\n"
+        "from stereo_match_tpu_torch.models.mccnn import (PARTITION_RULES, "
+        "make_model, match_partition_rules, shard_params, train)\n"
+        "from stereo_match_tpu_torch.parallel.mesh import named_mesh\n"
+        "initialize_multihost(None, 1, 0)\n"
+        "disp = match_dsharded(l, r, cfg, make_disp_mesh(devices=['cpu'] * 4),"
+        " mode='exact')\n"
+        "assert disp.shape == (12, 40)\n"
+        "mesh = make_host_mesh(n_hosts=2, devices=['cpu'] * 2)\n"
+        "lb = load_host_sharded(lambda i: l, 2, mesh, (12, 40))\n"
+        "raw, _ = batched_matcher_multihost(cfg, mesh)(lb, lb)\n"
+        "assert raw.local().shape == (2, 12, 40)\n"
+        "tri = [rng.uniform(0, 1, (4, 9, 9)).astype(np.float32) "
+        "for _ in range(3)]\n"
+        "_, losses = train(make_model((8, 2), seed=0), [tri], 1e-3, 'cpu', "
+        "named_mesh(['cpu'] * 4, (2, 2), ('data', 'model')))\n"
+        "assert len(losses) == 1\n"
         "assert 'jax' not in sys.modules, 'the port imported jax'\n"
         "ref = [m for m in sys.modules if m == 'stereo_match_tpu' or "
         "m.startswith('stereo_match_tpu.')]\n"
