@@ -80,7 +80,8 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    density above census's on the same frame and above 0.9, bad-3px
    < 0.05. The JAX package's CPU figures are printed beside the card's.
    Then both towers with ``compute_dtype=torch.bfloat16``: K8's bfloat16
-   mode against its plain bfloat16 layer for every layer (at least
+   mode against its plain bfloat16 layer for every layer, on the tensors
+   the module passes (bfloat16 channels-last between layers; at least
    K8_BF16_EQUAL of the outputs bit-equal where there is no norm, each
    within the ulp bound stated at K8_BF16_EQUAL), the tower within 1e-2 of
    the plain tower, ``mccnn_cost_volume(use_bf16=True)`` on the float32
@@ -217,9 +218,11 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    K3 per direction with GB/s and the share of its bound, in float32 and
    int16; K8 per layer beside cuDNN float32 (``library_ms``) with the
    shares of its 3xTF32 and FP32 bounds, and in bfloat16 beside the
-   float32 kernel and cuDNN on bfloat16 tensors (``library_ms``), with
-   its bound (float32 in and out, products at the bfloat16 rate) and the
-   TF32 rate's cap; K1 at KITTI 5x5 and 7x9 and 720p 5x5 by events (the
+   float32 kernel and cuDNN on bfloat16 tensors (``library_ms``: the
+   faster of NCHW and channels-last), with its bound (the bytes of its
+   storage: 2 B a bfloat16 activation, 4 B the float32 image and last
+   layer; products at the bfloat16 rate) beside the bound of float32
+   storage; K1 at KITTI 5x5 and 7x9 and 720p 5x5 by events (the
    record's ``ms``, as every row's) and in a CUDA graph of 64 launches
    (the record's ``graph_ms``) beside its bound; the
    peak device memory of one KITTI frame; K7's row and column solves at
@@ -1868,28 +1871,36 @@ def main() -> int:
         return torch.where(v == 0, torch.zeros_like(v),
                            torch.ldexp(torch.ones_like(v), e - 8))
 
-    def k8_bf16_check(args, layout, what):
+    def k8_bf16_check(args, layout, what, bf16_out=False):
         """K8's bfloat16 mode against its plain layer (K8_BF16_EQUAL and
-        the ulp bounds above): (output, max |kernel - plain|, bit-equal
-        share)."""
+        the ulp bounds above), x float32 or bfloat16 channels-last, the
+        output float32 or (``bf16_out``) bfloat16 channels-last: (output,
+        max |kernel - plain|, bit-equal share)."""
         x, w, b, _, normalize = args
-        y = K.mccnn_conv3x3(*args, layout=layout, bf16=True)
-        y_ref = K.mccnn_conv3x3_plain(*args, bf16=True)
+        y = K.mccnn_conv3x3(*args, layout=layout, bf16=True,
+                            bf16_out=bf16_out)
+        y_ref = K.mccnn_conv3x3_plain(*args, bf16=True, bf16_out=bf16_out)
+        fmt = torch.channels_last if bf16_out else torch.contiguous_format
+        check(y.dtype == y_ref.dtype and y.is_contiguous(memory_format=fmt),
+              f"K8 bf16 {what}: {y.dtype} {y.stride()} out, the plain "
+              f"layer's {y_ref.dtype} {y_ref.stride()}")
+        x32 = x.float()
         with K.fp32_cudnn():
-            pre = torch.nn.functional.conv2d(K.bf16_round(x),
+            pre = torch.nn.functional.conv2d(K.bf16_round(x32),
                                              K.bf16_round(w), padding=1)
         raw = K.mccnn_conv3x3_plain(x, w, b, False, False, bf16=True)
         tol = bf16_ulp(pre) + bf16_ulp(raw)
-        del pre
-        diff = (y - y_ref).abs()
+        del pre, x32
+        diff = (y.float() - y_ref.float()).abs()
         equal = float((y == y_ref).float().mean())
         if normalize:
             tol /= torch.sqrt((raw * raw).sum(1, keepdim=True) + 1e-12)
             tol += 1e-6
         within = bool((diff <= tol).all())
         e = float(diff.max())
-        print(f"[mccnn] K8 bf16 {what} {tuple(x.shape)} -> {tuple(y.shape)}"
-              f": max |kernel - plain| = {e}, {equal} of the outputs "
+        print(f"[mccnn] K8 bf16 {what} {tuple(x.shape)} {x.dtype} -> "
+              f"{tuple(y.shape)} {y.dtype}: max |kernel - plain| = {e}, "
+              f"{equal} of the outputs "
               f"bit-equal, all within the ulp bound: {within} ({card})")
         check(within, f"K8 bf16 {what}: an output past the ulp bound")
         check(normalize or equal >= K8_BF16_EQUAL, f"K8 bf16 {what}: "
@@ -2446,7 +2457,9 @@ def main() -> int:
             last = i == model.num_layers - 1
             args = (h, model.weights[i], model.biases[i], not last, last)
             layout = getattr(model, f"layout{i}")
-            y, e, _ = k8_bf16_check(args, layout, f"{arch} layer {i}")
+            # the module's storage: bfloat16 channels-last between layers
+            y, e, _ = k8_bf16_check(args, layout, f"{arch} layer {i}",
+                                    bf16_out=not last)
             err["mccnn_conv3x3 bf16"] = max(err["mccnn_conv3x3 bf16"], e)
             if i < 2:
                 k8_args[arch, ("C_in=1" if i == 0 else "C_in=F") +
@@ -3270,6 +3283,7 @@ def main() -> int:
             return torch.nn.functional.conv2d(x, w, b, padding=1)
 
     k8_layer = {}    # (arch, kind) -> (kernel, plain, library, bound) ms
+    k8_last16 = {}   # arch -> the bfloat16 last layer's bound
     for (arch, kind), (args, layout) in k8_args.items():
         x, w = args[0], args[1]
         flop = 2 * 9 * w.shape[0] * w.shape[1] * x.shape[0] * x.shape[2] \
@@ -3277,32 +3291,47 @@ def main() -> int:
         nbytes = 4 * (x.numel() + w.numel() + x.shape[0] * w.shape[0]
                       * x.shape[2] * x.shape[3])
         if kind.endswith("bf16"):
-            # the library: cuDNN on bfloat16 tensors (made outside the
-            # timing); the bound: float32 in and out against the products
-            # at the bfloat16 rate, beside the TF32 rate this body's
-            # products run at
+            # as the module runs them: bfloat16 channels-last out (these
+            # are layers 0 and 1), C_in = F reading bfloat16 channels-last.
+            # The library: cuDNN on bfloat16 tensors (made outside the
+            # timing), NCHW and channels-last, the faster of the two. The
+            # bound: the bytes of this storage (2 B a bfloat16 activation,
+            # 4 B the float32 image; the bfloat16 weights) against the
+            # products at the bfloat16 rate, beside float32 storage's
             t = cuda_ms(lambda: K.mccnn_conv3x3(*args, layout=layout,
-                                                bf16=True), 10)
-            t_plain = cuda_ms(lambda: K.mccnn_conv3x3_plain(*args,
-                                                            bf16=True), 10)
-            lib_args = [a.to(torch.bfloat16) for a in args[:3]]
-            t_lib = cuda_ms(lambda: torch.nn.functional.conv2d(
-                *lib_args, padding=1), 10)
-            del lib_args
-            bf16_ms = bound(nbytes, flop, "bf16")
-            tf32_ms = bound(nbytes, flop, "tf32")
+                                                bf16=True, bf16_out=True), 10)
+            t_plain = cuda_ms(lambda: K.mccnn_conv3x3_plain(
+                *args, bf16=True, bf16_out=True), 10)
+            wb, bb = w.to(torch.bfloat16), args[2].to(torch.bfloat16)
+            lib_t = {}
+            for fmt in (torch.contiguous_format, torch.channels_last):
+                xl = x.to(torch.bfloat16, memory_format=fmt)
+                wl = wb.contiguous(memory_format=fmt)
+                lib_t[str(fmt)] = cuda_ms(lambda: torch.nn.functional.conv2d(
+                    xl, wl, bb, padding=1), 10)
+                del xl, wl
+            t_lib = min(lib_t.values())
+            del wb, bb
+            px = x.shape[0] * x.shape[2] * x.shape[3]
+            nbytes16 = x.numel() * x.element_size() + 2 * w.numel() + \
+                2 * px * w.shape[0]
+            bf16_ms = bound(nbytes16, flop, "bf16")
+            f32_ms = bound(nbytes, flop, "bf16")
+            # the last layer reads the same and writes float32 features
+            k8_last16[arch] = bound(nbytes16 + 2 * px * w.shape[0], flop,
+                                    "bf16")
             k8_layer[arch, kind] = (t, t_plain, t_lib, bf16_ms)
             f32_t = k8_layer[arch, kind[:-len(" bf16")]][0]
             print(f"[timing] mccnn_conv3x3 bf16 {arch} {kind} "
-                  f"{tuple(x.shape)} -> {w.shape[0]} features: kernel {t} ms "
-                  f"({flop / t / 1e9} TFLOP/s), float32 kernel {f32_t} ms; "
-                  f"{bf16_ms[0] / t} of the bound {bf16_ms[0]} ms "
-                  f"({bf16_ms[1]}; products at the bfloat16 rate); the "
-                  f"TF32 rate of its products caps it at {tf32_ms[0]} ms "
-                  f"({tf32_ms[1]}), {tf32_ms[0] / t} of it; plain (cuDNN "
-                  f"float32 on rounded operands + roundings) {t_plain} ms; "
-                  f"library F.conv2d (cuDNN, bfloat16 tensors) {t_lib} ms "
-                  f"({card})")
+                  f"{tuple(x.shape)} {x.dtype} -> {w.shape[0]} features "
+                  f"bfloat16 channels-last: kernel {t} ms ({flop / t / 1e9} "
+                  f"TFLOP/s), float32 kernel {f32_t} ms; {bf16_ms[0] / t} "
+                  f"of the bound {bf16_ms[0]} ms ({bf16_ms[1]}; "
+                  f"{nbytes16} B, products at the bfloat16 rate); with "
+                  f"float32 storage the bound was {f32_ms[0]} ms "
+                  f"({f32_ms[1]}); plain (cuDNN float32 on rounded operands "
+                  f"+ roundings) {t_plain} ms; library F.conv2d (cuDNN, "
+                  f"bfloat16 tensors) {t_lib} ms: {lib_t} ({card})")
             continue
         t = cuda_ms(lambda: K.mccnn_conv3x3(*args, layout=layout), 10)
         t_plain = cuda_ms(lambda: K.mccnn_conv3x3_plain(*args), 10)
@@ -3410,11 +3439,12 @@ def main() -> int:
                        k8_parts["C_in=F"][3][1]))[1]
     k8_16 = {kind: k8_layer["fast", kind + " bf16"]
              for kind in ("C_in=1", "C_in=F")}
-    k8_16_bound = ((k8_16["C_in=1"][3][0] + n_cf * k8_16["C_in=F"][3][0])
+    # bfloat16: C_in = 1, n_cf - 1 layers to bfloat16, the last to float32
+    k8_16_cf = (n_cf - 1) * k8_16["C_in=F"][3][0] + k8_last16["fast"][0]
+    k8_16_bound = ((k8_16["C_in=1"][3][0] + k8_16_cf)
                    / models["fast"].num_layers,
                    max((k8_16["C_in=1"][3][0], k8_16["C_in=1"][3][1]),
-                       (n_cf * k8_16["C_in=F"][3][0],
-                        k8_16["C_in=F"][3][1]))[1])
+                       (k8_16_cf, k8_16["C_in=F"][3][1]))[1])
     bounds = {
         "census_words": bound(2 * HW * 4 * 2),
         "census_volume": bound(2 * HW * 4 + vol_b),

@@ -14,9 +14,9 @@
 //
 // One entry point, two bodies chosen by C_in:
 //
-// C_in > 1 (every layer but the first): implicit GEMM on the tensor cores
-// in 3xTF32. Bound on the H100: a KITTI frame (both 1242x375 views) is
-// 2*9*F*C_in*H*W*2 FLOP a layer, 69 GFLOP at F = 64 and 210 GFLOP at
+// C_in > 1 (every layer but the first), float32: implicit GEMM on the
+// tensor cores in 3xTF32. Bound on the H100: a KITTI frame (both 1242x375
+// views) is 2*9*F*C_in*H*W*2 FLOP a layer, 69 GFLOP at F = 64 and 210 GFLOP at
 // F = 112; at float32 accuracy that is three TF32 products each, 0.42 and
 // 1.27 ms at 495 TFLOP/s (1.03 and 3.14 ms on the 67 TFLOP/s FP32 pipes).
 // Design: M = the 8 x 32 output pixels of a block (a warp per tile row, two
@@ -54,26 +54,57 @@
 // of four pixels x F/4 channels a thread makes each warp store four 32-B
 // pieces of four planes, which the card writes more slowly.)
 //
-// The bfloat16 mode (BF16; the flax tower with compute_dtype bfloat16, and
-// the Pallas tower's default compute_dtype) computes what
+// The bfloat16 mode (the flax tower with compute_dtype bfloat16, and the
+// Pallas tower's default compute_dtype) computes what
 // cuda_kernels.mccnn_conv3x3_plain(..., bf16=True) does: the layer input
 // and the weights rounded to bfloat16, their products summed in float32,
 // the sum rounded to bfloat16, the bfloat16 bias added and the result
-// rounded again, then ReLU or the float32 norm. Activations stay float32
-// tensors holding bfloat16 values, so the input path and K9 are the
-// float32 ones. A bfloat16 value is exact in TF32 and a product of two is
-// exact in float32, so the tensor-core body forms one TF32 product a k8
-// step (hi*hi, no split) from a one-part weight layout (1, 3, 3, C8, F8)
-// of rounded taps, still into a zeroed accumulator added with an FP32 add;
-// the A fragments are rounded as they are read (the input of every layer
-// but the first already holds bfloat16 values). The C_in = 1 body rounds
-// the image and the taps as it stages them; its 9 products are exact.
-// Bound on the H100 for a C_in = F layer at KITTI: 68.7 GFLOP at F = 64
-// (210 at F = 112), 0.069 ms at the 989 TFLOP/s of dense bfloat16 but
-// 0.139 ms at the 495 TFLOP/s of TF32, which this body's products run at,
-// against 477 MB of float32 in and out (834 at F = 112), 0.142 ms at 3.35
-// TB/s: bytes bound the function; the TF32 rate comes close to bounding
-// this body.
+// rounded again, then ReLU or the float32 norm. It has its own entry,
+// smt_mccnn_conv3x3_bf16, and stores what flax stores: every activation
+// but the last layer's is bfloat16 channels-last, (V, H, W, C) (flax's
+// NHWC; exact, the values are bfloat16); the last layer writes float32
+// (V, F, H, W) for K9. The C_in = 1 body reads the float32 image, rounds
+// it and the taps as it stages them (its 9 products are exact) and stores
+// a pixel's F channels as 16-byte vectors.
+// The C_in > 1 body runs on the bfloat16 tensor cores: the 8 x 32 pixel
+// tile of the 3xTF32 body, a warp taking two tile rows (four m16 tiles)
+// and F in n8 tiles (two warps splitting them at F > 64), K = 9 taps x C16
+// (C_in padded to 16) in steps of 16 channels of one tap,
+// mma.sync.m16n8k16 bf16 with float32 accumulators. Each k16 step goes
+// into a zeroed accumulator and is added to the total with a rounded
+// float32 add: chained over all of K, the tensor core's truncating
+// accumulation put outputs near zero, where the sums cancel, past the ulp
+// bound of the card checks (two card tests at F = 112 and 128), and three
+// taps a partial sum held 48 more registers of A fragments, spilled and
+// ran slower (PERF.md, Findings, PR 16). Two tile rows a warp hold 4 x
+// NW x 4 accumulators at up to 255 registers; one row a warp at two
+// blocks an SM spilled at 128. A stage is 16 channels of
+// the 10 x 34 halo, staged channels-last by 16-byte cp.async (zero-filled
+// outside the frame and past C_in: the SAME and k16 padding), and of the
+// 9 x F8 rows of the (9, F8, C16) K-major bfloat16 weights
+// (cuda_kernels.mccnn_pack_weights_bf16), in two buffers (three above
+// F = 64, where one block fills the SM); the pitch of a
+// staged pixel or weight row is 48 B, an odd number of 16-B units, so the
+// 8 rows of an ldmatrix fall in distinct banks. A comes by ldmatrix.x4, a
+// lane's row one pixel's 8 channels: a tap (ky, kx) moves it by ky halo
+// rows and kx pixels, so all nine taps read one staged halo, with no
+// re-layout and no rounding; B by ldmatrix.x4, two n8 tiles at a time.
+// The epilogue adds the bias (rounded once), rounds, applies ReLU, writes
+// the tile to shared memory as packed bfloat16 pairs and stores each
+// pixel's F channels as 16-byte vectors (128 contiguous bytes a pixel at
+// F = 64: whole lines), or, for the last layer, takes the float32 norm
+// (quad shuffles, shared memory where two warps split F) and stores
+// float32 (V, F, H, W). Limits: F <= 128, any C_in, V, H, W >= 1 (an input
+// whose C_in is not a multiple of 8 is staged 2 B at a time, an output
+// whose F is not stored 2 B at a time).
+// Bound on the H100 for a C_in = F layer at KITTI (both views): 68.7 GFLOP
+// at F = 64 (210.3 at F = 112), 0.069 (0.213) ms at the 989 TFLOP/s of
+// dense bfloat16, against 238.5 MB of bfloat16 in and out (417.3 at
+// F = 112), 0.071 (0.125) ms at 3.35 TB/s; the last layer writes float32,
+// 357.7 MB (0.107 ms). With float32 storage it read and wrote 477 MB
+// (0.142 ms). The wgmma form below (probe only) takes A from a no-swizzle
+// K-major layout whose start a kx shift keeps 16-B aligned; it measured no
+// faster than this body's chained form (PERF.md, Findings, PR 16).
 //
 // K9 replaces mccnn_volume_pallas (_mccnn_vol_kernel), mccnn_volume_mxu_
 // pallas (_mccnn_vol_mxu_kernel), mccnn_volume_flat_pallas
@@ -134,6 +165,15 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// The bits of the nearest bfloat16 to v; two of them in one word, lo first
+// (the lower address: channel f, then f + 1).
+__device__ __forceinline__ uint16_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return (uint32_t)bf16_bits(lo) | ((uint32_t)bf16_bits(hi) << 16);
+}
+
 // The layer's epilogue before ReLU: the sum plus the bias, in float32, or
 // in the bfloat16 mode rounded, the rounded bias added and rounded again.
 template <bool BF16>
@@ -152,13 +192,16 @@ constexpr int kHaloW = kConvTW + 2;
 constexpr int kHaloSize = kHaloH * kHaloW;
 
 // A thread owns one pixel and all FP >= F channels of it (FP a multiple of
-// 4), so a warp writes 32 consecutive pixels of a channel: whole 128-B
-// lines.
-template <int FP, bool BF16>
+// 8), so a warp writes 32 consecutive pixels of a channel: whole 128-B
+// lines. OUT_BF16 (the bfloat16 mode's layers before the last, no norm):
+// y is bfloat16 channels-last, (V, H, W, F), and the thread stores its
+// pixel's F contiguous channels, 16 B (8 channels) at a time where vec_out
+// (F a multiple of 8, y 16-B aligned), else 2 B at a time.
+template <int FP, bool BF16, bool OUT_BF16>
 __global__ void __launch_bounds__(kConvThreads)
 conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ taps,
-               const float* __restrict__ bias, float* __restrict__ y, int F,
-               int H, int W, int relu, int normalize) {
+               const float* __restrict__ bias, void* __restrict__ y, int F,
+               int H, int W, int relu, int normalize, int vec_out) {
   __shared__ float xs[kHaloSize];                // [kHaloH][kHaloW]
   __shared__ __align__(16) float ws[9 * FP];     // [9][FP]
 
@@ -216,19 +259,38 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ taps,
   const int gy = ty0 + r;
   const int gx = tx0 + c;
   if (gy >= H || gx >= W) return;
-  float* out = y + ((size_t)view * F * H + gy) * W + gx;
+  if (OUT_BF16) {
+    uint16_t* out = static_cast<uint16_t*>(y) +
+                    (((size_t)view * H + gy) * W + gx) * F;
+    if (vec_out) {
+#pragma unroll
+      for (int q = 0; q < FP / 8; ++q)
+        if (8 * q < F)
+          *reinterpret_cast<uint4*>(out + 8 * q) = make_uint4(
+              pack_bf16x2(acc[8 * q], acc[8 * q + 1]),
+              pack_bf16x2(acc[8 * q + 2], acc[8 * q + 3]),
+              pack_bf16x2(acc[8 * q + 4], acc[8 * q + 5]),
+              pack_bf16x2(acc[8 * q + 6], acc[8 * q + 7]));
+    } else {
+#pragma unroll
+      for (int f = 0; f < FP; ++f)
+        if (f < F) out[f] = bf16_bits(acc[f]);
+    }
+    return;
+  }
+  float* out = static_cast<float*>(y) + ((size_t)view * F * H + gy) * W + gx;
 #pragma unroll
   for (int f = 0; f < FP; ++f)
     if (f < F) out[(size_t)f * H * W] = normalize ? acc[f] / norm : acc[f];
 }
 
-template <int FP, bool BF16>
+template <int FP, bool BF16, bool OUT_BF16>
 int launch_conv3x3(const float* x, const float* taps, const float* bias,
-                   float* y, int V, int F, int H, int W, int relu,
-                   int normalize, cudaStream_t stream) {
+                   void* y, int V, int F, int H, int W, int relu,
+                   int normalize, int vec_out, cudaStream_t stream) {
   dim3 grid((W + kConvTW - 1) / kConvTW, (H + kConvTH - 1) / kConvTH, V);
-  conv3x3_kernel<FP, BF16><<<grid, kConvThreads, 0, stream>>>(
-      x, taps, bias, y, F, H, W, relu, normalize);
+  conv3x3_kernel<FP, BF16, OUT_BF16><<<grid, kConvThreads, 0, stream>>>(
+      x, taps, bias, y, F, H, W, relu, normalize, vec_out);
   return (int)cudaGetLastError();
 }
 
@@ -273,9 +335,8 @@ __device__ inline void mma_tf32(float* c, const uint32_t* a, uint32_t b0,
 
 // NT n8 tiles: the block covers F8 = 8 * NT output channels; NS warps
 // share a tile row, each taking NT / NS of the n8 tiles (more warps an SM
-// where one block fills it). BF16: one TF32 product of bfloat16 operands a
-// k8 step, from a one-part weight layout.
-template <int NT, int NS, bool BF16>
+// where one block fills it).
+template <int NT, int NS>
 __global__ void __launch_bounds__(kTcThreads * NS)
 conv3x3_tf32x3_kernel(const float* __restrict__ x,
                       const float* __restrict__ packed,
@@ -286,9 +347,8 @@ conv3x3_tf32x3_kernel(const float* __restrict__ x,
   constexpr int NW = NT / NS;             // n8 tiles a warp
   constexpr int THREADS = kTcThreads * NS;
   constexpr int FP = F8 + 8;              // weight row pitch: 8 banks apart
-  constexpr int PARTS = BF16 ? 1 : 2;     // weight parts: hi (and lo)
   constexpr int XSTAGE = kTcCC * kTcHaloPitch;
-  constexpr int STAGE = XSTAGE + PARTS * 9 * kTcCC * FP;
+  constexpr int STAGE = XSTAGE + 2 * 9 * kTcCC * FP;
   static_assert(NT % NS == 0, "the warps of a row split the n8 tiles");
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
@@ -318,7 +378,7 @@ conv3x3_tf32x3_kernel(const float* __restrict__ x,
     }
     // weight rows (part, tap, ci) of F8 floats, 16 B at a time
     float* wb = buf + XSTAGE;
-    for (int i = threadIdx.x; i < PARTS * 9 * kTcCC * (F8 / 4);
+    for (int i = threadIdx.x; i < 2 * 9 * kTcCC * (F8 / 4);
          i += THREADS) {
       const int r = i / (F8 / 4);
       const int q = i - r * (F8 / 4);
@@ -351,32 +411,6 @@ conv3x3_tf32x3_kernel(const float* __restrict__ x,
     for (int tap = 0; tap < 9; ++tap) {
       const int ky = tap / 3;
       const int kx = tap - 3 * ky;
-      if (BF16) {
-        uint32_t ab[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const float* a = xs + t * kTcHaloPitch + (row + ky) * kTcHaloW +
-                           mt * 16 + g + kx;
-          ab[mt][0] = __float_as_uint(bf16_round(a[0]));
-          ab[mt][1] = __float_as_uint(bf16_round(a[8]));
-          ab[mt][2] = __float_as_uint(bf16_round(a[4 * kTcHaloPitch]));
-          ab[mt][3] = __float_as_uint(bf16_round(a[4 * kTcHaloPitch + 8]));
-        }
-        const float* wb = ws + (tap * kTcCC + t) * FP + nh * NW * 8 + g;
-#pragma unroll
-        for (int n = 0; n < NW; ++n) {
-          const uint32_t b0 = __float_as_uint(wb[n * 8]);
-          const uint32_t b1 = __float_as_uint(wb[4 * FP + n * 8]);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            float part[4] = {0.f, 0.f, 0.f, 0.f};
-            mma_tf32(part, ab[mt], b0, b1);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mt][n][e] += part[e];
-          }
-        }
-        continue;
-      }
       uint32_t ah[2][4], al[2][4];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
@@ -423,8 +457,8 @@ conv3x3_tf32x3_kernel(const float* __restrict__ x,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int f = (nh * NW + n) * 8 + 2 * t + e;
-          float v = add_bias<BF16>(acc[mt][n][2 * half + e],
-                                   f < F ? bias[f] : 0.f);
+          float v = add_bias<false>(acc[mt][n][2 * half + e],
+                                    f < F ? bias[f] : 0.f);
           if (relu) v = fmaxf(v, 0.f);
           acc[mt][n][2 * half + e] = v;
           sum = fmaf(v, v, sum);
@@ -479,24 +513,606 @@ conv3x3_tf32x3_kernel(const float* __restrict__ x,
   }
 }
 
-template <int NT, int NS, bool BF16>
+template <int NT, int NS>
 int launch_tf32x3(const float* x, const float* packed, const float* bias,
                   float* y, int V, int C_in, int F, int H, int W, int relu,
                   int normalize, cudaStream_t stream) {
   constexpr int FP = 8 * NT + 8;
-  constexpr int PARTS = BF16 ? 1 : 2;
   const size_t smem = 2 * (size_t)(kTcCC * kTcHaloPitch +
-                                   PARTS * 9 * kTcCC * FP) * sizeof(float);
+                                   2 * 9 * kTcCC * FP) * sizeof(float);
   // The attribute belongs to the current device: set it at every launch.
   const cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_tf32x3_kernel<NT, NS, BF16>,
+      conv3x3_tf32x3_kernel<NT, NS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int C8 = (C_in + kTcCC - 1) / kTcCC * kTcCC;
   dim3 grid((W + kTcTW - 1) / kTcTW, (H + kTcTH - 1) / kTcTH, V);
-  conv3x3_tf32x3_kernel<NT, NS, BF16>
+  conv3x3_tf32x3_kernel<NT, NS>
       <<<grid, kTcThreads * NS, smem, stream>>>(
       x, packed, bias, y, C_in, C8, F, H, W, relu, normalize);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------ K8 bfloat16, C_in > 1: bf16 mma ----
+
+constexpr int kTcHalo = kTcHaloH * kTcHaloW;   // 340 halo pixels
+constexpr int kBfKC = 16;                // input channels a stage: one k16
+constexpr int kBfPitch = kBfKC + 8;      // a staged row: 48 B, an odd count
+                                         // of 16-B units (ldmatrix rows in
+                                         // distinct banks)
+
+// Ablations of the probe entry (tools/k8_probe.py): each bit takes one part
+// of the bfloat16 body out, to split its time.
+constexpr int kAblStage = 1;      // no staging copies
+constexpr int kAblProducts = 2;   // no ldmatrix, no mma
+constexpr int kAblEpilogue = 4;   // no bias, rounding or ReLU
+constexpr int kAblStores = 8;     // no stores to device memory
+
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// d = a b (a zero accumulator)
+__device__ __forceinline__ void mma_bf16_zero(float* d, const uint32_t* a,
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int NT>
+struct Bf16Stage {                 // bf16 elements of a stage
+  static constexpr int kSize = (kTcHalo + 9 * 8 * NT) * kBfPitch;
+};
+
+// The block's tile as in the 3xTF32 body (8 x 32 pixels); a warp takes RW
+// tile rows, two m16 tiles each, and NT / NS of the n8 tiles (NS warps
+// share its rows). Two blocks share an SM where their stages fit.
+// x: bfloat16 channels-last (V, H, W, C_in); wl: the bfloat16
+// (9, F8, C16) layout; y: bfloat16 channels-last (V, H, W, F) for OUT_BF16,
+// else float32 (V, F, H, W). vec_in: C_in a multiple of 8 and x 16-B
+// aligned (a pixel's 8-channel groups are 16-B copies), else the halo is
+// staged 2 B at a time; vec_out likewise for F and y.
+template <int NT, int ST>
+struct Bf16Blocks {                // blocks an SM: two where two fit
+  static constexpr int kCount =
+      2 * ST * Bf16Stage<NT>::kSize <= 114688 ? 2 : 1;
+};
+
+template <int NT, int NS, int RW, int ST, int CHAIN, bool OUT_BF16,
+          int ABL>
+__global__ void __launch_bounds__(kTcThreads * NS / RW,
+                                  Bf16Blocks<NT, ST>::kCount)
+conv3x3_bf16_kernel(const uint16_t* __restrict__ x,
+                    const uint16_t* __restrict__ wl,
+                    const float* __restrict__ bias, void* __restrict__ y,
+                    int C_in, int C16, int F, int H, int W, int relu,
+                    int normalize, int vec_in, int vec_out) {
+  constexpr int F8 = 8 * NT;
+  constexpr int NW = NT / NS;             // n8 tiles a warp
+  constexpr int RWARPS = kTcTH / RW;      // warps down the tile
+  constexpr int THREADS = 32 * RWARPS * NS;
+  constexpr int XSTAGE = kTcHalo * kBfPitch;
+  constexpr int STAGE = Bf16Stage<NT>::kSize;
+  static_assert(NT % NS == 0, "the warps of a row split the n8 tiles");
+  static_assert(kTcTH % RW == 0, "a warp's rows divide the tile");
+  extern __shared__ __align__(16) uint16_t sm16[];
+  const int lane = threadIdx.x & 31;
+  const int row0 = (threadIdx.x >> 5) % RWARPS * RW;   // first tile row
+  const int nh = (threadIdx.x >> 5) / RWARPS;   // this warp's share of F8
+  const int g = lane >> 2;                // mma groupID
+  const int t = lane & 3;                 // thread in group
+  const int ty0 = blockIdx.y * kTcTH;
+  const int tx0 = blockIdx.x * kTcTW;
+  const int view = blockIdx.z;
+  const uint16_t* xv = x + (size_t)view * H * W * C_in;
+
+  // stage `chunk`: channels c0 ... c0 + 15 of the 10 x 34 halo, pixel p's
+  // at buf[p * kBfPitch], zero outside the frame and past C_in (the SAME
+  // padding and the k16 padding), and of the 9 x F8 weight rows
+  auto stage = [&](int chunk, uint16_t* buf) {
+    if (ABL & kAblStage) return;
+    const int c0 = chunk * kBfKC;
+    if (vec_in) {
+      for (int i = threadIdx.x; i < kTcHalo * 2; i += THREADS) {
+        const int p = i >> 1;
+        const int c = c0 + 8 * (i & 1);
+        const int hy = p / kTcHaloW;
+        const int gy = ty0 + hy - 1;
+        const int gx = tx0 + p - hy * kTcHaloW - 1;
+        const bool ok = c < C_in && gy >= 0 && gy < H && gx >= 0 && gx < W;
+        cp_async16_zfill(buf + p * kBfPitch + 8 * (i & 1),
+                         ok ? xv + ((size_t)gy * W + gx) * C_in + c : xv,
+                         ok ? 16 : 0);
+      }
+    } else {
+      for (int i = threadIdx.x; i < kTcHalo * kBfKC; i += THREADS) {
+        const int p = i / kBfKC;
+        const int c = c0 + i - p * kBfKC;
+        const int hy = p / kTcHaloW;
+        const int gy = ty0 + hy - 1;
+        const int gx = tx0 + p - hy * kTcHaloW - 1;
+        const bool ok = c < C_in && gy >= 0 && gy < H && gx >= 0 && gx < W;
+        buf[p * kBfPitch + c - c0] =
+            ok ? __ldg(xv + ((size_t)gy * W + gx) * C_in + c) : 0;
+      }
+    }
+    uint16_t* wb = buf + XSTAGE;
+    for (int i = threadIdx.x; i < 9 * F8 * 2; i += THREADS)
+      cp_async16_zfill(wb + (i >> 1) * kBfPitch + 8 * (i & 1),
+                       wl + (size_t)(i >> 1) * C16 + c0 + 8 * (i & 1), 16);
+  };
+
+  float acc[2 * RW][NW][4];               // m16 tile 2 r + mt: row0 + r
+#pragma unroll
+  for (int mt = 0; mt < 2 * RW; ++mt)
+#pragma unroll
+    for (int n = 0; n < NW; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+
+  // This lane's ldmatrix rows, in bf16 elements from the stage. A (x4):
+  // pixel lane & 15 of an m16 tile, channels 8 (lane >> 4) ... + 7, so
+  // a0..a3 = (pixels 0-7 | 8-15) x (channels 0-7 | 8-15). B (x4): output
+  // 8 (lane >> 4) + (lane & 7) of an n8 pair, channels 8 ((lane >> 3) & 1)
+  // ... + 7, so b0, b1 of the pair's first tile, then of its second. A tap
+  // (ky, kx) moves A by ky halo rows and kx pixels, B by tap * F8 rows.
+  const unsigned a_lane = (row0 * kTcHaloW + (lane & 15)) * kBfPitch +
+                          8 * (lane >> 4);
+  const unsigned b_lane = XSTAGE +
+                          (nh * NW * 8 + 8 * (lane >> 4) + (lane & 7)) *
+                              kBfPitch + 8 * ((lane >> 3) & 1);
+  // ST buffers: chunk ch + ST - 1 is copied while chunk ch is multiplied
+  const int chunks = C16 / kBfKC;
+  const unsigned base = (unsigned)__cvta_generic_to_shared(sm16);
+#pragma unroll
+  for (int c = 0; c < ST - 1; ++c) {
+    if (c < chunks) stage(c, sm16 + c * STAGE);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int ch = 0; ch < chunks; ++ch) {
+    if (ch + ST - 1 < chunks)
+      stage(ch + ST - 1, sm16 + (ch + ST - 1) % ST * STAGE);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(ST - 1));
+    __syncthreads();                      // stage ch has landed
+    if (!(ABL & kAblProducts)) {
+      const unsigned buf = base + 2u * (ch % ST) * STAGE;
+      // taps in groups of G: CHAIN = 0 chains every k16 step through the
+      // tensor-core accumulator; else the G = CHAIN taps of a group go
+      // into a zeroed one, added to acc with a rounded float32 add
+      constexpr int G = CHAIN == 0 ? 1 : CHAIN;
+      static_assert(9 % G == 0, "tap groups divide the 9 taps");
+#pragma unroll
+      for (int t0 = 0; t0 < 9; t0 += G) {
+        uint32_t a[G][2 * RW][4];
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          const int ky = (t0 + j) / 3;
+          const int kx = t0 + j - 3 * ky;
+#pragma unroll
+          for (int mt = 0; mt < 2 * RW; ++mt)
+            ldmatrix_x4(a[j][mt],
+                        buf + 2u * (a_lane + ((ky + mt / 2) * kTcHaloW + kx +
+                                              16 * (mt & 1)) * kBfPitch));
+        }
+#pragma unroll
+        for (int n = 0; n < NW; n += 2) {
+          uint32_t b[G][4];
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+            const unsigned addr =
+                buf + 2u * (b_lane + ((t0 + j) * F8 + 8 * n) * kBfPitch);
+            if (n + 1 < NW) ldmatrix_x4(b[j], addr);
+            else ldmatrix_x2(b[j], addr);
+          }
+#pragma unroll
+          for (int mt = 0; mt < 2 * RW; ++mt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (n + h >= NW) continue;
+              if (CHAIN == 0) {
+                mma_bf16(acc[mt][n + h], a[0][mt], b[0][2 * h],
+                         b[0][2 * h + 1]);
+                continue;
+              }
+              float p[4];
+              mma_bf16_zero(p, a[0][mt], b[0][2 * h], b[0][2 * h + 1]);
+#pragma unroll
+              for (int j = 1; j < G; ++j)
+                mma_bf16(p, a[j][mt], b[j][2 * h], b[j][2 * h + 1]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[mt][n + h][e] += p[e];
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();                      // stage ch may be overwritten
+  }
+
+  // c0, c1: pixel g, channels 2t, 2t + 1; c2, c3: pixel g + 8 (of m16
+  // tile mt: tile row row0 + mt / 2, columns 16 (mt & 1) on). The sum
+  // rounded, the bias (rounded once) added and rounded, ReLU; each pixel's
+  // sum of squares over this warp's channels for the norm.
+  float ss[2 * RW][2];
+#pragma unroll
+  for (int mt = 0; mt < 2 * RW; ++mt) ss[mt][0] = ss[mt][1] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NW; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int f = (nh * NW + n) * 8 + 2 * t + e;
+      const float b = bf16_round(f < F ? bias[f] : 0.f);
+#pragma unroll
+      for (int mt = 0; mt < 2 * RW; ++mt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float v = acc[mt][n][2 * half + e];
+          if (!(ABL & kAblEpilogue)) {
+            v = bf16_round(bf16_round(v) + b);
+            if (relu) v = fmaxf(v, 0.f);
+          }
+          acc[mt][n][2 * half + e] = v;
+          ss[mt][half] = fmaf(v, v, ss[mt][half]);
+        }
+      }
+    }
+  }
+  if (OUT_BF16) {
+    // The tile through shared memory (the stages are done): [256 pixels]
+    // [F8 + 8], then each pixel's F channels out as 16-B vectors, a warp
+    // covering contiguous pixels of a row: whole lines.
+    constexpr int OP = F8 + 8;
+    static_assert(kTcTH * kTcTW * OP <= ST * STAGE, "the output tile fits");
+#pragma unroll
+    for (int mt = 0; mt < 2 * RW; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int n = 0; n < NW; ++n)
+          *reinterpret_cast<uint32_t*>(
+              sm16 + ((row0 + mt / 2) * kTcTW + 16 * (mt & 1) + g +
+                      8 * half) * OP + (nh * NW + n) * 8 + 2 * t) =
+              pack_bf16x2(acc[mt][n][2 * half], acc[mt][n][2 * half + 1]);
+    __syncthreads();
+    if (ABL & kAblStores) return;
+    uint16_t* yv = static_cast<uint16_t*>(y) + (size_t)view * H * W * F;
+    if (vec_out) {
+      const int G = F >> 3;               // 16-B groups a pixel
+      for (int i = threadIdx.x; i < kTcTH * kTcTW * G; i += THREADS) {
+        const int p = i / G;
+        const int q = i - p * G;
+        const int py = ty0 + (p >> 5);
+        const int px = tx0 + (p & 31);
+        if (py < H && px < W)
+          *reinterpret_cast<uint4*>(yv + ((size_t)py * W + px) * F + 8 * q) =
+              *reinterpret_cast<const uint4*>(sm16 + p * OP + 8 * q);
+      }
+    } else {
+      for (int i = threadIdx.x; i < kTcTH * kTcTW * F; i += THREADS) {
+        const int p = i / F;
+        const int f = i - p * F;
+        const int py = ty0 + (p >> 5);
+        const int px = tx0 + (p & 31);
+        if (py < H && px < W)
+          yv[((size_t)py * W + px) * F + f] = sm16[p * OP + f];
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2 * RW; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      ss[mt][half] += __shfl_xor_sync(0xffffffffu, ss[mt][half], 1);
+      ss[mt][half] += __shfl_xor_sync(0xffffffffu, ss[mt][half], 2);
+    }
+  if (normalize && NS > 1) {
+    float* red = reinterpret_cast<float*>(sm16);  // [NS][kTcTH][kTcTW]
+#pragma unroll
+    for (int mt = 0; mt < 2 * RW; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        if (t == 0)
+          red[(nh * kTcTH + row0 + mt / 2) * kTcTW + 16 * (mt & 1) + g +
+              8 * half] = ss[mt][half];
+    __syncthreads();
+#pragma unroll
+    for (int mt = 0; mt < 2 * RW; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float sum = 0.f;
+        for (int h = 0; h < NS; ++h)
+          sum += red[(h * kTcTH + row0 + mt / 2) * kTcTW + 16 * (mt & 1) +
+                     g + 8 * half];
+        ss[mt][half] = sum;
+      }
+  }
+  if (ABL & kAblStores) return;
+  float* yf = static_cast<float*>(y);
+#pragma unroll
+  for (int mt = 0; mt < 2 * RW; ++mt) {
+    const int gy = ty0 + row0 + mt / 2;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float norm = normalize ? sqrtf(ss[mt][half] + 1e-12f) : 1.f;
+      const int gx = tx0 + 16 * (mt & 1) + g + 8 * half;
+      if (gy >= H || gx >= W) continue;
+#pragma unroll
+      for (int n = 0; n < NW; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int f = (nh * NW + n) * 8 + 2 * t + e;
+          if (f < F) {
+            const float v = acc[mt][n][2 * half + e];
+            yf[(((size_t)view * F + f) * H + gy) * W + gx] =
+                normalize ? v / norm : v;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int NT, int NS, int RW, int ST, int CHAIN, bool OUT_BF16,
+          int ABL>
+int launch_bf16(const void* x, const void* layout, const float* bias,
+                void* y, int V, int C_in, int F, int H, int W, int relu,
+                int normalize, int vec_in, int vec_out,
+                cudaStream_t stream) {
+  const size_t smem = ST * (size_t)Bf16Stage<NT>::kSize * sizeof(uint16_t);
+  // The attribute belongs to the current device: set it at every launch.
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_bf16_kernel<NT, NS, RW, ST, CHAIN, OUT_BF16, ABL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int C16 = (C_in + kBfKC - 1) / kBfKC * kBfKC;
+  dim3 grid((W + kTcTW - 1) / kTcTW, (H + kTcTH - 1) / kTcTH, V);
+  conv3x3_bf16_kernel<NT, NS, RW, ST, CHAIN, OUT_BF16, ABL>
+      <<<grid, kTcThreads * NS / RW, smem, stream>>>(
+      static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(layout),
+      bias, y, C_in, C16, F, H, W, relu, normalize, vec_in, vec_out);
+  return (int)cudaGetLastError();
+}
+
+// -------------------- K8 bfloat16, C_in > 1: the wgmma form (probe only) ----
+// Measured by tools/k8_probe.py beside the mma.sync body, never launched by
+// the layer. A 4 x 64 pixel tile, two warpgroups of two tile rows each,
+// m64 = one tile row, N = F8, k16 a tap's 16 channels; every k16 step
+// chained through the accumulators (wgmma has no rounded add a step
+// without a second set of them). A and B from shared memory by
+// descriptors, no swizzle, K-major: a stage holds the halo as [channel
+// group g][halo pixel][8 channels], core matrices of 8 pixels x 16 B (SBO
+// 128 B between pixel octets, LBO = the 396 halo pixels x 16 B between
+// the two groups), so a tap (ky, kx) starts A ky halo rows and kx pixels
+// on, still 16-B aligned (a 128-B swizzle could not start one pixel in);
+// B as [tap][g][output][8 channels] (SBO 128 B, LBO = F8 x 16 B).
+
+constexpr int kWgTH = 4;                      // tile rows
+constexpr int kWgTW = 64;                     // tile columns: m64
+constexpr int kWgHaloW = kWgTW + 2;
+constexpr int kWgHalo = (kWgTH + 2) * kWgHaloW;   // 396 halo pixels
+
+__device__ __forceinline__ uint64_t wgmma_desc(unsigned addr, unsigned lbo,
+                                               unsigned sbo) {
+  return (uint64_t)((addr >> 4) & 0x3fffu) |
+         ((uint64_t)((lbo >> 4) & 0x3fffu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3fffu) << 32);
+}
+
+// d (m64n64: 32 floats a thread) = A B, plus d unless scale_d is 0
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,"
+      "%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (m64n112: 56 floats a thread) = A B, plus d unless scale_d is 0
+__device__ __forceinline__ void wgmma_n112(float (&d)[56], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,"
+      "%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,"
+      "%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55"
+      "}, %56, %57, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int NT>
+struct WgStage {                   // bf16 elements of a stage: A, then B
+  static constexpr int kA = 2 * kWgHalo * 8;
+  static constexpr int kSize = kA + 9 * 2 * 8 * NT * 8;
+};
+
+template <int NT>
+__device__ __forceinline__ void wgmma_tap(float (&d)[4 * NT], uint64_t da,
+                                          uint64_t db) {
+  if constexpr (NT == 8) wgmma_n64(d, da, db, 1);
+  else wgmma_n112(d, da, db, 1);
+}
+
+// A layer before the last (ReLU, bfloat16 channels-last out), F = 8 NT.
+template <int NT>
+__global__ void __launch_bounds__(256, 1)
+conv3x3_wgmma_kernel(const uint16_t* __restrict__ x,
+                     const uint16_t* __restrict__ wl,
+                     const float* __restrict__ bias,
+                     uint16_t* __restrict__ y, int C_in, int C16, int F,
+                     int H, int W) {
+  constexpr int F8 = 8 * NT;
+  constexpr int STAGE = WgStage<NT>::kSize;
+  extern __shared__ __align__(128) uint16_t smw[];
+  const int wg = threadIdx.x >> 7;        // tile rows 2 wg, 2 wg + 1
+  const int w = (threadIdx.x >> 5) & 3;   // rows 16 w ... of the m64
+  const int lane = threadIdx.x & 31;
+  const int ty0 = blockIdx.y * kWgTH;
+  const int tx0 = blockIdx.x * kWgTW;
+  const int view = blockIdx.z;
+  const uint16_t* xv = x + (size_t)view * H * W * C_in;
+
+  auto stage = [&](int chunk, uint16_t* buf) {
+    const int c0 = chunk * kBfKC;
+    for (int i = threadIdx.x; i < kWgHalo * 2; i += 256) {
+      const int p = i >> 1;
+      const int g = i & 1;
+      const int c = c0 + 8 * g;
+      const int hy = p / kWgHaloW;
+      const int gy = ty0 + hy - 1;
+      const int gx = tx0 + p - hy * kWgHaloW - 1;
+      const bool ok = c < C_in && gy >= 0 && gy < H && gx >= 0 && gx < W;
+      cp_async16_zfill(buf + (g * kWgHalo + p) * 8,
+                       ok ? xv + ((size_t)gy * W + gx) * C_in + c : xv,
+                       ok ? 16 : 0);
+    }
+    uint16_t* wb = buf + WgStage<NT>::kA;
+    for (int i = threadIdx.x; i < 9 * F8 * 2; i += 256) {
+      const int r = i >> 1;               // tap * F8 + output
+      const int g = i & 1;
+      const int tap = r / F8;
+      cp_async16_zfill(wb + ((tap * 2 + g) * F8 + r - tap * F8) * 8,
+                       wl + (size_t)r * C16 + c0 + 8 * g, 16);
+    }
+  };
+
+  float acc[2][4 * NT];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int n = 0; n < 4 * NT; ++n) acc[r][n] = 0.f;
+  const int chunks = C16 / kBfKC;
+  const unsigned base = (unsigned)__cvta_generic_to_shared(smw);
+  stage(0, smw);
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int ch = 0; ch < chunks; ++ch) {
+    if (ch + 1 < chunks) stage(ch + 1, smw + ((ch + 1) & 1) * STAGE);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    // the copies went through the generic proxy, wgmma reads through the
+    // async one
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const unsigned a0 = base + 2u * (ch & 1) * STAGE;
+    const unsigned b0 = a0 + 2u * WgStage<NT>::kA;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ky = tap / 3;
+      const int kx = tap - 3 * ky;
+      const uint64_t db = wgmma_desc(b0 + 16u * (tap * 2 * F8), 16u * F8,
+                                     128u);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        wgmma_tap<NT>(acc[r],
+                      wgmma_desc(a0 + 16u * ((2 * wg + r + ky) * kWgHaloW +
+                                             kx),
+                                 16u * kWgHalo, 128u),
+                      db);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    __syncthreads();                      // stage ch may be overwritten
+  }
+  // acc[r][4 j + e]: pixel 16 w + lane / 4 (+ 8 for e >= 2) of tile row
+  // 2 wg + r, channels 8 j + 2 (lane % 4) + (e & 1)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int gy = ty0 + 2 * wg + r;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int f = 8 * j + 2 * (lane & 3);
+      const float b0 = bf16_round(f < F ? bias[f] : 0.f);
+      const float b1 = bf16_round(f + 1 < F ? bias[f + 1] : 0.f);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int gx = tx0 + 16 * w + (lane >> 2) + 8 * half;
+        const float v0 = fmaxf(
+            bf16_round(bf16_round(acc[r][4 * j + 2 * half]) + b0), 0.f);
+        const float v1 = fmaxf(
+            bf16_round(bf16_round(acc[r][4 * j + 2 * half + 1]) + b1), 0.f);
+        if (gy < H && gx < W && f + 1 < F)
+          *reinterpret_cast<uint32_t*>(
+              y + (((size_t)view * H + gy) * W + gx) * F + f) =
+              pack_bf16x2(v0, v1);
+      }
+    }
+  }
+}
+
+template <int NT>
+int launch_wgmma(const void* x, const void* layout, const float* bias,
+                 void* y, int V, int C_in, int F, int H, int W,
+                 cudaStream_t stream) {
+  const size_t smem = 2 * (size_t)WgStage<NT>::kSize * sizeof(uint16_t);
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_wgmma_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int C16 = (C_in + kBfKC - 1) / kBfKC * kBfKC;
+  dim3 grid((W + kWgTW - 1) / kWgTW, (H + kWgTH - 1) / kWgTH, V);
+  conv3x3_wgmma_kernel<NT><<<grid, 256, smem, stream>>>(
+      static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(layout),
+      bias, static_cast<uint16_t*>(y), C_in, C16, F, H, W);
   return (int)cudaGetLastError();
 }
 
@@ -709,55 +1325,165 @@ int launch_volume(const float* fl, const float* fr, float* out, int F, int H,
   return (int)cudaGetLastError();
 }
 
-// One K8 layer: the body chosen by C_in, the tile of output channels by F.
-template <bool BF16>
+// One K8 layer in float32: the body chosen by C_in, the tile of output
+// channels by F.
 int conv3x3(const float* x, const float* layout, const float* bias, float* y,
             int V, int C_in, int F, int H, int W, int relu, int normalize,
             cudaStream_t st) {
   if (C_in > 1) {
     if (F <= 32)
-      return launch_tf32x3<4, 1, BF16>(x, layout, bias, y, V, C_in, F, H, W,
-                                       relu, normalize, st);
+      return launch_tf32x3<4, 1>(x, layout, bias, y, V, C_in, F, H, W, relu,
+                                 normalize, st);
     if (F <= 64)
-      return launch_tf32x3<8, 1, BF16>(x, layout, bias, y, V, C_in, F, H, W,
-                                       relu, normalize, st);
+      return launch_tf32x3<8, 1>(x, layout, bias, y, V, C_in, F, H, W, relu,
+                                 normalize, st);
     if (F <= 112)
-      return launch_tf32x3<14, 2, BF16>(x, layout, bias, y, V, C_in, F, H,
-                                        W, relu, normalize, st);
-    return launch_tf32x3<16, 2, BF16>(x, layout, bias, y, V, C_in, F, H, W,
-                                      relu, normalize, st);
+      return launch_tf32x3<14, 2>(x, layout, bias, y, V, C_in, F, H, W, relu,
+                                  normalize, st);
+    return launch_tf32x3<16, 2>(x, layout, bias, y, V, C_in, F, H, W, relu,
+                                normalize, st);
   }
   if (F <= 32)
-    return launch_conv3x3<32, BF16>(x, layout, bias, y, V, F, H, W, relu,
-                                    normalize, st);
+    return launch_conv3x3<32, false, false>(x, layout, bias, y, V, F, H, W,
+                                            relu, normalize, 0, st);
   if (F <= 64)
-    return launch_conv3x3<64, BF16>(x, layout, bias, y, V, F, H, W, relu,
-                                    normalize, st);
+    return launch_conv3x3<64, false, false>(x, layout, bias, y, V, F, H, W,
+                                            relu, normalize, 0, st);
   if (F <= 112)
-    return launch_conv3x3<112, BF16>(x, layout, bias, y, V, F, H, W, relu,
-                                     normalize, st);
-  return launch_conv3x3<128, BF16>(x, layout, bias, y, V, F, H, W, relu,
-                                   normalize, st);
+    return launch_conv3x3<112, false, false>(x, layout, bias, y, V, F, H, W,
+                                             relu, normalize, 0, st);
+  return launch_conv3x3<128, false, false>(x, layout, bias, y, V, F, H, W,
+                                           relu, normalize, 0, st);
 }
+
+// One K8 layer in the bfloat16 mode, the output bfloat16 channels-last
+// (OUT_BF16) or float32 (V, F, H, W).
+template <bool OUT_BF16>
+int conv3x3_bf16(const void* x, const void* layout, const float* bias,
+                 void* y, int V, int C_in, int F, int H, int W, int relu,
+                 int normalize, int vec_in, int vec_out, cudaStream_t st) {
+  // (NT, NS, ST): the n8 tiles, the warps sharing a tile row, the staging
+  // buffers (two, so that two blocks share an SM, up to F = 64; three
+  // where one block fills it); two rows a warp, a rounded add each k16 step
+#define SMT_BF16(NT, NS, ST)                                               \
+  return launch_bf16<NT, NS, 2, ST, 1, OUT_BF16, 0>(                       \
+      x, layout, bias, y, V, C_in, F, H, W, relu, normalize, vec_in,       \
+      vec_out, st);
+  if (C_in > 1) {
+    if (F <= 32) SMT_BF16(4, 1, 2)
+    if (F <= 64) SMT_BF16(8, 1, 2)
+    if (F <= 112) SMT_BF16(14, 2, 3)
+    SMT_BF16(16, 2, 3)
+  }
+#undef SMT_BF16
+  const float* xf = static_cast<const float*>(x);
+  const float* taps = static_cast<const float*>(layout);
+  if (F <= 32)
+    return launch_conv3x3<32, true, OUT_BF16>(xf, taps, bias, y, V, F, H, W,
+                                              relu, normalize, vec_out, st);
+  if (F <= 64)
+    return launch_conv3x3<64, true, OUT_BF16>(xf, taps, bias, y, V, F, H, W,
+                                              relu, normalize, vec_out, st);
+  if (F <= 112)
+    return launch_conv3x3<112, true, OUT_BF16>(xf, taps, bias, y, V, F, H,
+                                               W, relu, normalize, vec_out,
+                                               st);
+  return launch_conv3x3<128, true, OUT_BF16>(xf, taps, bias, y, V, F, H, W,
+                                             relu, normalize, vec_out, st);
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 }  // namespace
 
-// x: (V, C_in, H, W); layout: K8's copy of the weights, chosen by C_in and
-// bf16: for C_in = 1 the (3, 3, 1, F) taps (the flax kernel layout), for
-// C_in > 1 the (2, 3, 3, C8, F8) TF32 hi and lo parts of the taps, or with
-// bf16 the (1, 3, 3, C8, F8) taps rounded to bfloat16, C_in padded to C8 (a
-// multiple of 8) and F to F8 (32, 64, 112 or 128) by zeros; bias: (F,);
-// y: (V, F, H, W). F <= 128. bf16: the bfloat16 mode.
+// The float32 mode. x: (V, C_in, H, W); layout: K8's copy of the weights,
+// chosen by C_in: for C_in = 1 the (3, 3, 1, F) taps (the flax kernel
+// layout), for C_in > 1 the (2, 3, 3, C8, F8) TF32 hi and lo parts of the
+// taps, C_in padded to C8 (a multiple of 8) and F to F8 (32, 64, 112 or 128)
+// by zeros; bias: (F,); y: (V, F, H, W). F <= 128. bf16 must be 0: the
+// bfloat16 mode has its own entry, smt_mccnn_conv3x3_bf16.
 extern "C" int smt_mccnn_conv3x3(const float* x, const float* layout,
                                  const float* bias, float* y, int V, int C_in,
                                  int F, int H, int W, int relu, int normalize,
                                  int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (F < 1 || F > 128 || C_in < 1) return (int)cudaErrorInvalidValue;
-  return bf16 ? conv3x3<true>(x, layout, bias, y, V, C_in, F, H, W, relu,
-                              normalize, st)
-              : conv3x3<false>(x, layout, bias, y, V, C_in, F, H, W, relu,
-                               normalize, st);
+  if (F < 1 || F > 128 || C_in < 1 || bf16) return (int)cudaErrorInvalidValue;
+  return conv3x3(x, layout, bias, y, V, C_in, F, H, W, relu, normalize, st);
+}
+
+// The bfloat16 mode. x: for C_in = 1 the float32 (V, 1, H, W) images, for
+// C_in > 1 bfloat16 channels-last (V, H, W, C_in); layout: for C_in = 1 the
+// float32 (3, 3, 1, F) taps rounded to bfloat16, for C_in > 1 the bfloat16
+// (9, F8, C16) taps, tap-major, then outputs, then inputs, C_in padded to
+// C16 (a multiple of 16) and F to F8 by zeros; bias: float32 (F,); y:
+// bfloat16 channels-last (V, H, W, F) for out_bf16 (not with normalize),
+// else float32 (V, F, H, W). F <= 128.
+extern "C" int smt_mccnn_conv3x3_bf16(const void* x, const void* layout,
+                                      const float* bias, void* y, int V,
+                                      int C_in, int F, int H, int W, int relu,
+                                      int normalize, int out_bf16,
+                                      void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (F < 1 || F > 128 || C_in < 1 || (out_bf16 && normalize))
+    return (int)cudaErrorInvalidValue;
+  const int vec_in = C_in % 8 == 0 && aligned16(x);
+  const int vec_out = F % 8 == 0 && aligned16(y);
+  return out_bf16 ? conv3x3_bf16<true>(x, layout, bias, y, V, C_in, F, H, W,
+                                       relu, normalize, vec_in, vec_out, st)
+                  : conv3x3_bf16<false>(x, layout, bias, y, V, C_in, F, H, W,
+                                        relu, normalize, vec_in, vec_out, st);
+}
+
+// The probe of tools/k8_probe.py: the bfloat16 C_in > 1 body of a layer
+// before the last (ReLU, bfloat16 channels-last out) at F = 64 or 112 with
+// the parts in ablate & 255 (kAblStage | kAblProducts | kAblEpilogue |
+// kAblStores, one at a time, or 0 for none) taken out, in the variant
+// ablate >> 8: 0, the one conv3x3_bf16 launches; then, without
+// ablations, its k16 steps all chained through the tensor-core
+// accumulator (CHAIN 0); the three taps of a kernel row a partial sum
+// (CHAIN 3); one tile row a warp (RW 1); at F = 112 two staging buffers;
+// and 9, the wgmma form (conv3x3_wgmma_kernel). Arguments as
+// smt_mccnn_conv3x3_bf16's.
+extern "C" int smt_mccnn_conv3x3_bf16_probe(const void* x,
+                                            const void* layout,
+                                            const float* bias, void* y,
+                                            int V, int C_in, int F, int H,
+                                            int W, int ablate, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C_in < 2 || (F != 64 && F != 112)) return (int)cudaErrorInvalidValue;
+  const int vec_in = C_in % 8 == 0 && aligned16(x);
+  const int vec_out = aligned16(y);
+#define SMT_PROBE(NT, NS, RW, ST, CHAIN, ABL)                              \
+  if ((ablate & 255) == ABL)                                               \
+    return launch_bf16<NT, NS, RW, ST, CHAIN, true, ABL>(                  \
+        x, layout, bias, y, V, C_in, F, H, W, 1, 0, vec_in, vec_out, st);
+#define SMT_PROBE_ALL(NT, NS, ST)                                          \
+  SMT_PROBE(NT, NS, 2, ST, 1, 0)                                           \
+  SMT_PROBE(NT, NS, 2, ST, 1, kAblStage)                                   \
+  SMT_PROBE(NT, NS, 2, ST, 1, kAblProducts)                                \
+  SMT_PROBE(NT, NS, 2, ST, 1, kAblEpilogue)                                \
+  SMT_PROBE(NT, NS, 2, ST, 1, kAblStores)
+  const int variant = ablate >> 8;
+  if (variant == 9 && ablate == 9 << 8 && C_in % 8 == 0 && F % 8 == 0)
+    return F == 64 ? launch_wgmma<8>(x, layout, bias, y, V, C_in, F, H, W,
+                                     st)
+                   : launch_wgmma<14>(x, layout, bias, y, V, C_in, F, H,
+                                      W, st);
+  if (F == 64) {
+    if (variant == 0) { SMT_PROBE_ALL(8, 1, 2) }
+    if (variant == 1) { SMT_PROBE(8, 1, 2, 2, 0, 0) }
+    if (variant == 2) { SMT_PROBE(8, 1, 2, 2, 3, 0) }
+    if (variant == 3) { SMT_PROBE(8, 1, 1, 2, 1, 0) }
+  } else {
+    if (variant == 0) { SMT_PROBE_ALL(14, 2, 3) }
+    if (variant == 1) { SMT_PROBE(14, 2, 2, 3, 0, 0) }
+    if (variant == 2) { SMT_PROBE(14, 2, 2, 3, 3, 0) }
+    if (variant == 3) { SMT_PROBE(14, 2, 1, 3, 1, 0) }
+    if (variant == 4) { SMT_PROBE(14, 2, 2, 2, 1, 0) }
+  }
+#undef SMT_PROBE_ALL
+#undef SMT_PROBE
+  return (int)cudaErrorInvalidValue;
 }
 
 // fl, fr: (F, H, W) features of the two views; out: (D, H, W). Any F, D,

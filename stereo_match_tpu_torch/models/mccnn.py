@@ -73,8 +73,9 @@ class MCCNNFeatures(nn.Module):
     flax's: float32, or bfloat16, where each layer rounds its input and
     weights to bfloat16, sums in float32 and rounds its output (K8's
     ``bf16`` mode, ``mccnn_conv3x3_plain``); the L2 norm is float32 either
-    way, and so are the activations' tensors. ``layout{i}`` is the copy of
-    layer i's weights that K8 reads (``mccnn_weight_layout`` for
+    way, and so are the features; between layers bfloat16 activations are
+    bfloat16 channels-last tensors (:meth:`forward`). ``layout{i}`` is the
+    copy of layer i's weights that K8 reads (``mccnn_weight_layout`` for
     ``compute_dtype``: the (3, 3, 1, F) taps of the first layer, the packed
     taps of the others), made when the weights are set (construction,
     ``load_state_dict``) and moved with the module. Whoever changes a
@@ -145,14 +146,19 @@ class MCCNNFeatures(nn.Module):
         return twin
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(V, H, W) normalized images -> (V, F, H, W) unit features."""
+        """(V, H, W) normalized images -> (V, F, H, W) unit features,
+        float32. In bfloat16 each layer but the last hands the next its
+        output as a bfloat16 tensor in ``torch.channels_last`` (flax's
+        NHWC; exact, the values are bfloat16), which K8 reads and writes as
+        it is."""
         h = x[:, None].contiguous()
+        bf16 = self.compute_dtype == torch.bfloat16
         for i in range(self.num_layers):
             last = i == self.num_layers - 1
             h = mccnn_conv3x3(h, self.weights[i], self.biases[i],
                               relu=not last, normalize=last,
                               layout=getattr(self, f"layout{i}"),
-                              bf16=self.compute_dtype == torch.bfloat16)
+                              bf16=bf16, bf16_out=bf16 and not last)
         return h
 
 

@@ -2,13 +2,16 @@
 
 ``smt_native.cpp`` is a byte-for-byte copy of the JAX package's source
 (a test holds the two equal): Bowyer-Watson Delaunay triangulation and
-slanted-plane rasterization, the host half of the ELAS pipeline. It is
+slanted-plane rasterization, the host half of the ELAS pipeline, and the union-find
+speckle filter (``cv::filterSpeckles``). It is
 built with ``g++`` at first use into
 ``build/stereo_match_tpu_torch/native/<hash>/`` (keyed on a hash of the
 source and flags; never into a package directory), then loaded with
 ``ctypes``. Without a compiler, ``delaunay`` and ``rasterize_planes`` fall
-back to scipy and numpy, as the JAX package's do; ``available()`` says
-which one runs.
+back to scipy and numpy, and ``speckle_filter_host`` to the port's plain
+speckle filter on the CPU (``ops/speckle.py``), as the JAX package's fall
+back to scipy, numpy and its XLA filter; ``available()`` says which one
+runs.
 """
 
 from __future__ import annotations
@@ -75,6 +78,9 @@ def _load() -> ctypes.CDLL | None:
     lib.smt_rasterize_planes.restype = None
     lib.smt_rasterize_planes.argtypes = [ip, ctypes.c_int, dp, ctypes.c_int,
                                          ctypes.c_int, ctypes.c_int, fp]
+    lib.smt_speckle_filter.restype = ctypes.c_int
+    lib.smt_speckle_filter.argtypes = [fp, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_float, ctypes.c_int]
     _lib = lib
     return _lib
 
@@ -135,3 +141,25 @@ def _rasterize_py(tris, sup, height, width):
         inside = (l1 >= -1e-9) & (l2 >= -1e-9) & (l3 >= -1e-9)
         mu[inside] = (l1 * ad + l2 * bd + l3 * cd)[inside].astype(np.float32)
     return mu
+
+
+def speckle_filter_host(disparity: np.ndarray, max_speckle_size: int,
+                        max_diff: float) -> np.ndarray:
+    """Host-side exact speckle filter (``cv::filterSpeckles`` semantics):
+    a float32 copy of the (H, W) map, 4-connected components of pixels
+    within ``max_diff`` (NaN invalid) smaller than ``max_speckle_size`` set
+    to NaN by the library's union-find, in place on the copy. Without the
+    library, the port's plain speckle filter on the CPU
+    (``ops/speckle.speckle_filter``)."""
+    disp = np.ascontiguousarray(disparity, np.float32).copy()
+    lib = _load()
+    if lib is None:
+        import torch
+
+        from stereo_match_tpu_torch.ops.speckle import speckle_filter
+        return speckle_filter(torch.from_numpy(disp), max_speckle_size,
+                              max_diff).numpy()
+    lib.smt_speckle_filter(
+        disp.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        disp.shape[0], disp.shape[1], float(max_diff), int(max_speckle_size))
+    return disp

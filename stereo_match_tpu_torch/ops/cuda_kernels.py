@@ -40,7 +40,10 @@ K8     ``mccnn_conv3x3``       csrc/mccnn.cu        (mccnn_tower_pallas, the
                                                      3xTF32 tensor cores for
                                                      C_in > 1, FP32 for
                                                      C_in = 1; a bfloat16
-                                                     mode, ``bf16=True``)
+                                                     mode, ``bf16=True``, on
+                                                     the bf16 tensor cores,
+                                                     bf16 channels-last
+                                                     activations)
 K9     ``mccnn_volume``        csrc/mccnn.cu        (mccnn_volume_pallas,
                                                      mccnn_volume_mxu_pallas,
                                                      mccnn_volume_flat_pallas,
@@ -197,6 +200,10 @@ def _library() -> ctypes.CDLL:
             "smt_speckle_filter": [p, p, p, p, p, p, i, i, i, f, i, p],
             "smt_fgs_solve": [p, p, p, p, p, i, i, i, i, f, p],
             "smt_mccnn_conv3x3": [p, p, p, p, i, i, i, i, i, i, i, i, p],
+            "smt_mccnn_conv3x3_bf16": [p, p, p, p, i, i, i, i, i, i, i, i,
+                                       p],
+            "smt_mccnn_conv3x3_bf16_probe": [p, p, p, p, i, i, i, i, i, i,
+                                             p],
             "smt_mccnn_volume": [p, p, p, i, i, i, i, i, f, p],
         }
         for name, argtypes in signatures.items():
@@ -207,11 +214,13 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Call C entry point ``smt_<name>`` on the device's current stream."""
+def _launch(name: str, device: torch.device, *args,
+            entry: str | None = None) -> None:
+    """Call C entry point ``smt_<entry or name>`` on the device's current
+    stream; count it as a launch of ``name``."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(_library(), "smt_" + name)(*args, stream)
+        code = getattr(_library(), "smt_" + (entry or name))(*args, stream)
     if code != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error "
                            f"{code} ({torch.cuda.get_device_name(device)})")
@@ -1257,22 +1266,38 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def mccnn_pack_weights(weight: torch.Tensor,
-                       bf16: bool = False) -> torch.Tensor:
-    """(F, C_in, 3, 3) OIHW -> the float32 layout K8's tensor-core body
-    reads, the (3, 3, C_in, F) taps zero-padded to C8 input and F8 output
-    channels (``_mccnn_padded``): (2, 3, 3, C8, F8), ``tf32_split``'s hi
-    then lo, for float32; (1, 3, 3, C8, F8), the taps rounded to bfloat16,
-    for ``bf16`` (a bfloat16 value is exact in TF32, so one product a k8
-    step is exact)."""
+def mccnn_pack_weights(weight: torch.Tensor) -> torch.Tensor:
+    """(F, C_in, 3, 3) OIHW -> the float32 layout K8's 3xTF32 body reads,
+    the (3, 3, C_in, F) taps zero-padded to C8 input and F8 output channels
+    (``_mccnn_padded``): (2, 3, 3, C8, F8), ``tf32_split``'s hi then lo."""
     F, C_in = weight.shape[:2]
     C8, F8 = _mccnn_padded(C_in, F)
-    taps = conv_taps(weight)
-    parts = (bf16_round(taps),) if bf16 else tf32_split(taps)
-    packed = torch.zeros((len(parts), 3, 3, C8, F8), dtype=torch.float32,
+    packed = torch.zeros((2, 3, 3, C8, F8), dtype=torch.float32,
                          device=weight.device)
-    for i, part in enumerate(parts):
+    for i, part in enumerate(tf32_split(conv_taps(weight))):
         packed[i, :, :, :C_in, :F] = part
+    return packed
+
+
+MCCNN_BF16_K = 16   # K8's bfloat16 body: input channels a k16 step (a stage)
+
+
+def _mccnn_c16(C_in: int) -> int:
+    """C_in padded to a multiple of 16: the k16 steps of the bf16 body."""
+    return -(-C_in // MCCNN_BF16_K) * MCCNN_BF16_K
+
+
+def mccnn_pack_weights_bf16(weight: torch.Tensor) -> torch.Tensor:
+    """(F, C_in, 3, 3) OIHW -> the bfloat16 layout K8's bfloat16
+    tensor-core body reads: (9, F8, C16), element [3 ky + kx, f, c] =
+    bf16(weight[f, c, ky, kx]), zero where f >= F or c >= C_in (F8 as
+    ``_mccnn_padded``, C16 a multiple of 16). K-major: a tap's output f is
+    a row of input channels, so 8 of them are one ldmatrix row of B."""
+    F, C_in = weight.shape[:2]
+    F8 = _mccnn_padded(C_in, F)[1]
+    packed = torch.zeros((9, F8, _mccnn_c16(C_in)), dtype=torch.bfloat16,
+                         device=weight.device)
+    packed[:, :F, :C_in] = weight.permute(2, 3, 0, 1).reshape(9, F, C_in)
     return packed
 
 
@@ -1280,18 +1305,56 @@ def mccnn_weight_layout(weight: torch.Tensor,
                         bf16: bool = False) -> torch.Tensor:
     """(F, C_in, 3, 3) OIHW -> the one copy of the weights K8 reads, chosen
     by C_in: ``conv_taps`` for C_in = 1 (the FP32 body; rounded to
-    bfloat16 for ``bf16``), ``mccnn_pack_weights`` otherwise (the
-    tensor-core body). ValueError for F > ``MCCNN_MAX_FEATURES``, which K8
-    does not take."""
+    bfloat16 for ``bf16``), otherwise ``mccnn_pack_weights`` (the 3xTF32
+    body) or for ``bf16`` ``mccnn_pack_weights_bf16`` (the bfloat16 body).
+    ValueError for F > ``MCCNN_MAX_FEATURES``, which K8 does not take."""
     _check_mccnn_features(weight.shape[0])
     if weight.shape[1] > 1:
-        return mccnn_pack_weights(weight, bf16)
+        return (mccnn_pack_weights_bf16 if bf16 else mccnn_pack_weights)(
+            weight)
     return conv_taps(bf16_round(weight) if bf16 else weight)
+
+
+def _mccnn_layout_spec(C_in: int, F: int,
+                       bf16: bool) -> tuple[tuple[int, ...], torch.dtype]:
+    """The shape and dtype of ``mccnn_weight_layout``'s copy."""
+    if C_in == 1:
+        return (3, 3, 1, F), torch.float32
+    C8, F8 = _mccnn_padded(C_in, F)
+    if bf16:
+        return (9, F8, _mccnn_c16(C_in)), torch.bfloat16
+    return (2, 3, 3, C8, F8), torch.float32
+
+
+def _check_bf16_out(normalize: bool, bf16: bool, bf16_out: bool) -> None:
+    if bf16_out and (not bf16 or normalize):
+        raise ValueError("bf16_out: a bfloat16 channels-last output is for "
+                         "the bfloat16 mode's layers without the norm")
+
+
+def _check_mccnn_io(x: torch.Tensor, normalize: bool, bf16: bool,
+                    bf16_out: bool) -> None:
+    """x: a float32 (V, C, H, W) tensor, contiguous, or in the bfloat16
+    mode also a bfloat16 one in ``torch.channels_last``; ``bf16_out`` only
+    in the bfloat16 mode and without the norm."""
+    _check_bf16_out(normalize, bf16, bf16_out)
+    if x.dim() != 4 or x.dtype not in ((torch.float32, torch.bfloat16)
+                                       if bf16 else (torch.float32,)):
+        raise ValueError(f"x: expected a 4-d float32 tensor"
+                         f"{' (or bfloat16, channels-last)' if bf16 else ''}"
+                         f", got {tuple(x.shape)} {x.dtype}")
+    if x.dtype == torch.float32 and not x.is_contiguous():
+        raise ValueError("x: a float32 input must be contiguous (V, C, H, W)")
+    if x.dtype == torch.bfloat16 and not x.is_contiguous(
+            memory_format=torch.channels_last):
+        raise ValueError("x: a bfloat16 input must be in torch.channels_last "
+                         "memory format")
 
 
 def mccnn_conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
                         bias: torch.Tensor, relu: bool, normalize: bool,
-                        bf16: bool = False) -> torch.Tensor:
+                        bf16: bool = False,
+                        bf16_out: bool = False) -> torch.Tensor:
     """One MC-CNN tower layer: (V, C_in, H, W) -> (V, F, H, W).
 
     ``F.conv2d`` with one pixel of zero padding (flax ``padding="SAME"``,
@@ -1303,9 +1366,17 @@ def mccnn_conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
     bfloat16 (XLA on a CPU): x and the weights rounded to bfloat16, their
     products summed in float32, the sum rounded to bfloat16, the bias
     rounded to bfloat16 added and the result rounded again; then ReLU, or
-    the float32 norm of the rounded values. The output is float32 holding
-    bfloat16 values (but for the norm).
+    the float32 norm of the rounded values. x may then also be a bfloat16
+    tensor in ``torch.channels_last`` (the same values; any other floating
+    x is computed in its own dtype, as float64 for a reference). The
+    output is
+    float32 (V, F, H, W), holding bfloat16 values but for the norm, or
+    with ``bf16_out`` (no norm) those values as a bfloat16 channels-last
+    tensor.
     """
+    _check_bf16_out(normalize, bf16, bf16_out)
+    if x.dtype == torch.bfloat16:            # to float32 (V, C, H, W) strides
+        x = torch.empty(x.shape, device=x.device).copy_(x)
     if bf16:
         x, weight = bf16_round(x), bf16_round(weight)
     with fp32_cudnn() if x.is_cuda else contextlib.nullcontext():
@@ -1316,28 +1387,35 @@ def mccnn_conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
         y = torch.relu(y)
     if normalize:
         y = y / torch.sqrt(torch.sum(y * y, dim=1, keepdim=True) + 1e-12)
+    if bf16_out:
+        y = y.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     return y
 
 
 def mccnn_conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   relu: bool, normalize: bool,
                   layout: torch.Tensor | None = None,
-                  bf16: bool = False) -> torch.Tensor:
+                  bf16: bool = False, bf16_out: bool = False) -> torch.Tensor:
     """One MC-CNN tower layer: (V, C_in, H, W) -> (V, F, H, W) (K8).
 
     ``weight`` (F, C_in, 3, 3) and ``bias`` (F,) float32. The kernel reads
     ``layout``, ``mccnn_weight_layout(weight, bf16)``: the taps in the
     FP32 body that runs C_in = 1, the packed taps in the tensor-core body
-    that runs C_in > 1 (3xTF32 for float32, one TF32 product of bfloat16
-    operands for ``bf16``). A caller that runs every frame
-    (``models/mccnn.py::MCCNNFeatures``) passes the copy it made once;
-    otherwise it is made here. ``bf16`` computes what
-    ``mccnn_conv3x3_plain(..., bf16=True)`` does; x and y stay float32.
+    that runs C_in > 1 (3xTF32 for float32; for ``bf16`` the bfloat16
+    (9, F8, C16) taps on the bfloat16 tensor cores). A caller that runs
+    every frame (``models/mccnn.py::MCCNNFeatures``) passes the copy it
+    made once; otherwise it is made here. ``bf16`` computes what
+    ``mccnn_conv3x3_plain(..., bf16=True)`` does. x: float32, contiguous;
+    for ``bf16`` also bfloat16 in ``torch.channels_last`` (flax's NHWC),
+    which the bfloat16 body reads (a float32 input is rounded to it by one
+    ``.to`` first). The output: float32 (V, F, H, W), or with ``bf16_out``
+    (``bf16`` and no norm) bfloat16 channels-last, which the next layer
+    reads as it is. Any other dtype or memory format raises ValueError.
     On the card F is at most ``MCCNN_MAX_FEATURES`` (128; a wider layer
     raises ValueError); the plain layer on the CPU takes any F and needs
     no layout.
     """
-    _check(x, "x", torch.float32, 4)
+    _check_mccnn_io(x, normalize, bf16, bf16_out)
     _check(weight, "weight", torch.float32, 4)
     _check(bias, "bias", torch.float32, 1)
     V, C_in, H, W = x.shape
@@ -1347,20 +1425,177 @@ def mccnn_conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                          f"{tuple(bias.shape)} do not fit {C_in} input "
                          "channels and 3x3 taps")
     if layout is not None:
-        want = (3, 3, 1, F) if C_in == 1 else \
-            (1 if bf16 else 2, 3, 3, *_mccnn_padded(C_in, F))
-        _check(layout, "layout", torch.float32, len(want))
+        want, dtype = _mccnn_layout_spec(C_in, F, bf16)
+        _check(layout, "layout", dtype, len(want))
         if tuple(layout.shape) != want:
             raise ValueError(f"layout {tuple(layout.shape)}: expected {want}")
     if _on_cpu(x, weight, bias, *(() if layout is None else (layout,))):
-        return mccnn_conv3x3_plain(x, weight, bias, relu, normalize, bf16)
+        return mccnn_conv3x3_plain(x, weight, bias, relu, normalize, bf16,
+                                   bf16_out)
     _check_mccnn_features(F)
     if layout is None:
         layout = mccnn_weight_layout(weight, bf16)
-    y = torch.empty((V, F, H, W), dtype=torch.float32, device=x.device)
+    if not bf16:
+        y = torch.empty((V, F, H, W), dtype=torch.float32, device=x.device)
+        _launch("mccnn_conv3x3", x.device, _ptr(x), _ptr(layout), _ptr(bias),
+                _ptr(y), V, C_in, F, H, W, int(relu), int(normalize), 0)
+        return y
+    if C_in == 1:
+        x = x.to(torch.float32)              # the C_in = 1 body reads float32
+    else:
+        x = x.to(torch.bfloat16, memory_format=torch.channels_last)
+    y = torch.empty((V, F, H, W), dtype=torch.bfloat16, device=x.device,
+                    memory_format=torch.channels_last) if bf16_out else \
+        torch.empty((V, F, H, W), dtype=torch.float32, device=x.device)
     _launch("mccnn_conv3x3", x.device, _ptr(x), _ptr(layout), _ptr(bias),
-            _ptr(y), V, C_in, F, H, W, int(relu), int(normalize), int(bf16))
+            _ptr(y), V, C_in, F, H, W, int(relu), int(normalize),
+            int(bf16_out), entry="mccnn_conv3x3_bf16")
     return y
+
+
+MCCNN_TILE = (8, 32)   # K8's tensor-core tile: rows (a warp each), columns
+
+
+def mccnn_bf16_warps(F: int) -> tuple[int, int]:
+    """(F8, NS) of K8's bfloat16 body: F padded to 32, 64, 112 or 128, and
+    the warps that share a pair of tile rows (1 up to 64, else 2), each
+    taking F8 / (8 NS) n8 tiles."""
+    F8 = _mccnn_padded(1, F)[1]
+    return F8, 1 if F8 <= 64 else 2
+
+
+def mccnn_bf16_a_rows(row: int, mt: int, tap: int, k16: int) -> np.ndarray:
+    """(32, 3) ints: for each lane of a warp, the (halo row, halo column,
+    first channel) of the 8 channels its ``ldmatrix.x4`` row reads for A
+    of m16 tile ``mt`` (columns 16 mt on) of tile row ``row`` at tap
+    (ky, kx) = divmod(tap, 3) and k16 step ``k16``: pixel lane & 15 of the
+    tile, channels 8 (lane >> 4) on (``csrc/mccnn.cu``, ``a_lane``)."""
+    lane = np.arange(32)
+    ky, kx = divmod(tap, 3)
+    return np.stack([np.full(32, row + ky), 16 * mt + (lane & 15) + kx,
+                     MCCNN_BF16_K * k16 + 8 * (lane >> 4)], axis=1)
+
+
+def mccnn_bf16_b_rows(nh: int, nw: int, n: int, tap: int,
+                      k16: int) -> np.ndarray:
+    """(32, 2) ints: for each lane, the (layout row [tap, output], first
+    channel) of the 8 channels its ``ldmatrix.x4`` row reads for B of the
+    n8 pair n, n + 1 of the warp that takes tiles nh * nw on: output
+    8 (nh nw + n) + 8 (lane >> 4) + (lane & 7), channels 8 ((lane >> 3)
+    & 1) on (``b_lane``); the row is tap * F8 + output."""
+    lane = np.arange(32)
+    out = 8 * (nh * nw + n) + 8 * (lane >> 4) + (lane & 7)
+    return np.stack([out, MCCNN_BF16_K * k16 + 8 * ((lane >> 3) & 1)],
+                    axis=1)
+
+
+def _ldmatrix(rows: np.ndarray, matrices: int) -> np.ndarray:
+    """``ldmatrix.m8n8.x{matrices}``: rows (..., 32, 8), lane l's row of 8
+    b16 values (lanes 8 j ... 8 j + 7 give matrix j's rows) -> registers
+    (..., 32, matrices, 2): lane i gets, of each matrix, row i // 4,
+    elements 2 (i % 4) and 2 (i % 4) + 1."""
+    lane = np.arange(32)
+    src = 8 * np.arange(matrices)[None, :] + (lane // 4)[:, None]
+    col = (2 * (lane % 4))[:, None, None] + np.arange(2)[None, None, :]
+    return rows[..., src[:, :, None], col]
+
+
+def _mma_m16n8k16(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``mma.m16n8k16.row.col`` by its fragment layout, float64: a (..., 32,
+    4, 2), b (..., 32, 2, 2) -> d (..., 32, 4), D = A B with, for lane
+    (g, t) = divmod(lane, 4): a[r, e] = A[g + 8 (r & 1), 2 t + e +
+    8 (r >> 1)], b[r, e] = B[2 t + e + 8 r, g], d[r] = D[g + 8 (r >> 1),
+    2 t + (r & 1)]."""
+    g, t = np.divmod(np.arange(32), 4)
+    r, e = np.arange(4)[:, None], np.arange(2)[None, :]
+    A = np.zeros(a.shape[:-3] + (16, 16))
+    A[..., g[:, None, None] + 8 * (r & 1), 2 * t[:, None, None] + e +
+      8 * (r >> 1)] = a
+    rb = np.arange(2)[:, None]
+    B = np.zeros(b.shape[:-3] + (16, 8))
+    B[..., 2 * t[:, None, None] + e + 8 * rb, g[:, None, None]] = b
+    D = A @ B
+    return D[..., g[:, None] + 8 * (np.arange(4) >> 1),
+             2 * t[:, None] + (np.arange(4) & 1)]
+
+
+def mccnn_bf16_c_map(row: int, mt: int, nh: int, nw: int,
+                     n: int) -> tuple[np.ndarray, np.ndarray]:
+    """(tile column, output channel), each (32, 4), of accumulator c[r] of
+    each lane for m16 tile ``mt`` and n8 tile ``n`` of the warp (row, nh):
+    pixel 16 mt + g + 8 (r >> 1), channel 8 (nh nw + n) + 2 t + (r & 1)."""
+    g, t = np.divmod(np.arange(32), 4)
+    r = np.arange(4)
+    return (16 * mt + g[:, None] + 8 * (r >> 1),
+            8 * (nh * nw + n) + 2 * t[:, None] + (r & 1))
+
+
+def mccnn_conv3x3_bf16_tiled_plain(x: np.ndarray,
+                                   weight: np.ndarray) -> np.ndarray:
+    """K8's bfloat16 body as its tiles, warps and fragments compute it, in
+    float64 numpy: the sums before the bias, (V, C_in, H, W) x and
+    (F, C_in, 3, 3) weights -> (V, F, H, W).
+
+    A model of ``csrc/mccnn.cu``'s ``conv3x3_bf16_kernel``: the 8 x 32
+    output tiles with their 10 x 34 halo, zero outside the frame and past
+    C_in; the (9, F8, C16) layout (``mccnn_pack_weights_bf16``'s index
+    map); for each m16 tile (tile row, half; a warp takes two tile rows)
+    and share nh of the n8 tiles, stage, tap and n8 pair, A and B read by
+    ``ldmatrix`` from the rows ``mccnn_bf16_a_rows`` and
+    ``mccnn_bf16_b_rows`` give, multiplied by the fragment layout of
+    ``mma.m16n8k16`` and accumulated, written back by
+    ``mccnn_bf16_c_map``. An index error in those maps shows here as sums
+    that differ from a float64 convolution. (The order of the float32
+    sums, a rounded add each k16 step, is the kernel's alone: the model
+    sums in float64.)
+    """
+    V, C_in, H, W = x.shape
+    F = weight.shape[0]
+    F8, NS = mccnn_bf16_warps(F)
+    NW = F8 // 8 // NS
+    C16 = _mccnn_c16(C_in)
+    TH, TW = MCCNN_TILE
+    BY, BX = -(-H // TH), -(-W // TW)
+    # the halo of every block: (V, BY, BX, TH + 2, TW + 2, C16)
+    xp = np.zeros((V, BY * TH + 2, BX * TW + 2, C16))
+    xp[:, 1:H + 1, 1:W + 1, :C_in] = np.transpose(x, (0, 2, 3, 1))
+    hy = (np.arange(BY) * TH)[:, None] + np.arange(TH + 2)[None, :]
+    hx = (np.arange(BX) * TW)[:, None] + np.arange(TW + 2)[None, :]
+    halo = xp[:, hy[:, None, :, None], hx[None, :, None, :]]
+    layout = np.zeros((9, F8, C16))
+    layout[:, :F, :C_in] = np.transpose(weight, (2, 3, 0, 1)).reshape(
+        9, F, C_in)
+    out = np.zeros((V, F8, BY * TH, BX * TW))
+    eight = np.arange(8)
+    for row in range(TH):
+        for mt in range(2):
+            for nh in range(NS):
+                acc = np.zeros((V, BY, BX, NW, 32, 4))
+                for k16 in range(C16 // MCCNN_BF16_K):
+                    for tap in range(9):
+                        ar = mccnn_bf16_a_rows(row, mt, tap, k16)
+                        a = _ldmatrix(halo[:, :, :, ar[:, 0:1], ar[:, 1:2],
+                                           ar[:, 2:3] + eight], 4)
+                        for n in range(0, NW, 2):
+                            # x4, or x2 for a last odd tile: the rows of
+                            # lanes 0-15 alone
+                            m = 4 if n + 1 < NW else 2
+                            br = mccnn_bf16_b_rows(nh, NW, n, tap,
+                                                   k16)[:8 * m]
+                            rows = np.zeros((32, 8))
+                            rows[:8 * m] = layout[tap, br[:, 0:1],
+                                                  br[:, 1:2] + eight]
+                            b = _ldmatrix(rows, m)
+                            for j in range(m // 2):
+                                acc[:, :, :, n + j] += _mma_m16n8k16(
+                                    a, b[:, 2 * j:2 * j + 2])
+                for n in range(NW):
+                    col, ch = mccnn_bf16_c_map(row, mt, nh, NW, n)
+                    for by in range(BY):
+                        for bx in range(BX):
+                            out[:, ch, by * TH + row, bx * TW + col] = \
+                                acc[:, by, bx, n]
+    return out[:, :F, :H, :W]
 
 
 # ------------------------------------------------------- K9 mccnn_volume ----

@@ -16,7 +16,11 @@ frames; MC-CNN fast and accurate also with the towers in bfloat16
 "not available"). Kernels: K1 ``census_words`` at KITTI (5x5 and 7x9) and
 720p (5x5) on the scenes; K8 ``mccnn_conv3x3`` a layer of each shipped
 tower (C_in = 1 and C_in = F, float32 and bfloat16) on the KITTI scene's
-activations; at KITTI on the headline's volume and total: K2
+activations, in bfloat16 in the storage the tree's module passes
+(bfloat16 channels-last where its wrapper takes ``bf16_out``, float32
+before), beside cuDNN on bfloat16 tensors (NCHW and channels-last) and
+the layer's bound for that storage, and each whole tower; at KITTI on the
+headline's volume and total: K2
 ``census_volume`` (float32, int16, transposed, 7x9, and one plane at D = 1
 as ELAS launches it) and K4's ``wta_lr``, ``wta_stats`` and ``right_wta``
 (float32 and int16), and K9 ``mccnn_volume`` on the shipped towers'
@@ -43,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -213,11 +218,15 @@ def _probe() -> dict:
         kernels[f"census_words {where} {window[0]}x{window[1]}"] = \
             lambda im=pairs[where], w=window: K.census_words(im, w)
     norm = torch.stack([normalize_image(im) for im in kitti])[:, None]
+    bf16_store = "bf16_out" in inspect.signature(K.mccnn_conv3x3).parameters
+    bounds, towers_ms = {}, {}
     for arch, model in towers.items():
         for kind, m in (("", model), (" bf16", towers16.get(arch))):
             if m is None:
                 continue
             bf16 = {"bf16": True} if kind else {}
+            if kind and bf16_store:
+                bf16["bf16_out"] = True
             h = norm
             for i in range(2):              # C_in = 1, then C_in = F
                 args = (h, m.weights[i], m.biases[i], True, False)
@@ -226,13 +235,50 @@ def _probe() -> dict:
                         f"{'C_in=1' if i == 0 else 'C_in=F'}")
                 kernels[name] = lambda a=args, lo=layout, kw=bf16: \
                     K.mccnn_conv3x3(*a, layout=lo, **kw)
+                if kind:
+                    _layer_bounds(bounds, name, h, m.weights[i], bf16_store)
+                    x32, w, b = h.float(), m.weights[i], m.biases[i]
+                    for fmt, fname in ((torch.contiguous_format, "NCHW"),
+                                       (torch.channels_last,
+                                        "channels-last")):
+                        lib = tuple(t.to(torch.bfloat16, memory_format=fmt)
+                                    for t in (x32, w))
+                        kernels[f"cudnn bf16 {fname} {name[14:]}"] = \
+                            lambda lib=lib, b=b.to(torch.bfloat16): \
+                            torch.nn.functional.conv2d(*lib, b, padding=1)
                 h = K.mccnn_conv3x3(*args, layout=layout, **bf16)
+            towers_ms[f"mccnn tower {arch}{kind}"] = graph_ms(
+                lambda m=m: m(norm[:, 0]), 16)
     kernel_ms = {name: graph_ms(fn) for name, fn in kernels.items()}
+    kernel_ms.update(towers_ms)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     return {"ms_per_frame": out, "kernel_ms": kernel_ms,
-            "speckle_filter": speckle, "card": card}
+            "bound_ms": bounds, "speckle_filter": speckle, "card": card}
+
+
+def _layer_bounds(bounds: dict, name: str, x, w, bf16_store: bool) -> None:
+    """A bfloat16 K8 layer's bound (ms) on an H100 SXM: the larger of its
+    bytes over 3.35 TB/s and its products over the 989 TFLOP/s of dense
+    bfloat16; bytes for this tree's storage (``bf16_store``: 2 B a
+    bfloat16 activation in and out, the float32 image; else 4 B each) and,
+    for the C_in = F layer, for the last layer (float32 out)."""
+    V, C, H, W = x.shape
+    F = w.shape[0]
+    px = V * H * W
+    flop = 2 * 9 * F * C * px
+    act = 2 if bf16_store else 4
+    x_bytes = px * C * (4 if C == 1 else act)
+    w_bytes = w.numel() * (2 if bf16_store and C > 1 else 4)
+
+    def ms(out_bytes: int) -> float:
+        return max((x_bytes + w_bytes + px * F * out_bytes) / 3.35e12,
+                   flop / 989e12) * 1e3
+
+    bounds[name] = ms(act)
+    if C > 1:
+        bounds[name + " last"] = ms(4)
 
 
 def main() -> None:

@@ -35,8 +35,9 @@ row, odd widths (every store alignment), windows of one row or column and
 of up to 8 words, NaN pixels. K8's bfloat16 mode sums in another order
 than its plain bfloat16 layer: without the norm at least 99.9 % of the
 outputs are bit-equal, each within one bfloat16 ulp of the sum plus one of
-the result; the shipped towers in bfloat16 within 1e-2 of their plain
-towers. The sad, ssd and
+the result, also on the bfloat16 channels-last tensors the module passes
+between layers; the shipped towers in bfloat16 within 1e-2 of their plain
+towers, and a CUDA graph of the tower equal to the eager tower. The sad, ssd and
 bt volumes, StereoBM's sums and ELAS's dense stage are plain torch on both
 devices, whose float32 cumulative sums may round apart, so those matchers
 must agree with their CPU run on at least 99.5 % of the pixels.
@@ -672,6 +673,119 @@ def test_mccnn_use_bf16_twin_on_card(dev):
     twin = model.bf16_twin()
     assert twin is not cpu_twin and twin.layout1.device == want.device
     assert model.bf16_twin() is twin
+
+
+def _bf16_layer_check(got, want, pre, raw, normalize):
+    """K8 bf16 against its plain layer: the bounds of
+    ``test_mccnn_conv3x3_bf16_kernel``."""
+    fmt = torch.channels_last if got.dtype == torch.bfloat16 else \
+        torch.contiguous_format
+    assert got.dtype == want.dtype and got.is_contiguous(memory_format=fmt)
+    tol = _bf16_ulp(pre) + _bf16_ulp(raw)
+    diff = (got.float() - want.float()).abs()
+    if normalize:
+        norm = torch.sqrt((raw * raw).sum(1, keepdim=True) + 1e-12)
+        assert bool((diff <= tol / norm + 1e-6).all())
+    else:
+        assert float((got == want).float().mean()) >= 0.999
+        assert bool((diff <= tol).all())
+
+
+def _bf16_layer_inputs(dev, V, F, C_in, H, W, seed):
+    """x as the module passes it (the float32 image for C_in = 1, bfloat16
+    channels-last else), weights, bias, and the operands' float32 sums
+    before the bias (``pre``) and the plain layer's raw output."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(V, C_in, H, W)).astype(
+        np.float32)).to(dev)
+    if C_in > 1:
+        x = x.to(torch.bfloat16, memory_format=torch.channels_last)
+    w = torch.from_numpy((rng.normal(size=(F, C_in, 3, 3)) /
+                          np.sqrt(9 * C_in)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.normal(0, 0.1, F).astype(np.float32)).to(dev)
+    with K.fp32_cudnn():
+        pre = torch.nn.functional.conv2d(K.bf16_round(x.float()),
+                                         K.bf16_round(w), padding=1)
+    raw = K.mccnn_conv3x3_plain(x, w, b, False, False, bf16=True)
+    return x, w, b, pre, raw
+
+
+@pytest.mark.parametrize("V,H,W", [(1, 1, 1), (2, 7, 1242), (2, 375, 7),
+                                   (1, 375, 1242)])
+@pytest.mark.parametrize("C_in", [1, 16, 64, 112])
+@pytest.mark.parametrize("F", [16, 32, 64, 112, 128])
+def test_mccnn_conv3x3_bf16_channels_last(dev, F, C_in, V, H, W):
+    """A layer before the last as the module runs it: bfloat16
+    channels-last in (C_in > 1) and out, against the plain layer on the
+    same tensors within the bounds of ``test_mccnn_conv3x3_bf16_kernel``;
+    one launch."""
+    x, w, b, pre, raw = _bf16_layer_inputs(dev, V, F, C_in, H, W,
+                                           F + C_in + H)
+    K.reset_launches()
+    got = K.mccnn_conv3x3(x, w, b, True, False, bf16=True, bf16_out=True)
+    assert K.launches["mccnn_conv3x3"] == 1
+    want = K.mccnn_conv3x3_plain(x, w, b, True, False, bf16=True,
+                                 bf16_out=True)
+    torch.cuda.synchronize()
+    assert got.shape == (V, F, H, W) and got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    _bf16_layer_check(got, want, pre, raw, False)
+
+
+@pytest.mark.parametrize("H,W", [(1, 1), (7, 1242), KITTI])
+@pytest.mark.parametrize("F", [16, 64, 112, 128])
+def test_mccnn_conv3x3_bf16_last_layer(dev, F, H, W):
+    """The last layer: bfloat16 channels-last in, the float32 norm out as
+    (V, F, H, W), within the bounds of ``test_mccnn_conv3x3_bf16_kernel``."""
+    x, w, b, pre, raw = _bf16_layer_inputs(dev, 2, F, F, H, W, F + W)
+    got = K.mccnn_conv3x3(x, w, b, False, True, bf16=True)
+    want = K.mccnn_conv3x3_plain(x, w, b, False, True, bf16=True)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    _bf16_layer_check(got, want, pre, raw, True)
+
+
+@pytest.mark.parametrize("arch", ["fast", "accurate"])
+def test_mccnn_bf16_tower_at_kitti(dev, arch):
+    """The shipped towers in bfloat16 at KITTI on the card (bfloat16
+    channels-last between layers) within 1e-2 of the plain bfloat16
+    tower; float32 (V, F, H, W) features; one launch a layer."""
+    model = from_flax_params(load_default_params(arch), arch,
+                             torch.bfloat16).to(dev)
+    gt = slanted_scene(*KITTI, 5.0, 90.0)
+    left, right = random_dot_pair(*KITTI, gt, blur=1.0, seed=1)
+    imgs = torch.stack([normalize_image(torch.from_numpy(im).to(dev))
+                        for im in (left, right)])
+    K.reset_launches()
+    got = model(imgs)
+    assert K.launches["mccnn_conv3x3"] == model.num_layers
+    h = imgs[:, None]
+    for i in range(model.num_layers):
+        last = i == model.num_layers - 1
+        h = K.mccnn_conv3x3_plain(h, model.weights[i], model.biases[i],
+                                  not last, last, bf16=True)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    assert float((got - h).abs().max()) <= 1e-2
+
+
+def test_mccnn_bf16_tower_in_a_cuda_graph(dev):
+    """The bfloat16 tower captured in a CUDA graph: a replay gives the
+    eager features bit for bit."""
+    model = from_flax_params(load_default_params("fast"), "fast",
+                             torch.bfloat16).to(dev)
+    gt = slanted_scene(64, 257, 4.0, 40.0)
+    left, right = random_dot_pair(64, 257, gt, blur=1.0, seed=12)
+    imgs = torch.stack([normalize_image(torch.from_numpy(im).to(dev))
+                        for im in (left, right)])
+    want = model(imgs)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = model(imgs)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_mccnn_bf16_card_limit(dev):

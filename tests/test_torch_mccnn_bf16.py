@@ -223,14 +223,17 @@ def test_bf16_plain_layer_is_the_stepwise_rounding(C_in, relu):
 
 def test_bf16_layouts_and_wrapper(fast):
     """A bfloat16 model keeps bfloat16 copies of its weights for K8: the
-    first layer's (3, 3, 1, F) taps rounded, the others (1, 3, 3, C8, F8);
-    the wrapper refuses a float32 layout in the bfloat16 mode; the module
-    refuses a third dtype."""
+    first layer's (3, 3, 1, F) taps rounded, the others the bfloat16
+    (9, F8, C16) taps; the wrapper refuses a float32 layout in the bfloat16
+    mode; the module refuses a third dtype."""
     _, model32, model16 = fast
     w0, w1 = model16.weights[0], model16.weights[1]
     assert torch.equal(model16.layout0, K.conv_taps(K.bf16_round(w0)))
-    assert model16.layout1.shape == (1, 3, 3, 64, 64)
-    assert torch.equal(model16.layout1[0], K.bf16_round(K.conv_taps(w1)))
+    assert model16.layout1.shape == (9, 64, 64)
+    assert model16.layout1.dtype == torch.bfloat16
+    assert torch.equal(model16.layout1.float(),
+                       K.bf16_round(K.conv_taps(w1)).reshape(9, 64, 64)
+                       .transpose(1, 2))
     assert model32.layout1.shape == (2, 3, 3, 64, 64)
     x = torch.zeros(2, 64, 5, 7)
     with pytest.raises(ValueError, match="layout"):

@@ -36,6 +36,14 @@ def full():
     return model, params, tmd.from_flax_params(params)
 
 
+@pytest.fixture(scope="module")
+def shaded():
+    """(flax model, flax params, port model) of the shipped
+    ``monodepth_small_shaded.npz``."""
+    model, params = jmd.load_default("small_shaded")
+    return model, params, tmd.load_default("small_shaded", device="cpu")
+
+
 def _nchw(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(x).permute(0, 3, 1, 2)
 
@@ -54,6 +62,26 @@ def test_every_scale_matches_flax(arch, shipped, full):
         np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(), w,
                                    rtol=0, atol=FRAC_TOL)
         assert float(g.max()) <= 0.3 and float(g.min()) >= 0.0
+
+
+def test_shaded_checkpoint_matches_flax(shaded):
+    """``load_default("small_shaded")`` against flax on the same
+    checkpoint: every scale, and ``predict_disparity`` through 96 x 160, at
+    the tolerances of the shipped ``small`` checkpoint."""
+    model, params, tmodel = shaded
+    x = np.random.default_rng(4).uniform(0, 1, (2, 32, 48, 3)).astype(
+        np.float32)
+    want = model.apply(params, jnp.asarray(x))
+    got = tmodel(_nchw(x))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(w), rtol=0, atol=FRAC_TOL)
+    img = np.random.default_rng(5).integers(0, 255, (40, 64, 3), np.uint8)
+    np.testing.assert_allclose(
+        tmd.predict_disparity(tmodel, img).numpy(),
+        jmd.predict_disparity(model, params, img), rtol=0,
+        atol=FRAC_TOL * 64)
 
 
 @pytest.mark.parametrize("shape, internal", [
