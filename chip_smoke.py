@@ -72,8 +72,9 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    case (F=100 unit features, D=96, min_d=3, 1243x377), within 1e-4
    with the 1e4 mask exactly equal. Then ``StereoMatcher`` with
    ``MCCNNCost`` at the headline WTA settings (``bench.py``'s
-   ``mccnn_sgm8``), per arch: launch counts (K8 one per layer, K9 1, K3 8,
-   K4 1, K1 = K2 = 0); agreement with the all-plain MC-CNN path on at least
+   ``mccnn_sgm8``), per arch: launch counts (at D = 128 and min_d 0 the
+   one-kernel path: K8 one per layer but the last, K11 1, K9 0, K3 8, K4 1,
+   K1 = K2 = 0); agreement with the all-plain MC-CNN path on at least
    99.5 % of the pixels (same NaN state, |diff| <= 0.01: the tower's sums
    run in another order than cuDNN's, which can flip a WTA decision);
    bad-3px < 0.05 and density > 0.8 on the seed-1 scene; with noise=25,
@@ -86,11 +87,20 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    within the ulp bound stated at K8_BF16_EQUAL), the tower within 1e-2 of
    the plain tower, ``mccnn_cost_volume(use_bf16=True)`` on the float32
    model (its ``bf16_twin``, made once) bit-equal to the bfloat16 model's
-   volume with L K8 launches and 1 K9, and the matcher with the same
+   volume with L - 1 K8 launches and 1 K11, and the matcher with the same
    launch counts, agreeing
    with its plain bfloat16 path on at least MC_BF16_AGREE of the pixels,
    with the same quality bars; its (bad-3px, density) are printed beside
-   the float32 path's.
+   the float32 path's. K11 (the last layer, its norm and the volume in one
+   launch) on both towers in both modes, on the last layer's input at
+   KITTI D=128: against K8's last launch then K9 (the share of bit-equal
+   cells printed; within K9_TOL, in bfloat16 plus what features off by
+   twice the ulp bound of K8 bf16's normalised layer move a cell) and
+   against its plain version (that bar plus K9_TOL plus what K8's measured
+   feature errors move a cell), 1e4 masks equal (``k11_check``). K9
+   stays on the path at min_d 4: the fast matcher there launches K8 4
+   times and K9 once and agrees with its plain path on at least 99.5 % of
+   the pixels.
 4e. int16 volumes, the row-tiled SGM and the stage-pipelined stream, at
    KITTI on the seed-1 scene: K2 int16 and transposed, K3 int16 totals,
    K10 (forward and reverse, invalid 1e4 and 1024, min_d 0 and 5) and K4's
@@ -237,7 +247,11 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    three post-stack paths and the speckle sweeps per frame; the frame
    time and
    peak memory of both MC-CNN paths (and their frame time in bfloat16
-   beside float32), K8 per layer (C_in=1 and C_in=F) and
+   beside float32), each tower and mode's frame time and peak memory on
+   the one-kernel path (K11) beside the two-kernel path
+   (``single_kernel=False``), in turns; K11 beside K8's last launch + K9,
+   in turns, its plain version and its bound (``k11_bound``); K8 per
+   layer (C_in=1 and C_in=F) and
    K9 beside their plain versions, K9 at each of its shapes beside the
    bound of its 3xTF32 body and of an FP32 one (features read once, the
    volume written once, 2 F operations a cell with x >= d) and the share
@@ -355,8 +369,11 @@ KERNELS = {   # name -> (source, the TPU kernel(s) it replaces)
     "mccnn_conv3x3 bf16": ("stereo_match_tpu_torch/csrc/mccnn.cu",
                            f"{PALLAS}:1503; {PALLAS}:1712"),
     "mccnn_volume": ("stereo_match_tpu_torch/csrc/mccnn.cu",
-                     f"{PALLAS}:1226; {PALLAS}:1329; {PALLAS}:1639; "
-                     f"{PALLAS}:1712"),
+                     f"{PALLAS}:1226; {PALLAS}:1329; {PALLAS}:1639"),
+    "mccnn_fused_volume": ("stereo_match_tpu_torch/csrc/mccnn.cu",
+                           f"{PALLAS}:1712"),
+    "mccnn_fused_volume bf16": ("stereo_match_tpu_torch/csrc/mccnn.cu",
+                                f"{PALLAS}:1712"),
     "census_scan": ("stereo_match_tpu_torch/csrc/sgm.cu",
                     f"{PALLAS}:1924"),
     # the multiword and float-tolerance variants (a 7x9 window, ELAS)
@@ -389,6 +406,27 @@ def k9_work(fl, fr, D: int, min_d: int) -> tuple[int, int]:
     F, H, W = fl.shape
     cells = H * sum(max(0, W - d) for d in range(min_d, min_d + D))
     return 4 * (2 * F * H * W + D * H * W), 2 * F * cells
+
+
+def k11_bound(x, w, D: int) -> tuple[float, str]:
+    """(bound_ms, bound_by) of one K11 launch: the last layer's input (its
+    storage: bfloat16 or float32), the weights (bfloat16 or float32), the
+    bias and the (D, H, W) float32 volume each moved once, against the
+    last layer's products (bfloat16, or float32 as three TF32 products)
+    plus the band's, three TF32 products for each of the 2 F operations of
+    a cell with x >= d; both on the tensor cores, so their times add."""
+    bf16 = x.dtype == torch.bfloat16
+    V, C, H, W = x.shape
+    F = w.shape[0]
+    nbytes = (x.numel() * x.element_size() + w.numel() * (2 if bf16 else 4)
+              + 4 * F + 4 * D * H * W)
+    conv = 2 * 9 * F * C * V * H * W
+    cells = H * sum(max(0, W - d) for d in range(D))
+    t_ops = (conv / PEAK_OPS["bf16"] if bf16 else
+             3 * conv / PEAK_OPS["tf32"]) + 3 * 2 * F * cells / \
+        PEAK_OPS["tf32"]
+    t_ops, t_bytes = t_ops * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def label(spec: dict) -> str:
@@ -1752,10 +1790,9 @@ def main() -> int:
     from stereo_match_tpu_torch.data.synthetic import (random_dot_pair,
                                                        slanted_scene)
     from stereo_match_tpu_torch.eval.metrics import bad_pixel_rate, density
-    from stereo_match_tpu_torch.models.mccnn import (from_flax_params,
-                                                     load_default_params,
-                                                     mccnn_cost_volume,
-                                                     normalize_image)
+    from stereo_match_tpu_torch.models.mccnn import (
+        from_flax_params, load_default_params, mccnn_cost_volume,
+        mccnn_cost_volume_fused, normalize_image)
     from stereo_match_tpu_torch.ops import cuda_kernels as K
     from stereo_match_tpu_torch.ops import wls
     from stereo_match_tpu_torch.ops.sgm import PATH_DIRECTIONS_8
@@ -1906,6 +1943,79 @@ def main() -> int:
         check(normalize or equal >= K8_BF16_EQUAL, f"K8 bf16 {what}: "
               f"{equal} bit-equal < {K8_BF16_EQUAL}")
         return y, e, equal
+
+    def band_sums(pairs, D):
+        """(D, H, W): for each plane d, the sum over the (a, b) pairs of
+        sum_f a[f, y, x] b[f, y, x - d] where x >= d (0 elsewhere)."""
+        F, H, W = pairs[0][0].shape
+        out = torch.zeros((D, H, W), device=pairs[0][0].device)
+        for d in range(min(D, W)):
+            for a, b in pairs:
+                out[d, :, d:] += (a[:, :, d:] * b[:, :, :W - d]).sum(0)
+        return out
+
+    def k11_check(model, imgs, D, what):
+        """K11 on the last layer's input of ``model``'s tower (K8 for the
+        layers before) against K8's last launch then K9 and against its
+        plain version, 1e4 masks equal: (max |K11 - plain|, K11's
+        arguments). K11 repeats K8's and K9's arithmetic, so it should
+        equal the two-kernel path bit for bit (the share is printed). The
+        bars, a cell each: against K8 -> K9, K9_TOL in float32; in
+        bfloat16 K9_TOL plus what features off by twice the ulp bound u of
+        K8 bf16's normalised layer (K8_BF16_EQUAL's rule, each path's
+        features within u of the plain layer's) move a cell, scale / 2 *
+        sum_f (2 u_l |f_r| + |f_l| 2 u_r + 4 u_l u_r). Against the plain
+        version: that bar plus K9_TOL (K9 against the plain volume) plus
+        what K8's measured feature errors e move a cell, scale / 2 * sum_f
+        (e_l |p_r| + |p_l| e_r + e_l e_r), p the plain features."""
+        bf16 = model.compute_dtype == torch.bfloat16
+        i = model.num_layers - 1
+        x = model.hidden(imgs)
+        w, b = model.weights[i], model.biases[i]
+        layout = getattr(model, f"layout{i}")
+        scale = 24.0
+        K.reset_launches()
+        got = K.mccnn_fused_volume(x, w, b, D, scale, layout, bf16)
+        torch.cuda.synchronize()
+        check(K.launches["mccnn_fused_volume"] == 1, f"K11 {what}: "
+              f"launches {dict(K.launches)}")
+        f = K.mccnn_conv3x3(x, w, b, False, True, layout=layout, bf16=bf16)
+        two = K.mccnn_volume(f[0], f[1], D, 0, scale)
+        p = K.mccnn_conv3x3_plain(x, w, b, False, True, bf16)
+        want = K.mccnn_volume_plain(p[0], p[1], D, 0, scale)
+        bar_two = torch.full_like(got, K9_TOL)
+        if bf16:
+            with K.fp32_cudnn():
+                pre = torch.nn.functional.conv2d(
+                    K.bf16_round(x.float()), K.bf16_round(w), padding=1)
+            raw = K.mccnn_conv3x3_plain(x, w, b, False, False, bf16=True)
+            u = 2 * ((bf16_ulp(pre) + bf16_ulp(raw)) / torch.sqrt(
+                (raw * raw).sum(1, keepdim=True) + 1e-12) + 1e-6)
+            del pre, raw
+            bar_two += scale / 2 * band_sums(
+                [(u[0], f[1].abs()), (f[0].abs(), u[1]), (u[0], u[1])], D)
+            del u
+        e = (f - p).abs()
+        bar_plain = bar_two + K9_TOL + scale / 2 * band_sums(
+            [(e[0], p[1].abs()), (p[0].abs(), e[1]), (e[0], e[1])], D)
+        del f, e
+        for ref, name in ((two, "K8 -> K9"), (want, "plain")):
+            check(torch.equal(got == 1e4, ref == 1e4),
+                  f"K11 {what}: the 1e4 mask differs from {name}'s")
+        d_two, d_plain = (got - two).abs(), (got - want).abs()
+        e_two, e_plain = float(d_two.max()), float(d_plain.max())
+        equal = float((got == two).float().mean())
+        print(f"[mccnn] K11 {what} {tuple(x.shape)} {x.dtype} D={D}: max "
+              f"|K11 - (K8 -> K9)| = {e_two} (least bar of a cell "
+              f"{float(bar_two.min())}), {equal} of the cells bit-equal; "
+              f"max |K11 - plain| = {e_plain} (largest share of its bar "
+              f"{float((d_plain / bar_plain).max())}); 1e4 masks equal "
+              f"({card})")
+        check(bool((d_two <= bar_two).all()), f"K11 {what}: a cell past "
+              f"its bar against K8 -> K9 (max {e_two})")
+        check(bool((d_plain <= bar_plain).all()), f"K11 {what}: a cell "
+              f"past its bar against the plain version (max {e_plain})")
+        return e_plain, (x, w, b, D, scale, layout, bf16)
 
     def agreement(a, b):
         """Share of pixels with the same NaN state and |diff| <= 0.01."""
@@ -2415,8 +2525,9 @@ def main() -> int:
         c = mc_counts[arch] = dict(K.launches)
         print(f"[mccnn] {arch} {label(KITTI)} launches {c} ({card})")
         want = {name: 0 for name in c}
-        want.update(mccnn_conv3x3=model.num_layers, mccnn_volume=1,
-                    sgm_path_scan=mc_cfg.num_paths, wta_lr=1)
+        want.update(mccnn_conv3x3=model.num_layers - 1,
+                    mccnn_fused_volume=1, sgm_path_scan=mc_cfg.num_paths,
+                    wta_lr=1)
         check(c == want, f"MC-CNN {arch} launch counts {c} != {want}")
         share = agreement(mc_raw, plain_mccnn_path(left, right, mc_cfg, model))
         check(share >= MC_AGREE, f"MC-CNN {arch}: {share} of the pixels "
@@ -2484,12 +2595,25 @@ def main() -> int:
                                                               want_vol),
               f"MC-CNN {arch} use_bf16=True: the float32 model's twin is "
               f"made once and equals the bfloat16 model's volume")
-        check(c == {"mccnn_conv3x3": model.num_layers, "mccnn_volume": 1},
+        check(c == {"mccnn_conv3x3": model.num_layers - 1,
+                    "mccnn_fused_volume": 1},
               f"MC-CNN {arch} use_bf16=True launches {c}")
         print(f"[mccnn] {arch} use_bf16=True on the float32 model: the "
               f"bfloat16 model's volume bit for bit, launches {c} ({card})")
         del want_vol, vol16
     del h, y
+    # K11 (the last layer, its norm and the volume in one launch) on both
+    # towers in both modes, against the two-kernel path and its plain
+    # version
+    err["mccnn_fused_volume"] = err["mccnn_fused_volume bf16"] = 0.0
+    k11_args = {}   # (arch, mode) -> K11's arguments, for the timing
+    for arch in models:
+        for mode, model in (("float32", models[arch]),
+                            ("bf16", models16[arch])):
+            e, k11_args[arch, mode] = k11_check(model, norm, KITTI["D"],
+                                                f"{arch} {mode}")
+            key = "mccnn_fused_volume" + (" bf16" if mode == "bf16" else "")
+            err[key] = max(err[key], e)
     mc16_counts, providers16 = {}, {}
     for arch, model in models16.items():
         providers16[arch] = MCCNNCost(model, mc_cfg)
@@ -2501,8 +2625,9 @@ def main() -> int:
         c = mc16_counts[arch] = dict(K.launches)
         print(f"[mccnn] {arch} bf16 {label(KITTI)} launches {c} ({card})")
         want = {name: 0 for name in c}
-        want.update(mccnn_conv3x3=model.num_layers, mccnn_volume=1,
-                    sgm_path_scan=mc_cfg.num_paths, wta_lr=1)
+        want.update(mccnn_conv3x3=model.num_layers - 1,
+                    mccnn_fused_volume=1, sgm_path_scan=mc_cfg.num_paths,
+                    wta_lr=1)
         check(c == want, f"MC-CNN {arch} bf16 launch counts {c} != {want}")
         share = agreement(mc_raw, plain_mccnn_path(left, right, mc_cfg, model))
         check(share >= MC_BF16_AGREE, f"MC-CNN {arch} bf16: {share} of the "
@@ -2525,6 +2650,27 @@ def main() -> int:
         check(ndens > census_noisy_q[1] and ndens > 0.9 and nbad3 < 0.05,
               f"MC-CNN {arch} bf16 noise=25: density {ndens} above census "
               f"{census_noisy_q[1]} and 0.9, bad-3px {nbad3} < 0.05")
+    # K9 stays on the MC-CNN path where K11 does not apply: min_d 4 (and
+    # D not a multiple of 128, the 720p frames of phase 5)
+    mc4_cfg = mc_cfg.replace(min_disparity=4)
+    K.reset_launches()
+    mc_raw, _ = StereoMatcher(mc4_cfg, cost_fn=MCCNNCost(models["fast"],
+                                                         mc4_cfg),
+                              device=dev)(left_np, right_np)
+    torch.cuda.synchronize()
+    mc4_counts = dict(K.launches)
+    want = {name: 0 for name in mc4_counts}
+    want.update(mccnn_conv3x3=models["fast"].num_layers, mccnn_volume=1,
+                sgm_path_scan=mc4_cfg.num_paths, wta_lr=1)
+    check(mc4_counts == want, f"MC-CNN fast min_d=4 launch counts "
+          f"{mc4_counts} != {want}")
+    share = agreement(mc_raw, plain_mccnn_path(left, right, mc4_cfg,
+                                               models["fast"]))
+    print(f"[mccnn] fast min_d=4 {label(KITTI)} (K8 x 4 -> K9): launches "
+          f"{ {k: v for k, v in mc4_counts.items() if v} }, {share} of the "
+          f"pixels agree with the plain path ({card})")
+    check(share >= MC_AGREE, f"MC-CNN fast min_d=4: {share} of the pixels "
+          f"agree with the plain path (< {MC_AGREE})")
     del mc_raw, census_noisy, noisy_l, noisy_r
 
     # 4e. int16 volumes, the row-tiled SGM and the stage-pipelined stream
@@ -3369,6 +3515,31 @@ def main() -> int:
               f"({fp32_b[1]}), {fp32_b[0] / t} of it ({card})")
         if (arch, where) == ("fast", label(KITTI)):
             ms["mccnn_volume"], plain_ms["mccnn_volume"] = t, t_plain
+    # K11 beside the two-kernel path it replaces (K8's last launch, then
+    # K9), in turns, and its plain version, at KITTI D=128
+    k11_bound_ms = {}
+    for (arch, mode), args in k11_args.items():
+        x, w, b, D, scale, layout, bf16 = args
+
+        def two_kernel():
+            f = K.mccnn_conv3x3(x, w, b, False, True, layout=layout,
+                                bf16=bf16)
+            return K.mccnn_volume(f[0], f[1], D, 0, scale)
+
+        t = [cuda_ms(lambda: K.mccnn_fused_volume(*args), 10)]
+        t_two = [cuda_ms(two_kernel, 10) for _ in range(2)]
+        t.append(cuda_ms(lambda: K.mccnn_fused_volume(*args), 10))
+        t_plain = cuda_ms(lambda: K.mccnn_fused_volume_plain(
+            x, w, b, D, scale, bf16), 3)
+        b_ms = k11_bound_ms[arch, mode] = k11_bound(x, w, D)
+        t_k11, t_2k = sum(t) / 2, sum(t_two) / 2
+        print(f"[timing] mccnn_fused_volume {arch} {mode} {tuple(x.shape)} "
+              f"{x.dtype} D={D}: K11 {t} ms, mean {t_k11}; K8 last layer + "
+              f"K9 {t_two} ms, mean {t_2k}; plain {t_plain} ms; bound "
+              f"{b_ms[0]} ms ({b_ms[1]}), {b_ms[0] / t_k11} of it ({card})")
+        if arch == "fast":
+            key = "mccnn_fused_volume" + (" bf16" if bf16 else "")
+            ms[key], plain_ms[key] = t_k11, t_plain
     ms["mccnn_conv3x3"] = tower_ms["fast"] / models["fast"].num_layers
     plain_ms["mccnn_conv3x3"] = tower_plain_ms["fast"] / \
         models["fast"].num_layers
@@ -3399,12 +3570,46 @@ def main() -> int:
               f"{tower_plain_ms[arch]} ms; peak device memory {peak} B, "
               f"{peak - before} B of it for the frame ({card})")
 
+    def frame_peak(provider) -> int:
+        """The peak device memory of one MC-CNN frame, above what was
+        allocated before it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        _match_core(left, right, mc_cfg, provider)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(dev) - before
+
+    for arch in models:
+        for mode, model, provider in (
+                ("float32", models[arch], providers[arch]),
+                ("bf16", models16[arch], providers16[arch])):
+            def two_kernel(l, r, model=model):
+                return mccnn_cost_volume_fused(
+                    model, l, r, mc_cfg.num_disparities,
+                    compute_dtype=model.compute_dtype, single_kernel=False)
+
+            t = {"K11": [], "K8 -> K9": []}
+            for name in ("K11", "K8 -> K9", "K8 -> K9", "K11"):
+                fn = provider if name == "K11" else two_kernel
+                t[name].append(cuda_ms(lambda: _match_core(left, right,
+                                                           mc_cfg, fn), 10))
+            peak = {name: frame_peak(provider if name == "K11" else
+                                     two_kernel) for name in t}
+            print(f"[timing] MC-CNN {arch} {mode} frame {label(KITTI)}: "
+                  f"one-kernel path (K8 x {model.num_layers - 1} + K11) "
+                  f"{t['K11']} ms, two-kernel path (K8 x {model.num_layers} "
+                  f"+ K9) {t['K8 -> K9']} ms, in turns; peak device memory "
+                  f"of the frame {peak['K11']} B against {peak['K8 -> K9']} "
+                  f"B ({card})")
+
     for name in KERNELS:
         print(f"[timing] {name}: kernel {ms[name]} ms, plain {plain_ms[name]} "
               f"ms per launch ({card})")
 
     # launches: K1-K4 from the headline run (phase 4), K5-K7 from the KITTI
-    # speckle + WLS run (phase 4b), K8-K9 from the fast MC-CNN run (4d),
+    # speckle + WLS run (phase 4b), K8 and K11 from the fast MC-CNN run
+    # (4d; K11 bf16 from its bfloat16 run), K9 from its min_d 4 run (4d),
     # K10 from the census-payload stream and K4's wta_stats, right_wta and
     # lr_mask entries from extract_disparity_fast (4e); K1, K2 at 7x9 from
     # the 7x9 matcher and lr_mask at lr_tol from the ELAS run (4f)
@@ -3413,7 +3618,11 @@ def main() -> int:
                    "mccnn_conv3x3": mc_counts["fast"]["mccnn_conv3x3"],
                    "mccnn_conv3x3 bf16": mc16_counts["fast"][
                        "mccnn_conv3x3"],
-                   "mccnn_volume": mc_counts["fast"]["mccnn_volume"],
+                   "mccnn_volume": mc4_counts["mccnn_volume"],
+                   "mccnn_fused_volume": mc_counts["fast"][
+                       "mccnn_fused_volume"],
+                   "mccnn_fused_volume bf16": mc16_counts["fast"][
+                       "mccnn_fused_volume"],
                    "census_scan": stream_counts["census"]["census_scan"],
                    "wta_stats": fast_counts["wta_stats"],
                    "right_wta": fast_counts["right_wta"],
@@ -3458,6 +3667,8 @@ def main() -> int:
         "mccnn_conv3x3": (k8_bound_ms, k8_bound_by),
         "mccnn_conv3x3 bf16": k8_16_bound,
         "mccnn_volume": k9_bound["fast", label(KITTI)],
+        "mccnn_fused_volume": k11_bound_ms["fast", "float32"],
+        "mccnn_fused_volume bf16": k11_bound_ms["fast", "bf16"],
         "census_scan": bound(2 * HW * 4 + 2 * vol_b),
         "census_words 7x9": bound(2 * HW * 4 + 2 * 2 * HW * 4),
         "census_volume 7x9": bound(2 * 2 * HW * 4 + vol_b),

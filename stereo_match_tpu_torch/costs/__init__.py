@@ -61,11 +61,15 @@ class ClassicCost:
 
 @dataclass(frozen=True)
 class MCCNNCost:
-    """Learned cost from an MC-CNN tower (tower on K8, volume on K9).
+    """Learned cost from an MC-CNN tower (``mccnn_cost_volume``).
 
-    The port's ``MCCNNFeatures`` carries its weights, so there is no
-    separate ``params`` as in the JAX provider; the model must be on the
-    images' device.
+    On the card at min_disparity 0 and D a multiple of 128 (JAX's
+    condition for its fused TPU kernel) the layers but the last run on K8
+    and the last layer, its norm and the volume on K11 in one launch;
+    otherwise the tower on K8 and the volume on K9. The port's
+    ``MCCNNFeatures`` carries its weights, so there is no separate
+    ``params`` as in the JAX provider; the model must be on the images'
+    device.
     """
     model: MCCNNFeatures
     config: DisparityConfig

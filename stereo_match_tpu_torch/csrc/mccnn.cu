@@ -1,5 +1,7 @@
 // K8 mccnn_conv3x3 and K9 mccnn_volume: the MC-CNN feature tower and its
-// feature-dot cost volume, float32 (K8 also in a bfloat16 mode).
+// feature-dot cost volume, float32 (K8 also in a bfloat16 mode); K11
+// mccnn_fused_volume: the tower's last layer, its norm and the volume in
+// one launch.
 //
 // K8 replaces, in stereo_match_tpu/ops/pallas_kernels.py, the tower of
 // mccnn_tower_pallas (_mccnn_tower_kernel, _tower_body) and the tower half
@@ -107,9 +109,9 @@
 // faster than this body's chained form (PERF.md, Findings, PR 16).
 //
 // K9 replaces mccnn_volume_pallas (_mccnn_vol_kernel), mccnn_volume_mxu_
-// pallas (_mccnn_vol_mxu_kernel), mccnn_volume_flat_pallas
-// (_mccnn_vol_flat_kernel, _gram_band_body) and the volume half of
-// mccnn_fused_volume_pallas: three layouts of one function,
+// pallas (_mccnn_vol_mxu_kernel) and mccnn_volume_flat_pallas
+// (_mccnn_vol_flat_kernel, _gram_band_body): three layouts of one
+// function,
 //   vol[i, y, x] = scale * (1 - sum_f fl[f, y, x] * fr[f, y, x - d]) * 0.5
 // with d = min_d + i, and exactly INVALID = 1e4 where x < d, for any F,
 // any D and any min_d >= 0 (models/mccnn.py:143-150).
@@ -1325,6 +1327,496 @@ int launch_volume(const float* fl, const float* fr, float* out, int F, int H,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ K11 ----
+
+constexpr int kFvTW = 128;                  // columns a step: a tile a view
+constexpr int kFvPix = 2 * kFvTW;           // pixels a step: both views
+constexpr int kFvHalo = kFvTW + 2;          // a staged input row a view
+constexpr int kFvXView = kFvHalo + 2;       // float32 stage: a view's row
+constexpr int kFvXPitch = 2 * kFvXView;     // a channel: 264, 8 banks apart
+constexpr int kFvBandNT = 18;               // n8 tiles of an m16 tile's band
+constexpr int kFvPP = 64;                   // planes a pass of the epilogue
+
+// Ablations of the probe entry (tools/k11_probe.py): each bit takes one
+// part of the kernel out, to split its time.
+constexpr int kFvAblStage = 1;    // no staging copies
+constexpr int kFvAblConv = 2;     // no products of the layer
+constexpr int kFvAblBand = 4;     // no products of the band
+constexpr int kFvAblStore = 8;    // no stores of the volume
+
+// Floats of shared memory: the right ring [F8][256]; the pixels' partial
+// sums of squares where two warps split F ([2][256]); and one region that
+// holds, in turn, the ST staging buffers of the layer, the left tile's
+// features [F8][128] from the layer's epilogue to the band, and a pass of
+// the volume's epilogue (kFvPP planes of 132). The features have no
+// padding: an XOR of the column by the channel's low two bits keeps the
+// band's reads free of bank conflicts.
+template <int NT, bool BF16, int ST, int ROWS>
+struct FusedShape {
+  static constexpr int F8 = 8 * NT;
+  static constexpr int kRing = F8 * 2 * kFvTW;
+  static constexpr int kRed = 2 * kFvPix;
+  // ROWS kernel rows a stage: bfloat16, ROWS x 2 x 130 staged pixels and
+  // 3 ROWS x F8 weight rows of 48 B; float32, 8 channels x ROWS x 264
+  // (264 ROWS floats a channel: 8 or 24 banks apart) and 2 x 3 ROWS x 8
+  // weight rows of F8 + 8
+  static constexpr int kXPitch = ROWS * kFvXPitch;
+  static constexpr int kStage =
+      BF16 ? (2 * kFvHalo + 3 * F8) * ROWS * kBfPitch / 2
+           : kTcCC * kXPitch + 2 * 3 * ROWS * kTcCC * (F8 + 8);
+  static constexpr int kLeft = F8 * kFvTW;
+  static constexpr int kOut = kFvPP * kVolPO;
+  static constexpr int kU0 = ST * kStage > kLeft ? ST * kStage : kLeft;
+  static constexpr int kU = kU0 > kOut ? kU0 : kOut;
+  static constexpr int kFloats = kRing + kRed + kU;
+  static_assert(kStage % 4 == 0 && kRing % 4 == 0, "16-B aligned stages");
+};
+
+// K11 replaces, with K8 for the layers before it, mccnn_fused_volume_pallas
+// (stereo_match_tpu/ops/pallas_kernels.py: _mccnn_fused_kernel, its
+// _tower_body for the last layer and _gram_band_body), the TPU kernel that
+// keeps the features out of HBM. The TPU block (all layers of a 16-row
+// band of both views in VMEM) does not fit a Hopper block; the last layer
+// does, and it is where the float32 features are made.
+// Bound on the H100 (KITTI, both views, D = 128): the input activations
+// and the volume moved once (bf16 at F = 64: 119 + 238 MB, 0.107 ms) against
+// the layer's products plus the band's 3xTF32 ones, both on the tensor
+// cores (0.069 + 0.046 ms): 0.113 ms, operations (F = 112 bf16 0.289,
+// float32 0.460 and 1.351). Its design: the features of a step stay in
+// shared memory (one block an SM), the right view's in a ring walked with
+// the row so that each is computed once a chunk of planes; what holds it
+// is the layer's products and staging (every 256-pixel step restages the
+// weights, as K8's blocks do) and, in float32, the staging of NCHW input
+// rows by 4-byte copies (PERF.md, Findings).
+//
+// One row y of both views and one chunk of 128 planes (d0 = 128
+// blockIdx.x), walking the row's 128-column tiles left to right. A step:
+//  1. the last tower layer for the 256 pixels of the left tile x0 ... x0 +
+//     127 and the right tile x0 - d0 ... (K8's arithmetic: the same k steps
+//     in the same order, the same epilogue and the same split of each
+//     pixel's sum of squares over lanes and warps), its unit features
+//     written to shared memory: the left tile, and the right one into the
+//     ring slot of its columns (x & 255);
+//  2. K9's Gram band on them: the m16 tile x0 + 16 m ... against the 18 n8
+//     tiles of the right window x0 - d0 - 127 + 16 m ... read from the ring
+//     (the previous step's tile and this one's), WARPS / 8 warps an m16
+//     tile, each cell the same three TF32 products a k8 step as K9's, then
+//     written as K9 writes it.
+// x: the last layer's input, bfloat16 channels-last (2, H, W, C_in), or
+// float32 (2, C_in, H, W); wl: K8's layout of the last layer's weights
+// for that mode, CK = C16 or C8 its padded input channels. MINB blocks an
+// SM, ROWS (1 or 3) kernel rows a stage.
+template <int NT, int NS, bool BF16, int WARPS, int ST, int MINB, int ROWS,
+          int ABL>
+__global__ void __launch_bounds__(32 * WARPS, MINB)
+mccnn_fused_volume_kernel(const void* __restrict__ x,
+                          const void* __restrict__ wl,
+                          const float* __restrict__ bias,
+                          float* __restrict__ out, int C_in, int CK, int F,
+                          int H, int W, float scale) {
+  using S = FusedShape<NT, BF16, ST, ROWS>;
+  constexpr int THREADS = 32 * WARPS;
+  constexpr int XP = S::kXPitch;            // float32: a staged channel
+  constexpr int F8 = S::F8;
+  constexpr int NW = NT / NS;               // n8 tiles a warp
+  constexpr int RWARPS = WARPS / NS;        // warps along the pixels
+  constexpr int MT = 16 / RWARPS;           // m16 tiles a warp
+  constexpr int BW = WARPS / 8;             // warps an m16 tile's band
+  constexpr int BN = kFvBandNT / BW;        // n8 tiles of a band warp
+  constexpr int KC = BF16 ? kBfKC : kTcCC;  // input channels a stage
+  constexpr int FP = F8 + 8;                // float32 weight row pitch
+  static_assert(NT % NS == 0 && MT >= 1 && 8 % MT == 0 &&
+                kFvBandNT % BW == 0 && 3 % ROWS == 0,
+                "the warps tile the step, the stages the kernel rows");
+  static_assert(MINB * (S::kFloats * 4 + 1024) <= 233472,
+                "K11's blocks fit an SM's shared memory");
+  extern __shared__ __align__(16) float smem[];
+  float* rf = smem;                         // [F8][256], the ring
+  float* red = smem + S::kRing;             // [NS][256 pixels]
+  float* work = red + S::kRed;              // stages | left tile | st
+  float* lf = work;                         // [F8][128]
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;                  // mma groupID
+  const int t = lane & 3;                   // thread in group
+  const int nh = warp / RWARPS;             // this warp's share of F8
+  const int mw = warp % RWARPS;             // its m16 tiles mw MT ...
+  const int view = mw * MT >> 3;            // all in one view
+  const int d0 = blockIdx.x * kFvTW;
+  const int y = blockIdx.y;
+  const int ntiles = (W + kFvTW - 1) / kFvTW;
+  const int nstages = CK / KC * (3 / ROWS);
+  const int nk8 = (F + 7) >> 3;
+
+  // the ring's slot of the tile before the first: cells with j < 0 only
+  for (int i = threadIdx.x; i < S::kRing; i += THREADS) rf[i] = 0.f;
+
+  for (int tl = 0; tl < ntiles; ++tl) {
+    const int x0 = tl * kFvTW;
+    const int xr0 = x0 - d0;                // this step's right tile
+
+    // stage s: channels (s / (3 / ROWS)) KC ... of the ROWS input rows
+    // from y - 1 + ky0 of both views (130 columns each, zero outside the
+    // frame and past C_in: the SAME and k padding) and the taps of those
+    // kernel rows, ky0 = s % (3 / ROWS) ROWS
+    auto stage = [&](int s, float* buf) {
+      if (ABL & kFvAblStage) return;
+      const int ky0 = s % (3 / ROWS) * ROWS;
+      const int c0 = s / (3 / ROWS) * KC;
+      if (BF16) {
+        // pixel p: row p / 260, view, column; 8 channels a 16-B copy
+        uint16_t* b16 = reinterpret_cast<uint16_t*>(buf);
+        const uint16_t* xv = static_cast<const uint16_t*>(x);
+        for (int i = threadIdx.x; i < ROWS * 2 * kFvHalo * 2;
+             i += THREADS) {
+          const int p = i >> 1;
+          const int r = p / (2 * kFvHalo);
+          const int pv = p - r * 2 * kFvHalo;
+          const int v = pv >= kFvHalo;
+          const int gy = y - 1 + ky0 + r;
+          const int gx = (v ? xr0 : x0) + pv - v * kFvHalo - 1;
+          const int c = c0 + 8 * (i & 1);
+          const bool ok = gy >= 0 && gy < H && c < C_in && gx >= 0 && gx < W;
+          cp_async16_zfill(b16 + p * kBfPitch + 8 * (i & 1),
+                           ok ? xv + (((size_t)v * H + gy) * W + gx) * C_in +
+                                    c
+                              : xv,
+                           ok ? 16 : 0);
+        }
+        // weight rows (tap, output): the taps 3 ky0 ... 3 (ky0 + ROWS) - 1
+        uint16_t* wb = b16 + ROWS * 2 * kFvHalo * kBfPitch;
+        const uint16_t* wv = static_cast<const uint16_t*>(wl) +
+                             (size_t)3 * ky0 * F8 * CK + c0;
+        for (int i = threadIdx.x; i < 3 * ROWS * F8 * 2; i += THREADS)
+          cp_async16_zfill(wb + (i >> 1) * kBfPitch + 8 * (i & 1),
+                           wv + (size_t)(i >> 1) * CK + 8 * (i & 1), 16);
+      } else {
+        const float* xv = static_cast<const float*>(x);
+        for (int i = threadIdx.x; i < kTcCC * ROWS * 2 * kFvHalo;
+             i += THREADS) {
+          const int ci = i / (ROWS * 2 * kFvHalo);
+          const int p = i - ci * ROWS * 2 * kFvHalo;
+          const int r = p / (2 * kFvHalo);
+          const int pv = p - r * 2 * kFvHalo;
+          const int v = pv >= kFvHalo;
+          const int hx = pv - v * kFvHalo;
+          const int gy = y - 1 + ky0 + r;
+          const int gx = (v ? xr0 : x0) + hx - 1;
+          const bool ok = gy >= 0 && gy < H && c0 + ci < C_in && gx >= 0 &&
+                          gx < W;
+          cp_async4_zfill(
+              buf + ci * XP + r * kFvXPitch + v * kFvXView + hx,
+              ok ? xv + (((size_t)v * C_in + c0 + ci) * H + gy) * W + gx : xv,
+              ok ? 4 : 0);
+        }
+        // weight rows (part, tap, ci) of F8 floats, 16 B at a time
+        float* wb = buf + kTcCC * XP;
+        const float* pk = static_cast<const float*>(wl);
+        for (int i = threadIdx.x; i < 2 * 3 * ROWS * kTcCC * (F8 / 4);
+             i += THREADS) {
+          const int r = i / (F8 / 4);
+          const int q = i - r * (F8 / 4);
+          const int part = r / (3 * ROWS * kTcCC);
+          const int tap = (r - part * 3 * ROWS * kTcCC) / kTcCC;
+          const int ci = r - part * 3 * ROWS * kTcCC - tap * kTcCC;
+          cp_async16(wb + r * FP + q * 4,
+                     pk + ((size_t)(part * 9 + 3 * ky0 + tap) * CK + c0 +
+                           ci) * F8 + q * 4);
+        }
+      }
+    };
+
+    float acc[MT][NW][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NW; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+    // ST buffers: stage s + ST - 1 is copied while stage s is multiplied
+#pragma unroll
+    for (int s = 0; s < ST - 1; ++s) {
+      if (s < nstages) stage(s, work + s * S::kStage);
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+    for (int s = 0; s < nstages; ++s) {
+      if (s + ST - 1 < nstages)
+        stage(s + ST - 1, work + (s + ST - 1) % ST * S::kStage);
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(ST - 1));
+      __syncthreads();                      // stage s has landed
+      const float* buf = work + s % ST * S::kStage;
+      if (ABL & kFvAblConv) {
+      } else if (BF16) {
+        // K8's bfloat16 body: A by ldmatrix.x4 (a lane's row one pixel's
+        // 8 channels), B two n8 tiles at a time, each k16 step into a
+        // zeroed accumulator added to the total with a rounded add
+        const unsigned base = (unsigned)__cvta_generic_to_shared(buf);
+        const unsigned a_lane =
+            (view * kFvHalo + (lane & 15)) * kBfPitch + 8 * (lane >> 4);
+        const unsigned b_lane =
+            (ROWS * 2 * kFvHalo + nh * NW * 8 + 8 * (lane >> 4) +
+             (lane & 7)) * kBfPitch + 8 * ((lane >> 3) & 1);
+#pragma unroll
+        for (int tap = 0; tap < 3 * ROWS; ++tap) {
+          const int r = tap / 3;
+          const int kx = tap - 3 * r;
+          uint32_t a[MT][4];
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+            ldmatrix_x4(a[m], base + 2u * (a_lane +
+                                           (r * 2 * kFvHalo +
+                                            16 * ((mw * MT + m) & 7) + kx) *
+                                               kBfPitch));
+#pragma unroll
+          for (int n = 0; n < NW; n += 2) {
+            uint32_t b[4];
+            const unsigned addr =
+                base + 2u * (b_lane + (tap * F8 + 8 * n) * kBfPitch);
+            if (n + 1 < NW) ldmatrix_x4(b, addr);
+            else ldmatrix_x2(b, addr);
+#pragma unroll
+            for (int m = 0; m < MT; ++m) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                if (n + h >= NW) continue;
+                float p[4];
+                mma_bf16_zero(p, a[m], b[2 * h], b[2 * h + 1]);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[m][n + h][e] += p[e];
+              }
+            }
+          }
+        }
+      } else {
+        // K8's 3xTF32 body: each operand split by cvt.rna, lo*hi + hi*lo
+        // + hi*hi in a zeroed accumulator, added to the total
+#pragma unroll
+        for (int tap = 0; tap < 3 * ROWS; ++tap) {
+          const int r = tap / 3;
+          const int kx = tap - 3 * r;
+          uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            const float* a = buf + t * XP + r * kFvXPitch +
+                             view * kFvXView + 16 * ((mw * MT + m) & 7) + g +
+                             kx;
+            split_tf32(a[0], ah[m][0], al[m][0]);
+            split_tf32(a[8], ah[m][1], al[m][1]);
+            split_tf32(a[4 * XP], ah[m][2], al[m][2]);
+            split_tf32(a[4 * XP + 8], ah[m][3], al[m][3]);
+          }
+          const float* whi = buf + kTcCC * XP + (tap * kTcCC + t) * FP +
+                             nh * NW * 8 + g;
+          const float* wlo = whi + 3 * ROWS * kTcCC * FP;
+#pragma unroll
+          for (int n = 0; n < NW; ++n) {
+            const uint32_t bh0 = __float_as_uint(whi[n * 8]);
+            const uint32_t bh1 = __float_as_uint(whi[4 * FP + n * 8]);
+            const uint32_t bl0 = __float_as_uint(wlo[n * 8]);
+            const uint32_t bl1 = __float_as_uint(wlo[4 * FP + n * 8]);
+#pragma unroll
+            for (int m = 0; m < MT; ++m) {
+              float part[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_tf32(part, al[m], bh0, bh1);
+              mma_tf32(part, ah[m], bl0, bl1);
+              mma_tf32(part, ah[m], bh0, bh1);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[m][n][e] += part[e];
+            }
+          }
+        }
+      }
+      __syncthreads();                      // stage s may be overwritten
+    }
+
+    // K8's epilogue for the last layer: c0, c1 of m16 tile m are pixel
+    // g, channels 2t, 2t + 1; c2, c3 pixel g + 8. Bias (in bfloat16 the
+    // sum rounded, the rounded bias added and rounded again), then each
+    // pixel's sum of squares in K8's order: this lane's channels n by n,
+    // the quad's lanes by two shuffles, the NS warps' sums in shared
+    // memory; then the division by sqrt(sum + 1e-12).
+    float ss[MT][2];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) ss[m][0] = ss[m][1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NW; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int f = (nh * NW + n) * 8 + 2 * t + e;
+        const float b = f < F ? bias[f] : 0.f;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float v = add_bias<BF16>(acc[m][n][2 * half + e], b);
+            acc[m][n][2 * half + e] = v;
+            ss[m][half] = fmaf(v, v, ss[m][half]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        ss[m][half] += __shfl_xor_sync(0xffffffffu, ss[m][half], 1);
+        ss[m][half] += __shfl_xor_sync(0xffffffffu, ss[m][half], 2);
+      }
+    if (NS > 1) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          if (t == 0)
+            red[nh * kFvPix + (mw * MT + m) * 16 + g + 8 * half] =
+                ss[m][half];
+      __syncthreads();
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float sum = 0.f;
+          for (int h = 0; h < NS; ++h)
+            sum += red[h * kFvPix + (mw * MT + m) * 16 + g + 8 * half];
+          ss[m][half] = sum;
+        }
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float norm = sqrtf(ss[m][half] + 1e-12f);
+        const int col = 16 * ((mw * MT + m) & 7) + g + 8 * half;
+#pragma unroll
+        for (int n = 0; n < NW; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int f = (nh * NW + n) * 8 + 2 * t + e;
+            if (f >= F) continue;
+            const float v = acc[m][n][2 * half + e] / norm;
+            const int swz = (f & 3) << 3;
+            if (view == 0)
+              lf[f * kFvTW + (col ^ swz)] = v;
+            else
+              rf[f * 2 * kFvTW + (((xr0 + col) & 255) ^ swz)] = v;
+          }
+        }
+      }
+    }
+    __syncthreads();                        // the step's features are in
+
+    // K9's Gram band: the left tile against the ring
+    const int mb = warp & 7;                // this warp's m16 tile
+    const int nb0 = warp / 8 * BN;          // and its first n8 tile
+    const int xa = x0 + 16 * mb;
+    const bool busy = xa < W;
+    const int ncols = min(kFvTW, W - x0);
+    const int jw = xa - d0 - kFvTW + 1;     // the m16 tile's first j
+    const bool full = jw >= 0 && xa + 16 <= W;
+    float band[BN][4];
+#pragma unroll
+    for (int n = 0; n < BN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) band[n][e] = 0.f;
+    if (busy && !(ABL & kFvAblBand)) {
+      const int swz = t << 3;               // (k + t) & 3 == t
+      const int ca0 = (16 * mb + g) ^ swz;
+      const int ca1 = (16 * mb + g + 8) ^ swz;
+      for (int k = 0; k < 8 * nk8; k += 8) {
+        uint32_t ah[4], al[4];
+        const float* a = lf + (k + t) * kFvTW;
+        tf32_pair(a[ca0], ah[0], al[0]);
+        tf32_pair(a[ca1], ah[1], al[1]);
+        tf32_pair(a[4 * kFvTW + ca0], ah[2], al[2]);
+        tf32_pair(a[4 * kFvTW + ca1], ah[3], al[3]);
+        const float* b = rf + (k + t) * 2 * kFvTW;
+#pragma unroll
+        for (int n = 0; n < BN; ++n) {
+          const int j0 = jw + 8 * (nb0 + n);
+          if (!full && (j0 + 7 < 0 || j0 >= W)) continue;
+          const int cb = ((j0 + g) & 255) ^ swz;
+          uint32_t bh0, bl0, bh1, bl1;
+          tf32_pair(b[cb], bh0, bl0);
+          tf32_pair(b[4 * 2 * kFvTW + cb], bh1, bl1);
+          mma_tf32(band[n], al, bh0, bh1);
+          mma_tf32(band[n], ah, bl0, bl1);
+          mma_tf32(band[n], ah, bh0, bh1);
+        }
+      }
+    }
+    __syncthreads();                        // the left tile is read
+
+    // K9's epilogue in passes of kFvPP planes: c0, c1 are column xa + g,
+    // j = jw + 8 n + 2t, + 1; c2, c3 column xa + g + 8; plane i = x - j -
+    // d0, its row in `st` shifted by the global row's misalignment
+    float* st = work;
+    for (int p0 = 0; p0 < kFvTW; p0 += kFvPP) {
+      if (busy) {
+#pragma unroll
+        for (int n = 0; n < BN; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int xl = 16 * mb + g + 8 * (e >> 1);
+            const int j = jw + 8 * (nb0 + n) + 2 * t + (e & 1);
+            const int i = x0 + xl - j - d0;
+            if (i >= p0 && i < p0 + kFvPP) {
+              const unsigned sh =
+                  (((unsigned)(d0 + i) * (unsigned)H + y) * (unsigned)W) &
+                  3u;
+              st[(i - p0) * kVolPO + xl + sh] =
+                  j < 0 ? kInvalid : scale * (1.f - band[n][e]) * 0.5f;
+            }
+          }
+        }
+      }
+      __syncthreads();
+      for (int i = warp; i < kFvPP && !(ABL & kFvAblStore); i += WARPS) {
+        const size_t row = ((size_t)(d0 + p0 + i) * H + y) * W + x0;
+        const int sh = (int)(row & 3);
+        float* dst = out + (row - sh);      // 16-B aligned
+        const float* src = st + i * kVolPO;
+        const int nvec = (ncols + sh + 3) >> 2;
+        for (int v = lane; v < nvec; v += 32) {
+          const float4 q = *reinterpret_cast<const float4*>(src + 4 * v);
+          const int xl = 4 * v - sh;        // tile column of q.x
+          if (xl >= 0 && xl + 4 <= ncols) {
+            *reinterpret_cast<float4*>(dst + 4 * v) = q;
+          } else {
+            const float qv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              if (xl + k >= 0 && xl + k < ncols) dst[4 * v + k] = qv[k];
+          }
+        }
+      }
+      __syncthreads();                      // st is free again
+    }
+  }
+}
+
+template <int NT, int NS, bool BF16, int WARPS, int ST, int MINB, int ROWS,
+          int ABL>
+int launch_fused(const void* x, const void* layout, const float* bias,
+                 float* out, int C_in, int F, int H, int W, int D,
+                 float scale, cudaStream_t stream) {
+  const size_t smem =
+      (size_t)FusedShape<NT, BF16, ST, ROWS>::kFloats * sizeof(float);
+  auto kernel =
+      mccnn_fused_volume_kernel<NT, NS, BF16, WARPS, ST, MINB, ROWS, ABL>;
+  // The attribute belongs to the current device: set it at every launch.
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int KC = BF16 ? kBfKC : kTcCC;
+  const int CK = (C_in + KC - 1) / KC * KC;
+  dim3 grid(D / kFvTW, H);
+  kernel<<<grid, 32 * WARPS, smem, stream>>>(x, layout, bias, out, C_in, CK,
+                                             F, H, W, scale);
+  return (int)cudaGetLastError();
+}
+
 // One K8 layer in float32: the body chosen by C_in, the tile of output
 // channels by F.
 int conv3x3(const float* x, const float* layout, const float* bias, float* y,
@@ -1507,4 +1999,83 @@ extern "C" int smt_mccnn_volume(const float* fl, const float* fr, float* out,
   const int chunks = (D + kMax - 1) / kMax;
   return launch_volume<22>(fl, fr, out, F, H, W, D, min_d,
                            (D + chunks - 1) / chunks, scale, st);
+}
+
+// K11. x: the last layer's input, both views: in the float32 mode (bf16 =
+// 0) float32 (2, C_in, H, W), in the bfloat16 mode bfloat16 channels-last
+// (2, H, W, C_in) with C_in a multiple of 8 and x 16-B aligned; layout:
+// K8's copy of the last layer's weights for that mode ((2, 3, 3, C8, F8)
+// TF32 hi and lo, or the bfloat16 (9, F8, C16)); bias: (F,); out: (D, H,
+// W) float32. F <= 128 and a multiple of 8, C_in >= 2, D a multiple of 128.
+// One block of 16 warps an SM. In bfloat16 as many staging buffers of one
+// kernel row's taps as fit beside the ring (three at F8 = 128, else four);
+// in float32 fewer, larger stages of all three kernel rows (two buffers up
+// to F8 = 64, one at 112; at 128 two of one row, all that fit)
+// (tools/k11_probe.py: the faster layouts measured).
+extern "C" int smt_mccnn_fused_volume(const void* x, const void* layout,
+                                      const float* bias, float* out,
+                                      int C_in, int F, int H, int W, int D,
+                                      float scale, int bf16, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (F < 8 || F > 128 || F % 8 || C_in < 2 || H < 1 || W < 1 ||
+      D < kFvTW || D % kFvTW || (bf16 && (C_in % 8 || !aligned16(x))))
+    return (int)cudaErrorInvalidValue;
+  // (NT, NS) as K8's; the bfloat16 buffers; the float32 buffers and rows
+#define SMT_FUSED(NT, NS, ST16, ST32, ROWS32)                              \
+  return bf16 ? launch_fused<NT, NS, true, 16, ST16, 1, 1, 0>(              \
+                    x, layout, bias, out, C_in, F, H, W, D, scale, st)     \
+              : launch_fused<NT, NS, false, 16, ST32, 1, ROWS32, 0>(        \
+                    x, layout, bias, out, C_in, F, H, W, D, scale, st);
+  if (F <= 32) SMT_FUSED(4, 1, 4, 2, 3)
+  if (F <= 64) SMT_FUSED(8, 1, 4, 2, 3)
+  if (F <= 112) SMT_FUSED(14, 2, 4, 1, 3)
+  SMT_FUSED(16, 2, 3, 2, 1)
+#undef SMT_FUSED
+}
+
+// The probe of tools/k11_probe.py at F = 64 or 112, arguments as
+// smt_mccnn_fused_volume's: variant 0 the launch that entry makes, with
+// the parts in ablate (kFvAblStage | kFvAblConv | kFvAblBand |
+// kFvAblStore, one at a time, or 0 for none) taken out; variant 1 (no
+// ablations) another layout: in bfloat16 two blocks of 8 warps an SM with
+// two buffers at F = 64, three buffers at F = 112; in float32 four
+// buffers of one kernel row at F = 64, two at F = 112.
+extern "C" int smt_mccnn_fused_volume_probe(const void* x,
+                                            const void* layout,
+                                            const float* bias, float* out,
+                                            int C_in, int F, int H, int W,
+                                            int D, float scale, int bf16,
+                                            int variant, int ablate,
+                                            void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if ((F != 64 && F != 112) || C_in < 2 || D % kFvTW ||
+      (bf16 && (C_in % 8 || !aligned16(x))) || (variant && ablate))
+    return (int)cudaErrorInvalidValue;
+#define SMT_FPROBE(BF, NT, NS, WARPS, ST, MINB, ROWS, ABL)                 \
+  return launch_fused<NT, NS, BF, WARPS, ST, MINB, ROWS, ABL>(             \
+      x, layout, bias, out, C_in, F, H, W, D, scale, st);
+#define SMT_FPROBE_ABL(BF, NT, NS, ST, ROWS)                               \
+  if (ablate == 0) SMT_FPROBE(BF, NT, NS, 16, ST, 1, ROWS, 0)              \
+  if (ablate == kFvAblStage)                                               \
+    SMT_FPROBE(BF, NT, NS, 16, ST, 1, ROWS, kFvAblStage)                   \
+  if (ablate == kFvAblConv)                                                \
+    SMT_FPROBE(BF, NT, NS, 16, ST, 1, ROWS, kFvAblConv)                    \
+  if (ablate == kFvAblBand)                                                \
+    SMT_FPROBE(BF, NT, NS, 16, ST, 1, ROWS, kFvAblBand)                    \
+  if (ablate == kFvAblStore)                                               \
+    SMT_FPROBE(BF, NT, NS, 16, ST, 1, ROWS, kFvAblStore)
+  if (F == 64) {
+    if (variant == 0 && bf16) { SMT_FPROBE_ABL(true, 8, 1, 4, 1) }
+    if (variant == 0 && !bf16) { SMT_FPROBE_ABL(false, 8, 1, 2, 3) }
+    if (variant == 1 && bf16) SMT_FPROBE(true, 8, 1, 8, 2, 2, 1, 0)
+    if (variant == 1 && !bf16) SMT_FPROBE(false, 8, 1, 16, 4, 1, 1, 0)
+  } else {
+    if (variant == 0 && bf16) { SMT_FPROBE_ABL(true, 14, 2, 4, 1) }
+    if (variant == 0 && !bf16) { SMT_FPROBE_ABL(false, 14, 2, 1, 3) }
+    if (variant == 1 && bf16) SMT_FPROBE(true, 14, 2, 16, 3, 1, 1, 0)
+    if (variant == 1 && !bf16) SMT_FPROBE(false, 14, 2, 16, 2, 1, 1, 0)
+  }
+#undef SMT_FPROBE_ABL
+#undef SMT_FPROBE
+  return (int)cudaErrorInvalidValue;
 }

@@ -6,15 +6,21 @@ carrier that reads and writes the JAX package's flax checkpoints
 (``stereo_match_tpu/models/weights/mccnn_*.npz``) with numpy alone. In
 inference each tower layer runs on K8 and the volume on K9
 (``ops/cuda_kernels.py``) for CUDA tensors, on their plain versions for CPU
-tensors. The train step is the plain differentiable tower (``F.conv2d``,
-the float32 body of ``mccnn_conv3x3_plain``) under autograd and
-:class:`~stereo_match_tpu_torch.models.optim.Adam`, as flax's
+tensors, or, on the one-kernel path below, the last layer and the volume
+on K11. :func:`mccnn_cost_volume_fused` is the JAX package's one-kernel
+path: the tower's layers but the last on K8, then one launch of K11
+(``mccnn_fused_volume``), which computes the last layer, its norm and the
+volume without the features in device memory; :func:`mccnn_cost_volume`
+takes it on the card at min_disparity 0 and D a multiple of 128, as JAX
+takes it on the TPU. The train step is the plain differentiable tower
+(``F.conv2d``, the float32 body of ``mccnn_conv3x3_plain``) under autograd
+and :class:`~stereo_match_tpu_torch.models.optim.Adam`, as flax's
 ``model.apply`` is XLA convolutions under ``jax.value_and_grad`` and
 ``optax.adam``; no Pallas kernel has a backward to port.
 
-The TPU's weight stacks (``_tower_weight_stacks``) and its fused
-tower + volume kernel (``mccnn_cost_volume_fused``) are MXU layout and
-fusion; K8 then K9 compute what they compute. The sharding rules
+The TPU's weight stacks (``_tower_weight_stacks``) are its MXU layout:
+K8 and K11 read their own copies of the weights (``layout{i}``). The
+sharding rules
 (:data:`PARTITION_RULES`, :func:`match_partition_rules`,
 :func:`shard_params`) and the ``mesh=`` trainer (data parallel over
 "data", conv output channels over "model") run in one process over a
@@ -39,11 +45,9 @@ from torch import nn
 from stereo_match_tpu_torch.models.optim import (Adam, LearningRate,
                                                  float32_scope, make_step)
 from stereo_match_tpu_torch.ops.cost_volume import check_min_disparity
-from stereo_match_tpu_torch.ops.cuda_kernels import (MCCNN_MAX_FEATURES,
-                                                     mccnn_conv3x3,
-                                                     mccnn_conv3x3_plain,
-                                                     mccnn_volume,
-                                                     mccnn_weight_layout)
+from stereo_match_tpu_torch.ops.cuda_kernels import (
+    MCCNN_FUSED_TW, MCCNN_MAX_FEATURES, mccnn_conv3x3, mccnn_conv3x3_plain,
+    mccnn_fused_volume, mccnn_volume, mccnn_weight_layout)
 from stereo_match_tpu_torch.utils.backend import entry_device
 
 if TYPE_CHECKING:   # parallel/ imports the pipeline, which imports this
@@ -78,7 +82,8 @@ class MCCNNFeatures(nn.Module):
     copy of layer i's weights that K8 reads (``mccnn_weight_layout`` for
     ``compute_dtype``: the (3, 3, 1, F) taps of the first layer, the packed
     taps of the others), made when the weights are set (construction,
-    ``load_state_dict``) and moved with the module. Whoever changes a
+    ``load_state_dict``) and moved with the module (K11 reads the last
+    layer's). Whoever changes a
     weight in place (an optimizer step, ``copy_``) must call
     :meth:`relayout` after it, or K8 on the card goes on reading the old
     weights while the CPU's plain path reads the new ones; :func:`train`
@@ -118,48 +123,64 @@ class MCCNNFeatures(nn.Module):
 
     def relayout(self) -> None:
         """Rebuild K8's copy of each layer's weights (None where F is wider
-        than K8 takes), and drop the bfloat16 twin, which holds copies of
-        its own."""
+        than K8 takes), and drop the twins, which hold copies of their
+        own."""
         bf16 = self.compute_dtype == torch.bfloat16
         for i, w in enumerate(self.weights):
             setattr(self, f"layout{i}",
                     mccnn_weight_layout(w.detach(), bf16)
                     if self.features <= MCCNN_MAX_FEATURES else None)
-        self.__dict__.pop("_twin", None)
+        self.__dict__.pop("_twins", None)
 
-    def bf16_twin(self) -> MCCNNFeatures:
-        """This tower computing in bfloat16, as the twin JAX builds for
-        ``use_bf16=True``: ``self`` where it does already, else a tower that
-        shares this one's parameters, made once and kept (outside the
-        module's state) with K8's bfloat16 copies of the weights, and made
-        anew when the weights are set again or have moved device."""
-        if self.compute_dtype == torch.bfloat16:
+    def twin(self, compute_dtype: torch.dtype) -> MCCNNFeatures:
+        """This tower computing in ``compute_dtype``: ``self`` where it
+        does already, else a tower that shares this one's parameters, made
+        once and kept (outside the module's state) with K8's copies of the
+        weights for that dtype, and made anew when the weights are set
+        again or have moved device."""
+        _check_compute_dtype(compute_dtype)
+        if self.compute_dtype == compute_dtype:
             return self
-        twin = self.__dict__.get("_twin")
+        twins = self.__dict__.setdefault("_twins", {})
+        twin = twins.get(compute_dtype)
         if twin is None or (twin.layout0 is not None and
                             twin.layout0.device != self.weights[0].device):
             twin = MCCNNFeatures(self.features, self.num_layers, self.kernel,
-                                 torch.bfloat16)
+                                 compute_dtype)
             twin.weights, twin.biases = self.weights, self.biases
             twin.relayout()
-            self.__dict__["_twin"] = twin
+            twins[compute_dtype] = twin
         return twin
+
+    def bf16_twin(self) -> MCCNNFeatures:
+        """This tower computing in bfloat16, as the twin JAX builds for
+        ``use_bf16=True`` (:meth:`twin`)."""
+        return self.twin(torch.bfloat16)
+
+    def hidden(self, x: torch.Tensor) -> torch.Tensor:
+        """(V, H, W) normalized images -> the last layer's input: every
+        layer but the last on K8, (V, F, H, W) float32, or in bfloat16 a
+        bfloat16 tensor in ``torch.channels_last`` (flax's NHWC; exact,
+        the values are bfloat16), which K8 reads and writes as it is; the
+        (V, 1, H, W) images for a tower of one layer."""
+        h = x[:, None].contiguous()
+        bf16 = self.compute_dtype == torch.bfloat16
+        for i in range(self.num_layers - 1):
+            h = mccnn_conv3x3(h, self.weights[i], self.biases[i], relu=True,
+                              normalize=False,
+                              layout=getattr(self, f"layout{i}"),
+                              bf16=bf16, bf16_out=bf16)
+        return h
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(V, H, W) normalized images -> (V, F, H, W) unit features,
-        float32. In bfloat16 each layer but the last hands the next its
-        output as a bfloat16 tensor in ``torch.channels_last`` (flax's
-        NHWC; exact, the values are bfloat16), which K8 reads and writes as
-        it is."""
-        h = x[:, None].contiguous()
-        bf16 = self.compute_dtype == torch.bfloat16
-        for i in range(self.num_layers):
-            last = i == self.num_layers - 1
-            h = mccnn_conv3x3(h, self.weights[i], self.biases[i],
-                              relu=not last, normalize=last,
-                              layout=getattr(self, f"layout{i}"),
-                              bf16=bf16, bf16_out=bf16 and not last)
-        return h
+        float32: :meth:`hidden`, then the last layer and its norm."""
+        i = self.num_layers - 1
+        return mccnn_conv3x3(self.hidden(x), self.weights[i], self.biases[i],
+                             relu=False, normalize=True,
+                             layout=getattr(self, f"layout{i}"),
+                             bf16=self.compute_dtype == torch.bfloat16,
+                             bf16_out=False)
 
 
 def _check_compute_dtype(dtype: torch.dtype) -> None:
@@ -193,6 +214,22 @@ def normalize_image(img: torch.Tensor) -> torch.Tensor:
     return (img - torch.mean(img)) / (torch.std(img, correction=0) + 1e-6)
 
 
+def fused_path_applies(model: MCCNNFeatures, num_disparities: int,
+                       min_disparity: int) -> bool:
+    """Whether :func:`mccnn_cost_volume` takes the one-kernel path on the
+    card: JAX's condition for its fused TPU path (min_disparity 0, D a
+    multiple of 128, 3x3 kernels), for a tower K11 takes (at least two
+    layers, F a multiple of 16 up to ``MCCNN_MAX_FEATURES``)."""
+    return (min_disparity == 0 and num_disparities % MCCNN_FUSED_TW == 0
+            and model.kernel == 3 and model.num_layers >= 2
+            and model.features % 16 == 0
+            and model.features <= MCCNN_MAX_FEATURES)
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
 def mccnn_cost_volume(model: MCCNNFeatures, left: torch.Tensor,
                       right: torch.Tensor, num_disparities: int,
                       min_disparity: int = 0, scale: float = 24.0,
@@ -205,13 +242,66 @@ def mccnn_cost_volume(model: MCCNNFeatures, left: torch.Tensor,
     device, with the model's weights (``model.bf16_twin()``, as JAX builds
     a bfloat16 twin of a float32 model); None or False keep the model's
     own ``compute_dtype`` (what the JAX package does off the TPU). The
-    features and the volume are float32 either way.
+    features and the volume are float32 either way. On the card, where
+    :func:`fused_path_applies` (as JAX takes its fused path on the TPU),
+    the volume is :func:`mccnn_cost_volume_fused`'s one-kernel path (K8
+    for the layers but the last, then K11); otherwise the tower on K8 and
+    the volume on K9.
     """
     check_min_disparity(min_disparity)
+    tower = model.bf16_twin() if use_bf16 else model
+    if _on_card(left) and fused_path_applies(tower, num_disparities,
+                                             min_disparity):
+        return mccnn_cost_volume_fused(tower, left, right, num_disparities,
+                                       scale, tower.compute_dtype)
     imgs = torch.stack([normalize_image(left), normalize_image(right)])
-    feats = (model.bf16_twin() if use_bf16 else model)(imgs)
+    feats = tower(imgs)
     return mccnn_volume(feats[0], feats[1], num_disparities, min_disparity,
                         scale)
+
+
+def mccnn_cost_volume_fused(model: MCCNNFeatures, left: torch.Tensor,
+                            right: torch.Tensor, num_disparities: int,
+                            scale: float = 24.0,
+                            compute_dtype: torch.dtype = torch.bfloat16,
+                            single_kernel: bool = True) -> torch.Tensor:
+    """The one-kernel path: images -> the (D, H, W) volume at
+    min_disparity 0, the features of the last layer never in device memory.
+
+    JAX's ``mccnn_cost_volume_fused`` with the port's model carrying its
+    weights (no ``params``). ``compute_dtype`` picks the tower's mode:
+    ``model`` where it computes in it, else its twin (``model.twin``).
+    ``single_kernel`` (the default): the layers but the last on K8, then
+    K11 (``mccnn_fused_volume``): the last layer, its norm and the Gram
+    band in one launch. ``single_kernel=False`` is the two-kernel
+    semantics reference, K8 for every layer then K9; on the card K11 is
+    held bit-equal to it, and on the CPU both run the same plain layers and
+    volume. ValueError, as JAX raises, for num_disparities not a multiple
+    of 128, a kernel that is not 3x3 and F not a multiple of 16 (its
+    Pallas kernel's sublane tile), and for a tower of one layer.
+    """
+    if num_disparities % MCCNN_FUSED_TW or num_disparities < 1:
+        raise ValueError(f"the fused MC-CNN volume needs num_disparities % "
+                         f"{MCCNN_FUSED_TW} == 0, got {num_disparities}")
+    if model.kernel != 3:
+        raise ValueError("the fused tower takes 3x3 kernels")
+    if model.features % 16:
+        raise ValueError(f"the fused tower needs features a multiple of 16, "
+                         f"got {model.features}")
+    if model.num_layers < 2:
+        raise ValueError("the fused tower needs at least two layers")
+    tower = model.twin(compute_dtype)
+    imgs = torch.stack([normalize_image(left), normalize_image(right)])
+    i = tower.num_layers - 1
+    args = (tower.hidden(imgs), tower.weights[i], tower.biases[i])
+    layout = getattr(tower, f"layout{i}")
+    bf16 = compute_dtype == torch.bfloat16
+    if single_kernel:
+        return mccnn_fused_volume(*args, num_disparities, scale,
+                                  layout=layout, bf16=bf16)
+    feats = mccnn_conv3x3(*args, relu=False, normalize=True, layout=layout,
+                          bf16=bf16)
+    return mccnn_volume(feats[0], feats[1], num_disparities, 0, scale)
 
 
 # ------------------------------------------------------------- training ----

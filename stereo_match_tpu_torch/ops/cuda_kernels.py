@@ -110,7 +110,8 @@ LIB_NAME = "libsmt_kernels.so"
 launches = {"census_words": 0, "census_volume": 0, "sgm_path_scan": 0,
             "wta_lr": 0, "wta_stats": 0, "right_wta": 0, "lr_mask": 0,
             "speckle_filter": 0, "fgs_solve": 0,
-            "mccnn_conv3x3": 0, "mccnn_volume": 0, "census_scan": 0}
+            "mccnn_conv3x3": 0, "mccnn_volume": 0, "census_scan": 0,
+            "mccnn_fused_volume": 0}
 
 # Packed speckle connectivity: the bit a pixel sets when it is connected to
 # its left neighbour, and the one for the pixel above.
@@ -205,6 +206,9 @@ def _library() -> ctypes.CDLL:
             "smt_mccnn_conv3x3_bf16_probe": [p, p, p, p, i, i, i, i, i, i,
                                              p],
             "smt_mccnn_volume": [p, p, p, i, i, i, i, i, f, p],
+            "smt_mccnn_fused_volume": [p, p, p, p, i, i, i, i, i, f, i, p],
+            "smt_mccnn_fused_volume_probe": [p, p, p, p, i, i, i, i, i, f,
+                                             i, i, i, p],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
@@ -1682,6 +1686,391 @@ def mccnn_volume(fl: torch.Tensor, fr: torch.Tensor, num_disparities: int,
     _launch("mccnn_volume", fl.device, _ptr(fl), _ptr(fr), _ptr(out), F, H,
             W, num_disparities, min_disparity, float(scale))
     return out
+
+
+# ------------------------------------------------ K11 mccnn_fused_volume ----
+
+MCCNN_FUSED_TW = 128      # K11: a step's columns a view; planes a block
+MCCNN_FUSED_BAND_NT = 18  # K11: n8 tiles of an m16 tile's band, 144 j
+
+
+MCCNN_FUSED_WARPS = 16    # K11: warps of a block, one block an SM
+
+
+def mccnn_fused_layout(F: int, bf16: bool) -> tuple[int, int, int, int]:
+    """(F8, NS, WARPS, ROWS) of the K11 launch: K8's F8 and NS (so that each
+    pixel's sum of squares is split as K8 splits it), the warps of a block
+    and the kernel rows whose taps a stage holds (3 in float32 up to
+    F8 = 112, else 1)."""
+    F8, NS = mccnn_bf16_warps(F)
+    return F8, NS, MCCNN_FUSED_WARPS, 1 if bf16 or F8 > 112 else 3
+
+
+def _check_fused(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                 num_disparities: int, bf16: bool) -> None:
+    _check_mccnn_io(x, True, bf16, False)
+    _check(weight, "weight", torch.float32, 4)
+    _check(bias, "bias", torch.float32, 1)
+    V, C_in = x.shape[:2]
+    F = weight.shape[0]
+    if V != 2:
+        raise ValueError(f"x: the last layer's input of both views, (2, "
+                         f"C_in, H, W), got {tuple(x.shape)}")
+    if weight.shape != (F, C_in, 3, 3) or bias.shape != (F,):
+        raise ValueError(f"weight {tuple(weight.shape)} and bias "
+                         f"{tuple(bias.shape)} do not fit {C_in} input "
+                         "channels and 3x3 taps")
+    if num_disparities < MCCNN_FUSED_TW or \
+            num_disparities % MCCNN_FUSED_TW:
+        raise ValueError(f"the fused MC-CNN volume needs num_disparities a "
+                         f"multiple of {MCCNN_FUSED_TW}, got "
+                         f"{num_disparities}")
+
+
+def mccnn_fused_volume_plain(x: torch.Tensor, weight: torch.Tensor,
+                             bias: torch.Tensor, num_disparities: int,
+                             scale: float = 24.0,
+                             bf16: bool = False) -> torch.Tensor:
+    """K11's function: the last tower layer with its norm
+    (``mccnn_conv3x3_plain``), then the volume at min_disparity 0
+    (``mccnn_volume_plain``). x as ``mccnn_fused_volume`` takes it."""
+    f = mccnn_conv3x3_plain(x, weight, bias, False, True, bf16)
+    return mccnn_volume_plain(f[0], f[1], num_disparities, 0, scale)
+
+
+def mccnn_fused_volume(x: torch.Tensor, weight: torch.Tensor,
+                       bias: torch.Tensor, num_disparities: int,
+                       scale: float = 24.0,
+                       layout: torch.Tensor | None = None,
+                       bf16: bool = False) -> torch.Tensor:
+    """The last MC-CNN tower layer, its L2 norm and the feature-dot volume
+    in one launch (K11): (2, C_in, H, W) -> (D, H, W) float32 cost.
+
+    What ``mccnn_conv3x3(x, weight, bias, False, True, layout, bf16)``
+    then ``mccnn_volume(f[0], f[1], D, 0, scale)`` compute (K8's last
+    launch and K9), without the features in device memory: x is the last
+    layer's input of both views (float32, contiguous; for ``bf16`` also
+    bfloat16 in ``torch.channels_last``, as K8's bfloat16 mode passes it),
+    ``layout`` K8's copy of the last layer's weights (made here when None).
+    num_disparities a
+    multiple of 128 (ValueError otherwise). On the card F is at most
+    ``MCCNN_MAX_FEATURES`` and a multiple of 8, C_in at least 2 (each
+    ValueError otherwise); the plain version on the CPU takes any.
+    """
+    _check_fused(x, weight, bias, num_disparities, bf16)
+    _, C_in, H, W = x.shape
+    F = weight.shape[0]
+    if layout is not None:
+        want, dtype = _mccnn_layout_spec(C_in, F, bf16)
+        _check(layout, "layout", dtype, len(want))
+        if tuple(layout.shape) != want:
+            raise ValueError(f"layout {tuple(layout.shape)}: expected {want}")
+    if _on_cpu(x, weight, bias, *(() if layout is None else (layout,))):
+        return mccnn_fused_volume_plain(x, weight, bias, num_disparities,
+                                        scale, bf16)
+    _check_mccnn_features(F)
+    if F % 8 or C_in < 2:
+        raise ValueError(f"K11 takes F a multiple of 8 and C_in >= 2 (the "
+                         f"last layer of a tower of two or more), got F = "
+                         f"{F}, C_in = {C_in}")
+    if layout is None:
+        layout = mccnn_weight_layout(weight, bf16)
+    if bf16:
+        x = x.to(torch.bfloat16, memory_format=torch.channels_last)
+        if C_in % 8 or x.data_ptr() % 16:
+            raise ValueError("K11's bfloat16 mode reads a pixel's channels "
+                             "16 B at a time: C_in a multiple of 8, x "
+                             "16-B aligned")
+    out = torch.empty((num_disparities, H, W), dtype=torch.float32,
+                      device=x.device)
+    _launch("mccnn_fused_volume", x.device, _ptr(x), _ptr(layout),
+            _ptr(bias), _ptr(out), C_in, F, H, W, num_disparities,
+            float(scale), int(bf16))
+    return out
+
+
+def _mma_m16n8k8(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``mma.m16n8k8.row.col`` (TF32) by its fragment layout, float64: a
+    (..., 32, 4), b (..., 32, 2) -> d (..., 32, 4), D = A B with, for lane
+    (g, t) = divmod(lane, 4): a = A[g, t], A[g + 8, t], A[g, t + 4],
+    A[g + 8, t + 4]; b = B[t, g], B[t + 4, g]; d[r] = D[g + 8 (r >> 1),
+    2 t + (r & 1)]."""
+    g, t = np.divmod(np.arange(32), 4)
+    A = np.zeros(a.shape[:-2] + (16, 8))
+    for r, (dr, dk) in enumerate(((0, 0), (8, 0), (0, 4), (8, 4))):
+        A[..., g + dr, t + dk] = a[..., r]
+    B = np.zeros(b.shape[:-2] + (8, 8))
+    B[..., t, g] = b[..., 0]
+    B[..., t + 4, g] = b[..., 1]
+    D = A @ B
+    r = np.arange(4)
+    return D[..., g[:, None] + 8 * (r >> 1), 2 * t[:, None] + (r & 1)]
+
+
+def mccnn_fused_volume_tiled_plain(x: np.ndarray, weight: np.ndarray,
+                                   bias: np.ndarray, num_disparities: int,
+                                   scale: float = 24.0,
+                                   bf16: bool = False) -> torch.Tensor:
+    """K11 as its blocks, warps, shared-memory addresses and fragments walk
+    the frame: (2, C_in, H, W) x, (F, C_in, 3, 3) weights and (F,) bias
+    (numpy) -> the (D, H, W) float32 volume.
+
+    A model of ``csrc/mccnn.cu``'s ``mccnn_fused_volume_kernel`` as the
+    wrapper launches it (``mccnn_fused_layout``): a block per row (the row
+    band is one row) and 128 planes, walking 128-column steps; each stage
+    (16 channels in bfloat16, 8 in float32, of one or three kernel rows)
+    staged in the kernel's layout, each warp's A and B read at the
+    kernel's addresses (``ldmatrix`` rows, or the TF32 fragment reads of
+    the hi and lo weight rows) and multiplied by the fragment layout of
+    ``mma``; the epilogue's bias and roundings, each pixel's sum of
+    squares split over lanes and warps as the kernel splits it, the norm;
+    the features stored at the kernel's swizzled addresses, the right ones
+    in the ring slot of their columns; the band's A and B read back from
+    those addresses for each lane, its cells placed by the accumulator map
+    and written through the epilogue's shifted rows and stores. The sums of
+    the layer are float64 (exact on inputs whose products and sums are
+    exact, as the tests choose); the band's dot products are taken, from
+    the operands the fragments read, as ``mccnn_volume_plain`` takes them
+    (one ``torch.sum`` over channels a plane), so an index error in any of
+    those maps shows as a volume that differs from
+    ``mccnn_fused_volume_plain``'s. The kernel's own order of the float32
+    sums is its alone.
+    """
+    x = np.asarray(x, np.float64)
+    w = np.asarray(weight, np.float64)
+    bias = torch.from_numpy(np.asarray(bias, np.float32))
+    _, C, H, W = x.shape
+    F, D, TW = w.shape[0], num_disparities, MCCNN_FUSED_TW
+    F8, NS, WARPS, ROWS = mccnn_fused_layout(F, bf16)
+    NT = F8 // 8
+    NW, RWARPS = NT // NS, WARPS // NS
+    MT = 16 // RWARPS
+    KC = MCCNN_BF16_K if bf16 else 8
+    CK = -(-C // KC) * KC
+    lane = np.arange(32)
+    g, t = np.divmod(lane, 4)
+    r4 = np.arange(4)
+    eight = np.arange(8)
+    if bf16:
+        x = bf16_round(torch.from_numpy(x)).numpy()
+        w = bf16_round(torch.from_numpy(w)).numpy()
+        wflat = np.zeros((9, F8, CK))
+        wflat[:, :F, :C] = np.transpose(w, (2, 3, 0, 1)).reshape(9, F, C)
+        stage_len = (2 * (TW + 2) + 3 * F8) * ROWS * 24
+    else:
+        wflat = mccnn_pack_weights(torch.from_numpy(w.astype(np.float32)))
+        wflat = wflat.double().numpy()
+        FP, XP = F8 + 8, 2 * (TW + 4) * ROWS     # XP: a staged channel
+        stage_len = 8 * XP + 2 * 3 * ROWS * 8 * FP
+    wflat = wflat.reshape(-1)
+    rows = np.arange(H)
+    FL = torch.zeros((F, H, W))
+    FR = torch.zeros((D, F, H, W))
+    steps = []     # (d0, x0, {busy warp: its first j}) of each step
+    for c in range(D // TW):
+        d0 = TW * c
+        rf = np.zeros((H, F8 * 2 * TW), np.float32)     # the ring
+        for tl in range(-(-W // TW)):
+            x0, xr0 = TW * tl, TW * tl - d0
+            acc = np.zeros((WARPS, H, MT, NW, 32, 4))
+            for s in range(CK // KC * (3 // ROWS)):
+                ky0, c0 = s % (3 // ROWS) * ROWS, s // (3 // ROWS) * KC
+                buf = np.zeros((H, stage_len))
+                hx = np.arange(TW + 2)
+                for r, v in np.ndindex(ROWS, 2):
+                    gy = rows - 1 + ky0 + r
+                    gx = (x0, xr0)[v] + hx - 1
+                    ok = ((gy >= 0) & (gy < H))[:, None] & \
+                        ((gx >= 0) & (gx < W))[None, :]
+                    for ci in range(KC):
+                        if c0 + ci >= C:
+                            continue
+                        val = np.where(ok, x[v, c0 + ci][np.clip(gy, 0, H - 1)]
+                                       [:, np.clip(gx, 0, W - 1)], 0.0)
+                        if bf16:
+                            buf[:, ((2 * r + v) * (TW + 2) + hx) * 24 +
+                                ci] = val
+                        else:
+                            buf[:, ci * XP + (2 * r + v) * (TW + 4) + hx] = \
+                                val
+                if bf16:
+                    r = np.arange(3 * ROWS * F8)
+                    for e in range(16):
+                        buf[:, (2 * (TW + 2) * ROWS + r) * 24 + e] = wflat[
+                            (3 * ky0 * F8 + r) * CK + c0 + e]
+                else:
+                    r = np.arange(2 * 3 * ROWS * 8)
+                    part, tap = r // (3 * ROWS * 8), r % (3 * ROWS * 8) // 8
+                    src = ((part * 9 + 3 * ky0 + tap) * CK + c0 + r % 8) * F8
+                    for col in range(F8):
+                        buf[:, 8 * XP + r * FP + col] = wflat[src + col]
+                for warp in range(WARPS):
+                    nh, mw = divmod(warp, RWARPS)
+                    view = mw * MT >> 3
+                    for tap in range(3 * ROWS):
+                        r, kx = divmod(tap, 3)
+                        for m in range(MT):
+                            px = 16 * ((mw * MT + m) & 7) + kx
+                            if bf16:
+                                off = ((2 * r + view) * (TW + 2) + px +
+                                       (lane & 15)) * 24 + 8 * (lane >> 4)
+                                a = _ldmatrix(buf[:, off[:, None] + eight], 4)
+                                for n in range(0, NW, 2):
+                                    mm = 4 if n + 1 < NW else 2
+                                    boff = (2 * (TW + 2) * ROWS + tap * F8 +
+                                            nh * NW * 8 + 8 * n +
+                                            8 * (lane >> 4) + (lane & 7)) * \
+                                        24 + 8 * ((lane >> 3) & 1)
+                                    brows = buf[:, np.clip(
+                                        boff[:, None] + eight, 0,
+                                        stage_len - 1)]
+                                    b = _ldmatrix(brows[:, :8 * mm], mm)
+                                    for h in range(mm // 2):
+                                        acc[warp, :, m, n + h] += \
+                                            _mma_m16n8k16(
+                                                a, b[:, :, 2 * h:2 * h + 2])
+                            else:
+                                base = t * XP + (2 * r + view) * (TW + 4) + \
+                                    px + g
+                                a = np.stack([buf[:, base + o] for o in (
+                                    0, 8, 4 * XP, 4 * XP + 8)], -1)
+                                ah, al = (p.numpy() for p in tf32_split(
+                                    torch.from_numpy(a.astype(np.float32))))
+                                whi = 8 * XP + (tap * 8 + t) * FP + \
+                                    nh * NW * 8 + g
+                                for n in range(NW):
+                                    bh, bl = (np.stack([
+                                        buf[:, wb + 8 * n],
+                                        buf[:, wb + 4 * FP + 8 * n]], -1)
+                                        for wb in (whi, whi + 3 * ROWS * 8 *
+                                                   FP))
+                                    acc[warp, :, m, n] += (
+                                        _mma_m16n8k8(al, bh) +
+                                        _mma_m16n8k8(ah, bl) +
+                                        _mma_m16n8k8(ah, bh))
+            # the epilogue: bias and roundings, each pixel's sum of squares
+            # a lane's channels n by n, the quad (s0 + s1) + (s2 + s3), the
+            # warps (0 + r0) + r1, the norm; the features into shared memory
+            vals, quads = {}, {}
+            for warp in range(WARPS):
+                nh = warp // RWARPS
+                ss = np.zeros((H, MT, 32, 2), np.float32)
+                for n in range(NW):
+                    f = (nh * NW + n) * 8 + 2 * t[:, None] + (r4 & 1)
+                    b = torch.where(torch.from_numpy(f < F),
+                                    bias[np.minimum(f, F - 1)], 0.0)
+                    v = torch.from_numpy(acc[warp, :, :, n].astype(
+                        np.float32))
+                    v = bf16_round(bf16_round(v) + bf16_round(b)) if bf16 \
+                        else v + b
+                    vals[warp, n] = v.numpy()
+                    for e in range(2):
+                        for half in range(2):
+                            q = vals[warp, n][..., 2 * half + e]
+                            ss[..., half] = ss[..., half] + q * q
+                quad = ss.reshape(H, MT, 8, 4, 2)
+                quads[warp] = (quad[..., 0, :] + quad[..., 1, :]) + \
+                    (quad[..., 2, :] + quad[..., 3, :])   # (H, MT, 8, 2)
+            lf = np.zeros((H, F8 * TW), np.float32)
+            for warp in range(WARPS):
+                nh, mw = divmod(warp, RWARPS)
+                view = mw * MT >> 3
+                total = np.zeros_like(quads[warp])
+                for h in range(NS):
+                    total = total + quads[h * RWARPS + mw]
+                # torch's sqrt and division, as the plain layer takes them
+                # (its float32 sqrt on the CPU is not always the nearest)
+                norm = torch.sqrt(torch.from_numpy(total) + 1e-12)[:, :, g]
+                for m in range(MT):
+                    for n in range(NW):
+                        for r in range(4):
+                            f = (nh * NW + n) * 8 + 2 * t + (r & 1)
+                            col = 16 * ((mw * MT + m) & 7) + g + 8 * (r >> 1)
+                            keep = f < F
+                            val = (torch.from_numpy(vals[warp, n][:, m, :, r])
+                                   / norm[:, m, :, r >> 1]).numpy()
+                            swz = (f & 3) << 3
+                            if view == 0:
+                                lf[:, (f * TW + (col ^ swz))[keep]] = \
+                                    val[:, keep]
+                            else:
+                                rf[:, (f * 2 * TW + (((xr0 + col) & 255) ^
+                                                      swz))[keep]] = \
+                                    val[:, keep]
+            # the band, an m16 tile at a time (WARPS / 8 warps share its
+            # n8 tiles): each lane's A and B reads, the cells of its
+            # accumulators
+            jws = {}
+            for warp in range(8):
+                xa = x0 + 16 * warp
+                if xa >= W:
+                    continue
+                jw = jws[warp] = xa - d0 - TW + 1
+                swz = t << 3
+                A = np.zeros((H, 16, F), np.float32)
+                B = np.zeros((H, F, 8 * MCCNN_FUSED_BAND_NT), np.float32)
+                for k in range(0, F, 8):
+                    for dr, dk in ((0, 0), (8, 0), (0, 4), (8, 4)):
+                        A[:, g + dr, k + t + dk] = lf[
+                            :, (k + t + dk) * TW + ((16 * warp + g + dr) ^
+                                                    swz)]
+                    for n in range(MCCNN_FUSED_BAND_NT):
+                        cb = ((jw + 8 * n + g) & 255) ^ swz
+                        for dk in (0, 4):
+                            B[:, k + t + dk, 8 * n + g] = rf[
+                                :, (k + t + dk) * 2 * TW + cb]
+                for n in range(MCCNN_FUSED_BAND_NT):
+                    for e in range(4):
+                        row = g + 8 * (e >> 1)
+                        xs = xa + row
+                        j = jw + 8 * n + 2 * t + (e & 1)
+                        i = xs - j - d0
+                        ok = (i >= 0) & (i < TW) & (xs < W)
+                        FL[:, :, xs[ok]] = torch.from_numpy(
+                            np.transpose(A[:, row[ok]], (2, 0, 1)).copy())
+                        ok &= j >= 0
+                        FR[d0 + i[ok], :, :, xs[ok]] = torch.from_numpy(
+                            np.transpose(B[:, :, (8 * n + 2 * t + (e & 1))
+                                           [ok]], (2, 1, 0)).copy())
+            steps.append((d0, x0, jws))
+    cost = torch.empty((D, H, W))
+    for p in range(D):
+        sim = torch.sum(FL * FR[p], dim=0)
+        cost[p] = scale * (1.0 - sim) * 0.5
+    cost = cost.numpy()
+    # the band's epilogue: passes of 64 planes into a tile whose rows are
+    # shifted by the global row's misalignment, then every plane row of the
+    # tile stored from there
+    out = np.full((D * H * W), np.nan, np.float32)
+    for d0, x0, jws in steps:
+        ncols = min(TW, W - x0)
+        for p0 in range(0, TW, 64):
+            st = np.full((H, 64 * 132), np.nan, np.float32)
+            for warp, jw in jws.items():
+                for n in range(MCCNN_FUSED_BAND_NT):
+                    for e in range(4):
+                        xl = 16 * warp + g + 8 * (e >> 1)
+                        j = jw + 8 * n + 2 * t + (e & 1)
+                        i = x0 + xl - j - d0
+                        ok = (i >= p0) & (i < p0 + 64)
+                        xl, j, i = xl[ok], j[ok], i[ok]
+                        sh = ((d0 + i)[None, :] * H + rows[:, None]) * W % 4
+                        val = np.where(
+                            j < 0, np.float32(1e4),
+                            cost[d0 + i, :, np.minimum(x0 + xl, W - 1)].T)
+                        np.put_along_axis(st, (i - p0) * 132 + xl + sh, val,
+                                          axis=1)
+            for i in range(64):
+                row = ((d0 + p0 + i) * H + rows) * W + x0
+                sh = row % 4
+                for v in range(33):
+                    for k in range(4):
+                        xl = 4 * v - sh + k
+                        ok = (xl >= 0) & (xl < ncols) & \
+                            (4 * v < ncols + sh)
+                        out[(row - sh + 4 * v + k)[ok]] = \
+                            st[rows[ok], i * 132 + 4 * v + k]
+    return torch.from_numpy(out.reshape(D, H, W))
 
 
 # -------------------------------------------------------- K10 census_scan ----

@@ -13,7 +13,9 @@ The matching path runs on the kernels of ``ops/cuda_kernels.py``: census
 words of both views (K1, one or more words) and the (D, H, W) Hamming
 volume (K2), or the plain torch sad, ssd or bt volume, or with
 ``costs.MCCNNCost`` the feature tower (K8, one launch per layer) and the
-feature-dot volume (K9); then one SGM scan per path direction added into
+feature-dot volume (K9), or at min_disparity 0 and D a multiple of 128 K8
+for the layers but the last and K11 (the last layer, its norm and the
+volume in one launch); then one SGM scan per path direction added into
 the total (K3, ``num_paths`` launches), WTA with subpixel, uniqueness and
 the disp12 check (K4); then, when configured, the speckle filter's label
 sweeps (K5) and component sizes (K6), and the WLS smoother's tridiagonal

@@ -13,9 +13,11 @@ speckle 100 through ``BlockMatcher``, and the 4-stage census-payload
 frames (12 stream steps after the fill) by CUDA events after 2 warm-up
 frames; MC-CNN fast and accurate also with the towers in bfloat16
 (``compute_dtype``; a tree whose ``MCCNNFeatures`` has none reports
-"not available"). Kernels: K1 ``census_words`` at KITTI (5x5 and 7x9) and
-720p (5x5) on the scenes; K8 ``mccnn_conv3x3`` a layer of each shipped
-tower (C_in = 1 and C_in = F, float32 and bfloat16) on the KITTI scene's
+"not available"), each with the peak device memory of one frame above
+what was allocated before it (``mccnn_frame_peak_bytes``). Kernels: K1
+``census_words`` at KITTI (5x5 and 7x9) and 720p (5x5) on the scenes;
+K8 ``mccnn_conv3x3`` a layer of each shipped tower (C_in = 1 and
+C_in = F, float32 and bfloat16) on the KITTI scene's
 activations, in bfloat16 in the storage the tree's module passes
 (bfloat16 channels-last where its wrapper takes ``bf16_out``, float32
 before), beside cuDNN on bfloat16 tensors (NCHW and channels-last) and
@@ -25,7 +27,9 @@ headline's volume and total: K2
 as ELAS launches it) and K4's ``wta_lr``, ``wta_stats`` and ``right_wta``
 (float32 and int16), and K9 ``mccnn_volume`` on the shipped towers'
 features of the scenes (KITTI D=128 at F=64 and F=112, 720p D=160 at
-F=64), each the mean of 64 calls captured in one CUDA graph, so no host
+F=64), and, in a tree that has it, K11 ``mccnn_fused_volume`` on each
+shipped tower's last-layer input at KITTI D=128 in float32 and
+bfloat16, each the mean of 64 calls captured in one CUDA graph, so no host
 time lies between the launches. The whole speckle
 filter (T=100, range 2), the mean of 20 calls by CUDA events (the filter
 of a tree that reads a flag on the host every sweep cannot be captured),
@@ -128,7 +132,7 @@ def _probe() -> dict:
                     for arch in towers}
     except TypeError:                  # a tree without compute_dtype
         towers16 = {}
-    out = {}
+    out, peak = {}, {}
     for arch, model in towers.items():
         for kind, m in (("", model), (" bf16", towers16.get(arch))):
             if m is None:
@@ -137,6 +141,13 @@ def _probe() -> dict:
             provider = MCCNNCost(m, mc_cfg)
             out[f"mccnn {arch}{kind}"] = ms(lambda: _match_core(
                 *kitti, mc_cfg, cost_fn=provider), 10)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+            _match_core(*kitti, mc_cfg, cost_fn=provider)
+            torch.cuda.synchronize()
+            peak[f"mccnn {arch}{kind}"] = \
+                torch.cuda.max_memory_allocated(dev) - before
     with torch.no_grad():
         feats = {(arch, where): towers[arch](torch.stack(
             [normalize_image(im) for im in pair]))
@@ -211,6 +222,15 @@ def _probe() -> dict:
         D = 128 if where == "KITTI" else 160
         kernels[f"mccnn_volume {where} D={D} F={f.shape[1]}"] = \
             lambda f=f, D=D: K.mccnn_volume(f[0], f[1], D)
+    if hasattr(K, "mccnn_fused_volume"):
+        norm_k = torch.stack([normalize_image(im) for im in kitti])
+        for arch in towers:
+            for kind, m in (("", towers[arch]), (" bf16", towers16[arch])):
+                i = m.num_layers - 1
+                args = (m.hidden(norm_k), m.weights[i], m.biases[i], 128,
+                        24.0, getattr(m, f"layout{i}"), bool(kind))
+                kernels[f"mccnn_fused_volume{kind} {arch} KITTI D=128"] = \
+                    lambda a=args: K.mccnn_fused_volume(*a)
     pairs = {"KITTI": torch.stack(kitti).contiguous(),
              "720p": torch.stack(p720).contiguous()}
     for where, window in (("KITTI", (5, 5)), ("KITTI", (7, 9)),
@@ -254,8 +274,9 @@ def _probe() -> dict:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    return {"ms_per_frame": out, "kernel_ms": kernel_ms,
-            "bound_ms": bounds, "speckle_filter": speckle, "card": card}
+    return {"ms_per_frame": out, "mccnn_frame_peak_bytes": peak,
+            "kernel_ms": kernel_ms, "bound_ms": bounds,
+            "speckle_filter": speckle, "card": card}
 
 
 def _layer_bounds(bounds: dict, name: str, x, w, bf16_store: bool) -> None:

@@ -870,6 +870,134 @@ def test_mccnn_matcher_on_card_matches_plain(dev, arch):
     assert share >= 0.995
 
 
+# ---------------------------------------------------------------- K11 ----
+
+def _bf16_ulp(v):
+    _, e = torch.frexp(v.abs())
+    return torch.where(v == 0, torch.zeros_like(v),
+                       torch.ldexp(torch.ones_like(v), e - 8))
+
+
+def _band_sums(pairs, D):
+    """(D, H, W): for each plane d, the sum over the (a, b) pairs of
+    sum_f a[f, y, x] b[f, y, x - d] where x >= d (0 elsewhere)."""
+    F, H, W = pairs[0][0].shape
+    out = torch.zeros((D, H, W), device=pairs[0][0].device)
+    for d in range(min(D, W)):
+        for a, b in pairs:
+            out[d, :, d:] += (a[:, :, d:] * b[:, :, :W - d]).sum(0)
+    return out
+
+
+def _k11_check(model, imgs, D, what, scale=24.0):
+    """K11 on the last layer's input of ``model``'s tower against K8's
+    last launch then K9 and against its plain version, each cell within
+    its bar (the module docstring; ``chip_smoke.py``'s ``k11_check``);
+    returns the bit-equal share."""
+    bf16 = model.compute_dtype == torch.bfloat16
+    i = model.num_layers - 1
+    x, w, b = model.hidden(imgs), model.weights[i], model.biases[i]
+    layout = getattr(model, f"layout{i}")
+    K.reset_launches()
+    got = K.mccnn_fused_volume(x, w, b, D, scale, layout, bf16)
+    torch.cuda.synchronize()
+    assert K.launches["mccnn_fused_volume"] == 1
+    f = K.mccnn_conv3x3(x, w, b, False, True, layout=layout, bf16=bf16)
+    two = K.mccnn_volume(f[0], f[1], D, 0, scale)
+    p = K.mccnn_conv3x3_plain(x, w, b, False, True, bf16)
+    want = K.mccnn_volume_plain(p[0], p[1], D, 0, scale)
+    bar_two = torch.full_like(got, 1e-4)
+    if bf16:
+        with K.fp32_cudnn():
+            pre = torch.nn.functional.conv2d(K.bf16_round(x.float()),
+                                             K.bf16_round(w), padding=1)
+        raw = K.mccnn_conv3x3_plain(x, w, b, False, False, bf16=True)
+        u = 2 * ((_bf16_ulp(pre) + _bf16_ulp(raw)) / torch.sqrt(
+            (raw * raw).sum(1, keepdim=True) + 1e-12) + 1e-6)
+        bar_two += scale / 2 * _band_sums(
+            [(u[0], f[1].abs()), (f[0].abs(), u[1]), (u[0], u[1])], D)
+    e = (f - p).abs()
+    bar_plain = bar_two + 1e-4 + scale / 2 * _band_sums(
+        [(e[0], p[1].abs()), (p[0].abs(), e[1]), (e[0], e[1])], D)
+    assert torch.equal(got == 1e4, two == 1e4)
+    assert torch.equal(got == 1e4, want == 1e4)
+    d_two, d_plain = (got - two).abs(), (got - want).abs()
+    equal = float((got == two).float().mean())
+    print(f"K11 {what}: max |K11 - (K8 -> K9)| = {float(d_two.max())}, "
+          f"{equal} bit-equal; max |K11 - plain| = {float(d_plain.max())}, "
+          f"at most {float((d_plain / bar_plain).max())} of its bar")
+    assert bool((d_two <= bar_two).all())
+    assert bool((d_plain <= bar_plain).all())
+    return equal
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("arch", ["fast", "accurate"])
+def test_mccnn_fused_volume_kernel(dev, arch, bf16):
+    """K11 at KITTI (1242x375, D = 128) on the shipped tower's last-layer
+    input."""
+    model = from_flax_params(load_default_params(arch), arch,
+                             torch.bfloat16 if bf16 else torch.float32)
+    model = model.to(dev)
+    gt = slanted_scene(*KITTI, 5.0, 90.0)
+    imgs = torch.stack([normalize_image(torch.from_numpy(im).to(dev))
+                        for im in random_dot_pair(*KITTI, gt, blur=1.0,
+                                                  seed=1)])
+    _k11_check(model, imgs, 128, f"{arch} bf16={bf16}")
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("F,L,H,W,D", [(64, 2, 53, 301, 256),
+                                       (112, 3, 7, 129, 128),
+                                       (32, 2, 3, 1000, 384),
+                                       (128, 2, 9, 77, 128)])
+def test_mccnn_fused_volume_kernel_shapes(dev, F, L, H, W, D, bf16):
+    """Odd widths (a partial last step, a frame narrower than a step),
+    several chunks of 128 planes, every F8 of K8 (32, 64, 112, 128), on a
+    tower from a seed."""
+    model = mccnn.make_model((F, L), torch.bfloat16 if bf16 else
+                             torch.float32, seed=F + L).to(dev)
+    imgs = torch.stack([normalize_image(im)
+                        for im in _images(H, W, dev, seed=F + W)])
+    _k11_check(model, imgs, D, f"F={F} L={L} {W}x{H} D={D} bf16={bf16}")
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_mccnn_fused_matcher_on_card(dev, bf16):
+    """At D = 128 and min_d 0 the matcher launches K8 for the layers but
+    the last and K11 once, no K9, and agrees with its plain path (K8's
+    plain layers, the plain volume) on at least 99.5 % of the pixels (99 %
+    in bfloat16, as phase 4d's bars)."""
+    gt = slanted_scene(64, 300, 4.0, 60.0)
+    left, right = random_dot_pair(64, 300, gt, blur=1.0, seed=13)
+    cfg = DisparityConfig(num_disparities=128, cost="mccnn",
+                          uniqueness_ratio=15, disp12_max_diff=1, wls=False,
+                          speckle_window_size=0)
+    model = from_flax_params(load_default_params("fast"), "fast",
+                             torch.bfloat16 if bf16 else torch.float32)
+    K.reset_launches()
+    raw, _ = StereoMatcher(cfg, cost_fn=MCCNNCost(model.to(dev), cfg),
+                           device=dev)(left, right)
+    counts = {k: v for k, v in K.launches.items() if v}
+    assert counts == {"mccnn_conv3x3": 3, "mccnn_fused_volume": 1,
+                      "sgm_path_scan": 8, "wta_lr": 1}
+    h = torch.stack([normalize_image(torch.from_numpy(im).to(dev))
+                     for im in (left, right)])[:, None]
+    for i in range(4):
+        h = K.mccnn_conv3x3_plain(h, model.weights[i], model.biases[i],
+                                  i < 3, i == 3, bf16)
+    vol = K.mccnn_volume_plain(h[0], h[1], 128)
+    total = K.aggregate_paths(vol, cfg.P1, cfg.P2, 8, K.sgm_path_scan_plain)
+    want = K.wta_lr_plain(total, 0, 15, 1)[0]
+    same_nan = torch.isnan(raw) == torch.isnan(want)
+    close = (raw - want).abs().nan_to_num(0.0) <= 0.01
+    share = float((same_nan & (close | torch.isnan(raw) |
+                               torch.isnan(want))).float().mean())
+    print(f"MC-CNN fast bf16={bf16} at D=128 on the card: {share} of the "
+          "pixels agree with the plain path")
+    assert share >= (0.99 if bf16 else 0.995)
+
+
 # ------------------------------- int16, transposed K2, carries, K4 entries --
 
 @pytest.mark.parametrize("H,W,D,min_d", [(36, 150, 64, 0), (24, 160, 128, 4),
