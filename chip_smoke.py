@@ -1971,11 +1971,18 @@ def main() -> int:
         bf16 = model.compute_dtype == torch.bfloat16
         i = model.num_layers - 1
         x = model.hidden(imgs)
+        # what the one-kernel path hands K11: the input channels-last (K8
+        # writes it so in float32 too), K11's copy of the weights
+        x_cl = model.hidden(imgs, channels_last=True)
+        check(torch.equal(x_cl, x) and x_cl.is_contiguous(
+            memory_format=torch.channels_last), f"K11 {what}: K8's "
+              "channels-last output differs from its NCHW one")
         w, b = model.weights[i], model.biases[i]
         layout = getattr(model, f"layout{i}")
         scale = 24.0
         K.reset_launches()
-        got = K.mccnn_fused_volume(x, w, b, D, scale, layout, bf16)
+        got = K.mccnn_fused_volume(x_cl, w, b, D, scale, model.layout_fused,
+                                   bf16)
         torch.cuda.synchronize()
         check(K.launches["mccnn_fused_volume"] == 1, f"K11 {what}: "
               f"launches {dict(K.launches)}")
@@ -2015,7 +2022,8 @@ def main() -> int:
               f"its bar against K8 -> K9 (max {e_two})")
         check(bool((d_plain <= bar_plain).all()), f"K11 {what}: a cell "
               f"past its bar against the plain version (max {e_plain})")
-        return e_plain, (x, w, b, D, scale, layout, bf16)
+        return e_plain, ((x_cl, w, b, D, scale, model.layout_fused, bf16),
+                         (x, layout))
 
     def agreement(a, b):
         """Share of pixels with the same NaN state and |diff| <= 0.01."""
@@ -3517,9 +3525,9 @@ def main() -> int:
             ms["mccnn_volume"], plain_ms["mccnn_volume"] = t, t_plain
     # K11 beside the two-kernel path it replaces (K8's last launch, then
     # K9), in turns, and its plain version, at KITTI D=128
-    k11_bound_ms = {}
-    for (arch, mode), args in k11_args.items():
-        x, w, b, D, scale, layout, bf16 = args
+    k11_bound_ms, k11_share = {}, {}
+    for (arch, mode), (args, (x, layout)) in k11_args.items():
+        _, w, b, D, scale, _, bf16 = args
 
         def two_kernel():
             f = K.mccnn_conv3x3(x, w, b, False, True, layout=layout,
@@ -3533,6 +3541,7 @@ def main() -> int:
             x, w, b, D, scale, bf16), 3)
         b_ms = k11_bound_ms[arch, mode] = k11_bound(x, w, D)
         t_k11, t_2k = sum(t) / 2, sum(t_two) / 2
+        k11_share[f"{arch} {mode}"] = b_ms[0] / t_k11
         print(f"[timing] mccnn_fused_volume {arch} {mode} {tuple(x.shape)} "
               f"{x.dtype} D={D}: K11 {t} ms, mean {t_k11}; K8 last layer + "
               f"K9 {t_two} ms, mean {t_2k}; plain {t_plain} ms; bound "
@@ -3540,6 +3549,8 @@ def main() -> int:
         if arch == "fast":
             key = "mccnn_fused_volume" + (" bf16" if bf16 else "")
             ms[key], plain_ms[key] = t_k11, t_plain
+    print(f"[timing] K11's share of k11_bound by tower and mode: "
+          f"{json.dumps(k11_share)} ({card})")
     ms["mccnn_conv3x3"] = tower_ms["fast"] / models["fast"].num_layers
     plain_ms["mccnn_conv3x3"] = tower_plain_ms["fast"] / \
         models["fast"].num_layers

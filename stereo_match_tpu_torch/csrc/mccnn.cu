@@ -42,10 +42,14 @@
 // floats a channel, F8 + 8 a weight row) keep the fragment reads free of
 // bank conflicts. The epilogue adds the bias, then applies ReLU, or the L2
 // norm: a pixel's channels lie in the four lanes of a quad (two shuffles)
-// and, where two warps share the row, in shared memory. (TF32 wgmma would
-// take A and B K-major from shared memory only; the NCHW halo tile is
-// M-major for a tap, so this first tensor-core form is mma.sync fed from
-// shared memory.)
+// and, where two warps share the row, in shared memory. (TF32 wgmma takes
+// B K-major from shared memory and A from registers or K-major shared
+// memory; the NCHW halo tile is M-major for a tap, so this body is
+// mma.sync fed from shared memory. The layer before K11 writes
+// channels-last (out_cl), and K11 reads it K-major, 8 B a lane, and runs
+// this arithmetic on wgmma, a zeroed partial a k8 step for F8 in halves of
+// at most 64, 1.4 times faster than this form in the same kernel
+// (PERF.md, Findings); K8 itself keeps this form.)
 //
 // C_in = 1 (the first layer): K = 9, so it is bound by the output write
 // (238 MB at F = 64), not by arithmetic, and stays on the FP32 pipes: a
@@ -153,6 +157,7 @@
 // row) keep the fragment reads and the epilogue's writes free of bank
 // conflicts.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -198,12 +203,15 @@ constexpr int kHaloSize = kHaloH * kHaloW;
 // lines. OUT_BF16 (the bfloat16 mode's layers before the last, no norm):
 // y is bfloat16 channels-last, (V, H, W, F), and the thread stores its
 // pixel's F contiguous channels, 16 B (8 channels) at a time where vec_out
-// (F a multiple of 8, y 16-B aligned), else 2 B at a time.
+// (F a multiple of 8, y 16-B aligned), else 2 B at a time. out_cl (float32,
+// when K11 reads the output): y is float32 channels-last, (V, H, W, F),
+// stored 16 B at a time where vec_out, else 4 B at a time.
 template <int FP, bool BF16, bool OUT_BF16>
 __global__ void __launch_bounds__(kConvThreads)
 conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ taps,
                const float* __restrict__ bias, void* __restrict__ y, int F,
-               int H, int W, int relu, int normalize, int vec_out) {
+               int H, int W, int relu, int normalize, int vec_out,
+               int out_cl) {
   __shared__ float xs[kHaloSize];                // [kHaloH][kHaloW]
   __shared__ __align__(16) float ws[9 * FP];     // [9][FP]
 
@@ -280,6 +288,26 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ taps,
     }
     return;
   }
+  if (out_cl) {
+    float* out =
+        static_cast<float*>(y) + (((size_t)view * H + gy) * W + gx) * F;
+#pragma unroll
+    for (int q = 0; q < FP / 4; ++q) {
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        v[k] = normalize ? acc[4 * q + k] / norm : acc[4 * q + k];
+      if (vec_out && 4 * q < F) {
+        *reinterpret_cast<float4*>(out + 4 * q) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      } else if (!vec_out) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (4 * q + k < F) out[4 * q + k] = v[k];
+      }
+    }
+    return;
+  }
   float* out = static_cast<float*>(y) + ((size_t)view * F * H + gy) * W + gx;
 #pragma unroll
   for (int f = 0; f < FP; ++f)
@@ -289,10 +317,11 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ taps,
 template <int FP, bool BF16, bool OUT_BF16>
 int launch_conv3x3(const float* x, const float* taps, const float* bias,
                    void* y, int V, int F, int H, int W, int relu,
-                   int normalize, int vec_out, cudaStream_t stream) {
+                   int normalize, int vec_out, int out_cl,
+                   cudaStream_t stream) {
   dim3 grid((W + kConvTW - 1) / kConvTW, (H + kConvTH - 1) / kConvTH, V);
   conv3x3_kernel<FP, BF16, OUT_BF16><<<grid, kConvThreads, 0, stream>>>(
-      x, taps, bias, y, F, H, W, relu, normalize, vec_out);
+      x, taps, bias, y, F, H, W, relu, normalize, vec_out, out_cl);
   return (int)cudaGetLastError();
 }
 
@@ -337,8 +366,13 @@ __device__ inline void mma_tf32(float* c, const uint32_t* a, uint32_t b0,
 
 // NT n8 tiles: the block covers F8 = 8 * NT output channels; NS warps
 // share a tile row, each taking NT / NS of the n8 tiles (more warps an SM
-// where one block fills it).
-template <int NT, int NS>
+// where one block fills it). CL: y is float32 channels-last, (V, H, W, F),
+// a lane's two channels of a pixel stored as one 8-B pair (F even), so a
+// warp's store is 32 contiguous bytes of each of 8 pixels, the sectors an
+// NCHW store writes; K11 reads it 32 B a pixel. (A template, so that the
+// NCHW layers keep their code: a run-time flag slowed them by 6 % at
+// F = 64, tools/frame_probe.py.)
+template <int NT, int NS, bool CL>
 __global__ void __launch_bounds__(kTcThreads * NS)
 conv3x3_tf32x3_kernel(const float* __restrict__ x,
                       const float* __restrict__ packed,
@@ -499,6 +533,28 @@ conv3x3_tf32x3_kernel(const float* __restrict__ x,
       const float norm = normalize ? sqrtf(ss[mt][half] + 1e-12f) : 1.f;
       const int gx = tx0 + mt * 16 + g + 8 * half;
       if (gy >= H || gx >= W) continue;
+      if (CL) {
+        float* ycl = y + (((size_t)view * H + gy) * W + gx) * F;
+#pragma unroll
+        for (int n = 0; n < NW; ++n) {
+          const int f0 = (nh * NW + n) * 8 + 2 * t;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float a = acc[mt][n][2 * half + e];
+            v[e] = normalize ? a / norm : a;
+          }
+          if (F % 2 == 0) {
+            if (f0 < F)
+              *reinterpret_cast<float2*>(ycl + f0) = make_float2(v[0], v[1]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (f0 + e < F) ycl[f0 + e] = v[e];
+          }
+        }
+        continue;
+      }
 #pragma unroll
       for (int n = 0; n < NW; ++n) {
 #pragma unroll
@@ -518,19 +574,19 @@ conv3x3_tf32x3_kernel(const float* __restrict__ x,
 template <int NT, int NS>
 int launch_tf32x3(const float* x, const float* packed, const float* bias,
                   float* y, int V, int C_in, int F, int H, int W, int relu,
-                  int normalize, cudaStream_t stream) {
+                  int normalize, int out_cl, cudaStream_t stream) {
   constexpr int FP = 8 * NT + 8;
   const size_t smem = 2 * (size_t)(kTcCC * kTcHaloPitch +
                                    2 * 9 * kTcCC * FP) * sizeof(float);
+  auto kernel = out_cl ? conv3x3_tf32x3_kernel<NT, NS, true>
+                       : conv3x3_tf32x3_kernel<NT, NS, false>;
   // The attribute belongs to the current device: set it at every launch.
   const cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_tf32x3_kernel<NT, NS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int C8 = (C_in + kTcCC - 1) / kTcCC * kTcCC;
   dim3 grid((W + kTcTW - 1) / kTcTW, (H + kTcTH - 1) / kTcTH, V);
-  conv3x3_tf32x3_kernel<NT, NS>
-      <<<grid, kTcThreads * NS, smem, stream>>>(
+  kernel<<<grid, kTcThreads * NS, smem, stream>>>(
       x, packed, bias, y, C_in, C8, F, H, W, relu, normalize);
   return (int)cudaGetLastError();
 }
@@ -1331,11 +1387,14 @@ int launch_volume(const float* fl, const float* fr, float* out, int F, int H,
 
 constexpr int kFvTW = 128;                  // columns a step: a tile a view
 constexpr int kFvPix = 2 * kFvTW;           // pixels a step: both views
-constexpr int kFvHalo = kFvTW + 2;          // a staged input row a view
-constexpr int kFvXView = kFvHalo + 2;       // float32 stage: a view's row
-constexpr int kFvXPitch = 2 * kFvXView;     // a channel: 264, 8 banks apart
+constexpr int kFvHalo = kFvTW + 2;          // staged pixels of a view's row
+constexpr int kFvBox = 136;                 // their slots: 4352 B, 256-B apart
+constexpr int kFvPixB = 32;                 // bytes of a staged pixel
 constexpr int kFvBandNT = 18;               // n8 tiles of an m16 tile's band
-constexpr int kFvPP = 64;                   // planes a pass of the epilogue
+constexpr int kFvNS = 2;                    // warps sharing a pixel's channels
+constexpr int kFvWarps = 16;
+constexpr int kFvThreads = 32 * kFvWarps;
+constexpr int kFvSmemMax = 232448;          // dynamic shared memory a block
 
 // Ablations of the probe entry (tools/k11_probe.py): each bit takes one
 // part of the kernel out, to split its time.
@@ -1344,33 +1403,274 @@ constexpr int kFvAblConv = 2;     // no products of the layer
 constexpr int kFvAblBand = 4;     // no products of the band
 constexpr int kFvAblStore = 8;    // no stores of the volume
 
-// Floats of shared memory: the right ring [F8][256]; the pixels' partial
-// sums of squares where two warps split F ([2][256]); and one region that
-// holds, in turn, the ST staging buffers of the layer, the left tile's
-// features [F8][128] from the layer's epilogue to the band, and a pass of
-// the volume's epilogue (kFvPP planes of 132). The features have no
-// padding: an XOR of the column by the channel's low two bits keeps the
-// band's reads free of bank conflicts.
-template <int NT, bool BF16, int ST, int ROWS>
-struct FusedShape {
+// Bytes of shared memory, from a 1024-B aligned base: the right ring
+// [P][F8][256] floats (P planes: up to F8 = 64 the features' TF32 hi and
+// lo, else the features); the pixels' partial sums of squares ([2][256],
+// where two warps share a pixel's channels); then a
+// region of ST staging buffers. A stage is one kernel row ky of KC input
+// channels (16 bfloat16 or 8 float32, 32 B a pixel): both views' 130
+// staged pixels, channels-last, each view's box 256-B aligned, and the
+// weights of its three taps (bfloat16: tap kx, output n, a 32-B row of 16
+// channels; float32: tap kx, part hi or lo, channel group q, output n, a
+// 16-B row of 4 channels, wgmma's core matrices). The tail, the left
+// tile's features [P][F8][128] and then the volume's tile (128 planes of
+// 132), lies from buffer 1 on (kTailAt = kStage) where that fits, so that
+// buffer 0 takes the next step's first stage while the band runs; else
+// from buffer 0. Then one mbarrier a buffer.
+template <int NT, bool BF16, int ST, bool PRE, int P>
+struct FvBytes {
   static constexpr int F8 = 8 * NT;
-  static constexpr int kRing = F8 * 2 * kFvTW;
-  static constexpr int kRed = 2 * kFvPix;
-  // ROWS kernel rows a stage: bfloat16, ROWS x 2 x 130 staged pixels and
-  // 3 ROWS x F8 weight rows of 48 B; float32, 8 channels x ROWS x 264
-  // (264 ROWS floats a channel: 8 or 24 banks apart) and 2 x 3 ROWS x 8
-  // weight rows of F8 + 8
-  static constexpr int kXPitch = ROWS * kFvXPitch;
-  static constexpr int kStage =
-      BF16 ? (2 * kFvHalo + 3 * F8) * ROWS * kBfPitch / 2
-           : kTcCC * kXPitch + 2 * 3 * ROWS * kTcCC * (F8 + 8);
-  static constexpr int kLeft = F8 * kFvTW;
-  static constexpr int kOut = kFvPP * kVolPO;
-  static constexpr int kU0 = ST * kStage > kLeft ? ST * kStage : kLeft;
-  static constexpr int kU = kU0 > kOut ? kU0 : kOut;
-  static constexpr int kFloats = kRing + kRed + kU;
-  static_assert(kStage % 4 == 0 && kRing % 4 == 0, "16-B aligned stages");
+  static constexpr int kWRow = BF16 ? 32 : 64;
+  static constexpr int kAct = 2 * kFvBox * kFvPixB;
+  static constexpr int kW = 3 * F8 * kWRow;
+  static constexpr int kStage = (kAct + kW + 1023) / 1024 * 1024;
+  static constexpr int kRing = P * F8 * 2 * kFvTW * 4;
+  static constexpr int kRed = kFvNS * kFvPix * 4;
+  static constexpr int kLeft = P * F8 * kFvTW * 4;
+  static constexpr int kOut = kFvTW * kVolPO * 4;
+  static constexpr int kTail = kLeft > kOut ? kLeft : kOut;
+  static constexpr int kTailAt = PRE ? kStage : 0;
+  static constexpr int kRegionAt = (kRing + kRed + 1023) / 1024 * 1024;
+  static constexpr int kRegion =
+      ST * kStage > kTailAt + kTail ? ST * kStage : kTailAt + kTail;
+  static constexpr int kBarsAt = kRegionAt + kRegion;
+  static constexpr int kBytes = kBarsAt + 8 * ST + 1024;   // + alignment
 };
+
+// The layout the launch takes: the prefetch of the next step's first
+// stage where its bytes fit.
+template <int NT, bool BF16, int ST, int P>
+struct FvShape
+    : FvBytes<NT, BF16, ST,
+              (FvBytes<NT, BF16, ST, true, P>::kBytes <= kFvSmemMax), P> {
+  static constexpr bool kPre =
+      FvBytes<NT, BF16, ST, true, P>::kBytes <= kFvSmemMax;
+  static_assert(FvBytes<NT, BF16, ST, kPre, P>::kBytes <= kFvSmemMax,
+                "K11's block fits an SM's shared memory");
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// A box of the tensor map (channels, x, y, view) into shared memory, its
+// bytes reported to bar; cells outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map,
+                                             uint64_t* bar, int c, int x,
+                                             int y, int v) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c),
+      "r"(x), "r"(y), "r"(v)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           unsigned bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (m64n32k8 TF32: 16 floats a thread) = A B, plus d unless scale_d is
+// 0; A from registers (a warp's 16 rows as mma.m16n8k8's A), B K-major
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,"
+      "%8,%9,%10,%11,%12,%13,%14,%15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (m64n56k8 TF32: 28 floats a thread) = A B, plus d unless scale_d is
+// 0; A from registers (a warp's 16 rows as mma.m16n8k8's A), B K-major
+__device__ __forceinline__ void wgmma_tf32_n56(float (&d)[28],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,"
+      "%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27"
+      "}, {%28, %29, %30, %31}, %32, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (m64n64k8 TF32: 32 floats a thread) = A B, plus d unless scale_d is
+// 0; A from registers (a warp's 16 rows as mma.m16n8k8's A), B K-major
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,"
+      "%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (m64n32k16 bf16: 16 floats a thread) = A B, plus d unless scale_d
+// is 0; A from registers (mma.m16n8k16's A), B K-major
+__device__ __forceinline__ void wgmma_bf16_n32(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,"
+      "%8,%9,%10,%11,%12,%13,%14,%15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (m64n56k16 bf16: 28 floats a thread) = A B, plus d unless scale_d
+// is 0; A from registers (mma.m16n8k16's A), B K-major
+__device__ __forceinline__ void wgmma_bf16_n56(float (&d)[28],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,"
+      "%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27"
+      "}, {%28, %29, %30, %31}, %32, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (m64n64k16 bf16: 32 floats a thread) = A B, plus d unless scale_d
+// is 0; A from registers (mma.m16n8k16's A), B K-major
+__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,"
+      "%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// a K-major B in TMA's 32-B swizzle (rows of 32 B, 8-row atoms of 256 B)
+__device__ __forceinline__ uint64_t wgmma_desc_sw32(unsigned addr) {
+  return wgmma_desc(addr, 16u, 256u) | (3ull << 62);
+}
+
+template <int NN>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[4 * NN],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  if constexpr (NN == 4) wgmma_bf16_n32(d, a, db, scale_d);
+  else if constexpr (NN == 7) wgmma_bf16_n56(d, a, db, scale_d);
+  else wgmma_bf16_n64(d, a, db, scale_d);
+}
+
+template <int NN>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[4 * NN],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  if constexpr (NN == 4) wgmma_tf32_n32(d, a, db, scale_d);
+  else if constexpr (NN == 7) wgmma_tf32_n56(d, a, db, scale_d);
+  else wgmma_tf32_n64(d, a, db, scale_d);
+}
 
 // K11 replaces, with K8 for the layers before it, mccnn_fused_volume_pallas
 // (stereo_match_tpu/ops/pallas_kernels.py: _mccnn_fused_kernel, its
@@ -1382,149 +1682,142 @@ struct FusedShape {
 // and the volume moved once (bf16 at F = 64: 119 + 238 MB, 0.107 ms) against
 // the layer's products plus the band's 3xTF32 ones, both on the tensor
 // cores (0.069 + 0.046 ms): 0.113 ms, operations (F = 112 bf16 0.289,
-// float32 0.460 and 1.351). Its design: the features of a step stay in
-// shared memory (one block an SM), the right view's in a ring walked with
-// the row so that each is computed once a chunk of planes; what holds it
-// is the layer's products and staging (every 256-pixel step restages the
-// weights, as K8's blocks do) and, in float32, the staging of NCHW input
-// rows by 4-byte copies (PERF.md, Findings).
+// float32 0.460 and 1.351). The first form (PERF.md, Findings) walked the
+// same steps on mma.sync and staged with every thread: in float32 NCHW
+// input rows 4 B at a time and the hi and lo weights 16 B at a time, one
+// buffer at F = 112, so staging cost 0.65 / 1.87 ms (F = 64 / 112) and
+// its float32 layer products (1.25 / 4.06 ms against a 3xTF32 bound of
+// 0.42 / 1.27) ran no faster than K8's; the volume's stores, by every warp
+// after the band, cost 0.12 ms in bfloat16. This design:
+//  - the input is channels-last in both modes (K8 writes it so when K11
+//    follows), a pixel's KC channels 32 B: one thread stages a view's row
+//    of a stage as one TMA box (zeros outside the frame and past C_in: the
+//    SAME and k padding), and the stage's weights, which K11's own copy
+//    (cuda_kernels.mccnn_fused_weight_layout) keeps contiguous a stage, as
+//    one bulk copy, both onto the buffer's mbarrier; ST buffers (three to
+//    six by F8) keep the next stages in flight, and the next step's first
+//    stage lands while the band runs;
+//  - the layer runs on wgmma: warpgroup w / 4 takes the m64 of four m16
+//    tiles, all of F8 (in halves of at most 64), A from registers (a
+//    warp's 16 pixels, as mma.sync's A: bfloat16 by ldmatrix; float32 one
+//    8-B read of two channels split as read, the k8 step's logical k = t,
+//    t + 4 being channel 2t, 2t + 1), B K-major from the stage by
+//    descriptors (bfloat16 rows of 32 B in TMA's 32-B swizzle, float32 hi
+//    and lo core matrices of 8 outputs by 16 B); each k step goes into a
+//    zeroed partial, waited for and added to the total in float32 (K8's
+//    rounded add a step; its k order differs, so the sums may differ from
+//    K8's by an ulp). On mma.sync the same layer took 1.2 (bfloat16) and
+//    1.4 (float32) times as long (tools/k11_probe.py);
+//  - up to F8 = 64 the features stay in shared memory as the band reads
+//    them, TF32 hi and lo in two planes, so the band splits nothing;
+//  - the volume's 128 planes of a step go to one shared tile and out by
+//    bulk stores (one a plane row, its ragged ends by the thread), which
+//    drain while the next step's layer runs.
 //
 // One row y of both views and one chunk of 128 planes (d0 = 128
 // blockIdx.x), walking the row's 128-column tiles left to right. A step:
 //  1. the last tower layer for the 256 pixels of the left tile x0 ... x0 +
-//     127 and the right tile x0 - d0 ... (K8's arithmetic: the same k steps
-//     in the same order, the same epilogue and the same split of each
-//     pixel's sum of squares over lanes and warps), its unit features
-//     written to shared memory: the left tile, and the right one into the
-//     ring slot of its columns (x & 255);
+//     127 and the right tile x0 - d0 ... (warp w: m16 tile w, all of F8),
+//     bias, each pixel's sum of squares over the quad, the norm, its unit
+//     features written to shared memory: the left tile, and the right one
+//     into the ring slot of its columns (x & 255), both XOR-swizzled by
+//     (f & 3) << 3;
 //  2. K9's Gram band on them: the m16 tile x0 + 16 m ... against the 18 n8
 //     tiles of the right window x0 - d0 - 127 + 16 m ... read from the ring
-//     (the previous step's tile and this one's), WARPS / 8 warps an m16
-//     tile, each cell the same three TF32 products a k8 step as K9's, then
-//     written as K9 writes it.
-// x: the last layer's input, bfloat16 channels-last (2, H, W, C_in), or
-// float32 (2, C_in, H, W); wl: K8's layout of the last layer's weights
-// for that mode, CK = C16 or C8 its padded input channels. MINB blocks an
-// SM, ROWS (1 or 3) kernel rows a stage.
-template <int NT, int NS, bool BF16, int WARPS, int ST, int MINB, int ROWS,
-          int ABL>
-__global__ void __launch_bounds__(32 * WARPS, MINB)
-mccnn_fused_volume_kernel(const void* __restrict__ x,
+//     (the previous step's tile and this one's), two warps an m16 tile,
+//     each cell three TF32 products a k8 step, as K9's;
+//  3. scale (1 - G) / 2, or 1e4 where x < d, into the tile, each plane row
+//     shifted by its global row's misalignment, then stored.
+// The probe entry also builds the mma.sync layer (WG false: two warps a
+// pixel's channels, m16 tiles 2 (w % 8) and + 1, their sums of squares
+// added in shared memory), thread stores (BULK false) and features split
+// as the band reads them (SP false).
+// xmap: the tensor map of the last layer's input (channels, W, H, 2);
+// wl: K11's copy of its weights; nst = 3 CK / KC stages a step.
+template <int NT, bool BF16, int ST, int ABL, bool BULK, bool WG, bool SP>
+__global__ void __launch_bounds__(kFvThreads, 1)
+mccnn_fused_volume_kernel(const __grid_constant__ CUtensorMap xmap,
                           const void* __restrict__ wl,
                           const float* __restrict__ bias,
-                          float* __restrict__ out, int C_in, int CK, int F,
-                          int H, int W, float scale) {
-  using S = FusedShape<NT, BF16, ST, ROWS>;
-  constexpr int THREADS = 32 * WARPS;
-  constexpr int XP = S::kXPitch;            // float32: a staged channel
+                          float* __restrict__ out, int nst, int F, int H,
+                          int W, float scale) {
+  using S = FvShape<NT, BF16, ST, SP ? 2 : 1>;
   constexpr int F8 = S::F8;
+  constexpr int kRP = F8 * 2 * kFvTW;      // the ring's lo plane
+  constexpr int kLP = F8 * kFvTW;          // the left tile's lo plane
+  constexpr int NS = WG ? 1 : kFvNS;        // warps sharing a pixel
   constexpr int NW = NT / NS;               // n8 tiles a warp
-  constexpr int RWARPS = WARPS / NS;        // warps along the pixels
+  constexpr int RWARPS = kFvWarps / NS;     // warps along the pixels
   constexpr int MT = 16 / RWARPS;           // m16 tiles a warp
-  constexpr int BW = WARPS / 8;             // warps an m16 tile's band
-  constexpr int BN = kFvBandNT / BW;        // n8 tiles of a band warp
-  constexpr int KC = BF16 ? kBfKC : kTcCC;  // input channels a stage
-  constexpr int FP = F8 + 8;                // float32 weight row pitch
-  static_assert(NT % NS == 0 && MT >= 1 && 8 % MT == 0 &&
-                kFvBandNT % BW == 0 && 3 % ROWS == 0,
-                "the warps tile the step, the stages the kernel rows");
-  static_assert(MINB * (S::kFloats * 4 + 1024) <= 233472,
-                "K11's blocks fit an SM's shared memory");
-  extern __shared__ __align__(16) float smem[];
-  float* rf = smem;                         // [F8][256], the ring
-  float* red = smem + S::kRing;             // [NS][256 pixels]
-  float* work = red + S::kRed;              // stages | left tile | st
-  float* lf = work;                         // [F8][128]
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  constexpr int BN = kFvBandNT / 2;         // n8 tiles of a band warp
+  constexpr int KC = BF16 ? 16 : 8;         // input channels a stage
+  static_assert(NT % NS == 0 && MT * RWARPS == 16,
+                "the warps tile the step");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  float* rf = reinterpret_cast<float*>(sm);  // the ring, [P][F8][256]
+  float* red = reinterpret_cast<float*>(sm + S::kRing);  // [2][256 pixels]
+  unsigned char* region = sm + S::kRegionAt;           // stages | tail
+  float* lf = reinterpret_cast<float*>(region + S::kTailAt);  // [P][F8][128]
+  float* st = lf;                           // the volume's tile, after
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + S::kBarsAt);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int g = lane >> 2;                  // mma groupID
   const int t = lane & 3;                   // thread in group
   const int nh = warp / RWARPS;             // this warp's share of F8
-  const int mw = warp % RWARPS;             // its m16 tiles mw MT ...
+  const int mw = warp % RWARPS;             // its m16 tiles MT mw, ...
   const int view = mw * MT >> 3;            // all in one view
   const int d0 = blockIdx.x * kFvTW;
   const int y = blockIdx.y;
   const int ntiles = (W + kFvTW - 1) / kFvTW;
-  const int nstages = CK / KC * (3 / ROWS);
   const int nk8 = (F + 7) >> 3;
 
+  if (tid == 0) {
+    for (int b = 0; b < ST; ++b) mbar_init(bars + b, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_proxy_async();
+  }
   // the ring's slot of the tile before the first: cells with j < 0 only
-  for (int i = threadIdx.x; i < S::kRing; i += THREADS) rf[i] = 0.f;
+  for (int i = tid; i < (SP ? 2 : 1) * kRP; i += kFvThreads) rf[i] = 0.f;
+  __syncthreads();
 
+  // stage s of the step at column x0 into buffer b (thread 0): kernel row
+  // ky = s % 3 of the channels KC (s / 3) ..., a box a view, and its
+  // three taps' weight rows
+  const CUtensorMap* map = &xmap;
+  auto issue = [&](int s, int b, int x0) {
+    uint64_t* bar = bars + b;
+    if (ABL & kFvAblStage) {
+      mbar_arrive(bar);
+      return;
+    }
+    unsigned char* buf = region + b * S::kStage;
+    mbar_expect_tx(bar, 2 * kFvHalo * kFvPixB + S::kW);
+    const int c = s / 3 * KC;
+    const int gy = y - 1 + s % 3;
+    tma_load_box(buf, map, bar, c, x0 - 1, gy, 0);
+    tma_load_box(buf + kFvBox * kFvPixB, map, bar, c, x0 - d0 - 1, gy,
+                 1);
+    bulk_load(buf + S::kAct, static_cast<const char*>(wl) + (size_t)s * S::kW,
+              S::kW, bar);
+  };
+
+  unsigned phases = 0;                      // each buffer's next parity
   for (int tl = 0; tl < ntiles; ++tl) {
     const int x0 = tl * kFvTW;
     const int xr0 = x0 - d0;                // this step's right tile
 
-    // stage s: channels (s / (3 / ROWS)) KC ... of the ROWS input rows
-    // from y - 1 + ky0 of both views (130 columns each, zero outside the
-    // frame and past C_in: the SAME and k padding) and the taps of those
-    // kernel rows, ky0 = s % (3 / ROWS) ROWS
-    auto stage = [&](int s, float* buf) {
-      if (ABL & kFvAblStage) return;
-      const int ky0 = s % (3 / ROWS) * ROWS;
-      const int c0 = s / (3 / ROWS) * KC;
-      if (BF16) {
-        // pixel p: row p / 260, view, column; 8 channels a 16-B copy
-        uint16_t* b16 = reinterpret_cast<uint16_t*>(buf);
-        const uint16_t* xv = static_cast<const uint16_t*>(x);
-        for (int i = threadIdx.x; i < ROWS * 2 * kFvHalo * 2;
-             i += THREADS) {
-          const int p = i >> 1;
-          const int r = p / (2 * kFvHalo);
-          const int pv = p - r * 2 * kFvHalo;
-          const int v = pv >= kFvHalo;
-          const int gy = y - 1 + ky0 + r;
-          const int gx = (v ? xr0 : x0) + pv - v * kFvHalo - 1;
-          const int c = c0 + 8 * (i & 1);
-          const bool ok = gy >= 0 && gy < H && c < C_in && gx >= 0 && gx < W;
-          cp_async16_zfill(b16 + p * kBfPitch + 8 * (i & 1),
-                           ok ? xv + (((size_t)v * H + gy) * W + gx) * C_in +
-                                    c
-                              : xv,
-                           ok ? 16 : 0);
-        }
-        // weight rows (tap, output): the taps 3 ky0 ... 3 (ky0 + ROWS) - 1
-        uint16_t* wb = b16 + ROWS * 2 * kFvHalo * kBfPitch;
-        const uint16_t* wv = static_cast<const uint16_t*>(wl) +
-                             (size_t)3 * ky0 * F8 * CK + c0;
-        for (int i = threadIdx.x; i < 3 * ROWS * F8 * 2; i += THREADS)
-          cp_async16_zfill(wb + (i >> 1) * kBfPitch + 8 * (i & 1),
-                           wv + (size_t)(i >> 1) * CK + 8 * (i & 1), 16);
-      } else {
-        const float* xv = static_cast<const float*>(x);
-        for (int i = threadIdx.x; i < kTcCC * ROWS * 2 * kFvHalo;
-             i += THREADS) {
-          const int ci = i / (ROWS * 2 * kFvHalo);
-          const int p = i - ci * ROWS * 2 * kFvHalo;
-          const int r = p / (2 * kFvHalo);
-          const int pv = p - r * 2 * kFvHalo;
-          const int v = pv >= kFvHalo;
-          const int hx = pv - v * kFvHalo;
-          const int gy = y - 1 + ky0 + r;
-          const int gx = (v ? xr0 : x0) + hx - 1;
-          const bool ok = gy >= 0 && gy < H && c0 + ci < C_in && gx >= 0 &&
-                          gx < W;
-          cp_async4_zfill(
-              buf + ci * XP + r * kFvXPitch + v * kFvXView + hx,
-              ok ? xv + (((size_t)v * C_in + c0 + ci) * H + gy) * W + gx : xv,
-              ok ? 4 : 0);
-        }
-        // weight rows (part, tap, ci) of F8 floats, 16 B at a time
-        float* wb = buf + kTcCC * XP;
-        const float* pk = static_cast<const float*>(wl);
-        for (int i = threadIdx.x; i < 2 * 3 * ROWS * kTcCC * (F8 / 4);
-             i += THREADS) {
-          const int r = i / (F8 / 4);
-          const int q = i - r * (F8 / 4);
-          const int part = r / (3 * ROWS * kTcCC);
-          const int tap = (r - part * 3 * ROWS * kTcCC) / kTcCC;
-          const int ci = r - part * 3 * ROWS * kTcCC - tap * kTcCC;
-          cp_async16(wb + r * FP + q * 4,
-                     pk + ((size_t)(part * 9 + 3 * ky0 + tap) * CK + c0 +
-                           ci) * F8 + q * 4);
-        }
-      }
-    };
+    // the tail held the last step's tile: its stores have read it
+    if (BULK && tid < kFvTW)
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0)
+      for (int s = S::kPre && tl > 0 ? 1 : 0; s < min(ST, nst); ++s)
+        issue(s, s, x0);
 
     float acc[MT][NW][4];
 #pragma unroll
@@ -1534,55 +1827,117 @@ mccnn_fused_volume_kernel(const void* __restrict__ x,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
 
-    // ST buffers: stage s + ST - 1 is copied while stage s is multiplied
-#pragma unroll
-    for (int s = 0; s < ST - 1; ++s) {
-      if (s < nstages) stage(s, work + s * S::kStage);
-      asm volatile("cp.async.commit_group;\n" ::);
-    }
-    for (int s = 0; s < nstages; ++s) {
-      if (s + ST - 1 < nstages)
-        stage(s + ST - 1, work + (s + ST - 1) % ST * S::kStage);
-      asm volatile("cp.async.commit_group;\n" ::);
-      asm volatile("cp.async.wait_group %0;\n" ::"n"(ST - 1));
-      __syncthreads();                      // stage s has landed
-      const float* buf = work + s % ST * S::kStage;
+    for (int s = 0; s < nst; ++s) {
+      const int b = s % ST;
+      if (tid == 0 && s > 0 && s + ST - 1 < nst)
+        issue(s + ST - 1, (s + ST - 1) % ST, x0);
+      mbar_wait(bars + b, (phases >> b) & 1u);
+      phases ^= 1u << b;
+      const unsigned char* buf = region + b * S::kStage;
       if (ABL & kFvAblConv) {
-      } else if (BF16) {
-        // K8's bfloat16 body: A by ldmatrix.x4 (a lane's row one pixel's
-        // 8 channels), B two n8 tiles at a time, each k16 step into a
-        // zeroed accumulator added to the total with a rounded add
-        const unsigned base = (unsigned)__cvta_generic_to_shared(buf);
-        const unsigned a_lane =
-            (view * kFvHalo + (lane & 15)) * kBfPitch + 8 * (lane >> 4);
-        const unsigned b_lane =
-            (ROWS * 2 * kFvHalo + nh * NW * 8 + 8 * (lane >> 4) +
-             (lane & 7)) * kBfPitch + 8 * ((lane >> 3) & 1);
+      } else if (WG && BF16) {
+        // bfloat16 on wgmma (probe only): A by ldmatrix as the mma.sync
+        // body's (a warp's 16 pixels), B K-major from the stage's weight
+        // rows (32 B, TMA's 32-B swizzle), F8 in NH halves; each k16 step
+        // into a zeroed partial accumulator, added with a rounded add
+        constexpr int NH = NT > 8 ? 2 : 1;
+        constexpr int NN = NT / NH;
+        const unsigned base = smem_u32(buf);
+#pragma unroll (BF16 ? 3 : 1)
+        for (int kx = 0; kx < 3; ++kx) {
+          uint32_t a[4];
+          const int p = 16 * (warp & 7) + kx + (lane & 15);
+          ldmatrix_x4(a, base + (view * kFvBox + p) * kFvPixB +
+                             (((lane >> 4) ^ (p >> 2)) & 1) * 16);
 #pragma unroll
-        for (int tap = 0; tap < 3 * ROWS; ++tap) {
-          const int r = tap / 3;
-          const int kx = tap - 3 * r;
+          for (int h = 0; h < NH; ++h) {
+            float part[4 * NN];
+            const uint64_t db = wgmma_desc_sw32(
+                base + S::kAct + 32u * (kx * F8 + h * 8 * NN));
+            asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+            wgmma_bf16<NN>(part, a, db, 0);
+            asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+            asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+            for (int j = 0; j < NN; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[0][h * NN + j][e] += part[4 * j + e];
+          }
+        }
+      } else if (WG) {
+        // 3xTF32 on wgmma (probe only): warpgroup warp / 4 the m64 of its
+        // four m16 tiles, A from registers (a warp's 16 pixels, split as
+        // read, as the mma.sync body's), B (hi, lo) K-major from the
+        // stage, F8 in NH halves; each k8 step into a zeroed partial
+        // accumulator, added to the total
+        constexpr int NH = NT > 8 ? 2 : 1;
+        constexpr int NN = NT / NH;         // n8 tiles a half
+        const float* act = reinterpret_cast<const float*>(buf);
+        const unsigned wb = smem_u32(buf + S::kAct);
+#pragma unroll 1
+        for (int kx = 0; kx < 3; ++kx) {
+          uint32_t ah[4], al[4];
+          const int p = view * kFvBox + 16 * (warp & 7) + kx + g;
+          const float2 u = *reinterpret_cast<const float2*>(act + p * 8 +
+                                                            2 * t);
+          const float2 v = *reinterpret_cast<const float2*>(
+              act + (p + 8) * 8 + 2 * t);
+          split_tf32(u.x, ah[0], al[0]);
+          split_tf32(v.x, ah[1], al[1]);
+          split_tf32(u.y, ah[2], al[2]);
+          split_tf32(v.y, ah[3], al[3]);
+#pragma unroll
+          for (int h = 0; h < NH; ++h) {
+            float part[4 * NN];
+            const unsigned rows = 16u * (h * 8 * NN);
+            const uint64_t dh = wgmma_desc(
+                wb + 16u * ((kx * 2 + 0) * 2 * F8) + rows, 16u * F8, 128u);
+            const uint64_t dl = wgmma_desc(
+                wb + 16u * ((kx * 2 + 1) * 2 * F8) + rows, 16u * F8, 128u);
+            asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+            wgmma_tf32<NN>(part, al, dh, 0);
+            wgmma_tf32<NN>(part, ah, dl, 1);
+            wgmma_tf32<NN>(part, ah, dh, 1);
+            asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+            asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+            for (int j = 0; j < NN; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[0][h * NN + j][e] += part[4 * j + e];
+          }
+        }
+      } else if (BF16) {
+        // A by ldmatrix.x4: lane row pixel lane & 15 of the m16 tile, its
+        // channels 8 (lane >> 4) ...; B two n8 tiles at a time; each k16
+        // step into a zeroed accumulator added with a rounded add
+        const unsigned base = smem_u32(buf);
+#pragma unroll (BF16 ? 3 : 1)
+        for (int kx = 0; kx < 3; ++kx) {
           uint32_t a[MT][4];
 #pragma unroll
-          for (int m = 0; m < MT; ++m)
-            ldmatrix_x4(a[m], base + 2u * (a_lane +
-                                           (r * 2 * kFvHalo +
-                                            16 * ((mw * MT + m) & 7) + kx) *
-                                               kBfPitch));
+          for (int m = 0; m < MT; ++m) {
+            const int p = 16 * ((mw * MT + m) & 7) + kx + (lane & 15);
+            ldmatrix_x4(a[m], base + (view * kFvBox + p) * kFvPixB +
+                                  (((lane >> 4) ^ (p >> 2)) & 1) * 16);
+          }
 #pragma unroll
           for (int n = 0; n < NW; n += 2) {
-            uint32_t b[4];
-            const unsigned addr =
-                base + 2u * (b_lane + (tap * F8 + 8 * n) * kBfPitch);
-            if (n + 1 < NW) ldmatrix_x4(b, addr);
-            else ldmatrix_x2(b, addr);
+            uint32_t bw[4];
+            const int r = kx * F8 + (nh * NW + n) * 8 + 8 * (lane >> 4) +
+                          (lane & 7);
+            const unsigned addr = base + S::kAct + r * 32 +
+                                  ((((lane >> 3) ^ (r >> 2)) & 1) * 16);
+            if (n + 1 < NW) ldmatrix_x4(bw, addr);
+            else ldmatrix_x2(bw, addr);
 #pragma unroll
             for (int m = 0; m < MT; ++m) {
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
                 if (n + h >= NW) continue;
                 float p[4];
-                mma_bf16_zero(p, a[m], b[2 * h], b[2 * h + 1]);
+                mma_bf16_zero(p, a[m], bw[2 * h], bw[2 * h + 1]);
 #pragma unroll
                 for (int e = 0; e < 4; ++e) acc[m][n + h][e] += p[e];
               }
@@ -1590,32 +1945,34 @@ mccnn_fused_volume_kernel(const void* __restrict__ x,
           }
         }
       } else {
-        // K8's 3xTF32 body: each operand split by cvt.rna, lo*hi + hi*lo
-        // + hi*hi in a zeroed accumulator, added to the total
-#pragma unroll
-        for (int tap = 0; tap < 3 * ROWS; ++tap) {
-          const int r = tap / 3;
-          const int kx = tap - 3 * r;
+        // 3xTF32: a lane's A, pixels g and g + 8 at channels 2t, 2t + 1
+        // (k = t, t + 4), each split as read; its B, hi and lo of those
+        // channels for output g, one 16-B word; lo*hi + hi*lo + hi*hi in
+        // a zeroed accumulator, added to the total
+        const float* act = reinterpret_cast<const float*>(buf);
+        const float4* wt = reinterpret_cast<const float4*>(buf + S::kAct);
+#pragma unroll (BF16 ? 3 : 1)
+        for (int kx = 0; kx < 3; ++kx) {
           uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
           for (int m = 0; m < MT; ++m) {
-            const float* a = buf + t * XP + r * kFvXPitch +
-                             view * kFvXView + 16 * ((mw * MT + m) & 7) + g +
-                             kx;
-            split_tf32(a[0], ah[m][0], al[m][0]);
-            split_tf32(a[8], ah[m][1], al[m][1]);
-            split_tf32(a[4 * XP], ah[m][2], al[m][2]);
-            split_tf32(a[4 * XP + 8], ah[m][3], al[m][3]);
+            const int p = view * kFvBox + 16 * ((mw * MT + m) & 7) + kx + g;
+            const float2 u = *reinterpret_cast<const float2*>(act + p * 8 +
+                                                              2 * t);
+            const float2 v = *reinterpret_cast<const float2*>(
+                act + (p + 8) * 8 + 2 * t);
+            split_tf32(u.x, ah[m][0], al[m][0]);
+            split_tf32(v.x, ah[m][1], al[m][1]);
+            split_tf32(u.y, ah[m][2], al[m][2]);
+            split_tf32(v.y, ah[m][3], al[m][3]);
           }
-          const float* whi = buf + kTcCC * XP + (tap * kTcCC + t) * FP +
-                             nh * NW * 8 + g;
-          const float* wlo = whi + 3 * ROWS * kTcCC * FP;
 #pragma unroll
           for (int n = 0; n < NW; ++n) {
-            const uint32_t bh0 = __float_as_uint(whi[n * 8]);
-            const uint32_t bh1 = __float_as_uint(whi[4 * FP + n * 8]);
-            const uint32_t bl0 = __float_as_uint(wlo[n * 8]);
-            const uint32_t bl1 = __float_as_uint(wlo[4 * FP + n * 8]);
+            const float4 w4 = wt[(kx * F8 + (nh * NW + n) * 8 + g) * 4 + t];
+            const uint32_t bh0 = __float_as_uint(w4.x);
+            const uint32_t bh1 = __float_as_uint(w4.y);
+            const uint32_t bl0 = __float_as_uint(w4.z);
+            const uint32_t bl1 = __float_as_uint(w4.w);
 #pragma unroll
             for (int m = 0; m < MT; ++m) {
               float part[4] = {0.f, 0.f, 0.f, 0.f};
@@ -1628,15 +1985,17 @@ mccnn_fused_volume_kernel(const void* __restrict__ x,
           }
         }
       }
-      __syncthreads();                      // stage s may be overwritten
+      __syncthreads();                      // buffer b may be overwritten
     }
+    // the next step's first stage lands while this one's band runs
+    if (S::kPre && tid == 0 && tl + 1 < ntiles) issue(0, 0, x0 + kFvTW);
 
     // K8's epilogue for the last layer: c0, c1 of m16 tile m are pixel
     // g, channels 2t, 2t + 1; c2, c3 pixel g + 8. Bias (in bfloat16 the
     // sum rounded, the rounded bias added and rounded again), then each
-    // pixel's sum of squares in K8's order: this lane's channels n by n,
-    // the quad's lanes by two shuffles, the NS warps' sums in shared
-    // memory; then the division by sqrt(sum + 1e-12).
+    // pixel's sum of squares: this lane's channels n by n, the quad's
+    // lanes by two shuffles, the two warps' sums in shared memory; then the
+    // division by sqrt(sum + 1e-12).
     float ss[MT][2];
 #pragma unroll
     for (int m = 0; m < MT; ++m) ss[m][0] = ss[m][1] = 0.f;
@@ -1663,31 +2022,17 @@ mccnn_fused_volume_kernel(const void* __restrict__ x,
       for (int half = 0; half < 2; ++half) {
         ss[m][half] += __shfl_xor_sync(0xffffffffu, ss[m][half], 1);
         ss[m][half] += __shfl_xor_sync(0xffffffffu, ss[m][half], 2);
+        if (NS > 1 && t == 0)
+          red[nh * kFvPix + (mw * MT + m) * 16 + g + 8 * half] = ss[m][half];
       }
-    if (NS > 1) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int half = 0; half < 2; ++half)
-          if (t == 0)
-            red[nh * kFvPix + (mw * MT + m) * 16 + g + 8 * half] =
-                ss[m][half];
-      __syncthreads();
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          float sum = 0.f;
-          for (int h = 0; h < NS; ++h)
-            sum += red[h * kFvPix + (mw * MT + m) * 16 + g + 8 * half];
-          ss[m][half] = sum;
-        }
-    }
+    __syncthreads();
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const float norm = sqrtf(ss[m][half] + 1e-12f);
+        const int px = (mw * MT + m) * 16 + g + 8 * half;
+        const float norm = sqrtf(
+            (NS > 1 ? red[px] + red[kFvPix + px] : ss[m][half]) + 1e-12f);
         const int col = 16 * ((mw * MT + m) & 7) + g + 8 * half;
 #pragma unroll
         for (int n = 0; n < NW; ++n) {
@@ -1697,10 +2042,18 @@ mccnn_fused_volume_kernel(const void* __restrict__ x,
             if (f >= F) continue;
             const float v = acc[m][n][2 * half + e] / norm;
             const int swz = (f & 3) << 3;
-            if (view == 0)
-              lf[f * kFvTW + (col ^ swz)] = v;
-            else
-              rf[f * 2 * kFvTW + (((xr0 + col) & 255) ^ swz)] = v;
+            float* dst = view == 0
+                             ? lf + f * kFvTW + (col ^ swz)
+                             : rf + f * 2 * kFvTW + (((xr0 + col) & 255) ^
+                                                     swz);
+            if (SP) {                       // the band's TF32 hi and lo
+              uint32_t hi, lo;
+              tf32_pair(v, hi, lo);
+              dst[0] = __uint_as_float(hi);
+              dst[view == 0 ? kLP : kRP] = __uint_as_float(lo);
+            } else {
+              dst[0] = v;
+            }
           }
         }
       }
@@ -1727,19 +2080,32 @@ mccnn_fused_volume_kernel(const void* __restrict__ x,
       for (int k = 0; k < 8 * nk8; k += 8) {
         uint32_t ah[4], al[4];
         const float* a = lf + (k + t) * kFvTW;
-        tf32_pair(a[ca0], ah[0], al[0]);
-        tf32_pair(a[ca1], ah[1], al[1]);
-        tf32_pair(a[4 * kFvTW + ca0], ah[2], al[2]);
-        tf32_pair(a[4 * kFvTW + ca1], ah[3], al[3]);
-        const float* b = rf + (k + t) * 2 * kFvTW;
+        const int ao[4] = {ca0, ca1, 4 * kFvTW + ca0, 4 * kFvTW + ca1};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (SP) {
+            ah[r] = __float_as_uint(a[ao[r]]);
+            al[r] = __float_as_uint(a[kLP + ao[r]]);
+          } else {
+            tf32_pair(a[ao[r]], ah[r], al[r]);
+          }
+        }
+        const float* bp = rf + (k + t) * 2 * kFvTW;
 #pragma unroll
         for (int n = 0; n < BN; ++n) {
           const int j0 = jw + 8 * (nb0 + n);
           if (!full && (j0 + 7 < 0 || j0 >= W)) continue;
           const int cb = ((j0 + g) & 255) ^ swz;
           uint32_t bh0, bl0, bh1, bl1;
-          tf32_pair(b[cb], bh0, bl0);
-          tf32_pair(b[4 * 2 * kFvTW + cb], bh1, bl1);
+          if (SP) {
+            bh0 = __float_as_uint(bp[cb]);
+            bl0 = __float_as_uint(bp[kRP + cb]);
+            bh1 = __float_as_uint(bp[4 * 2 * kFvTW + cb]);
+            bl1 = __float_as_uint(bp[kRP + 4 * 2 * kFvTW + cb]);
+          } else {
+            tf32_pair(bp[cb], bh0, bl0);
+            tf32_pair(bp[4 * 2 * kFvTW + cb], bh1, bl1);
+          }
           mma_tf32(band[n], al, bh0, bh1);
           mma_tf32(band[n], ah, bl0, bl1);
           mma_tf32(band[n], ah, bh0, bh1);
@@ -1748,32 +2114,50 @@ mccnn_fused_volume_kernel(const void* __restrict__ x,
     }
     __syncthreads();                        // the left tile is read
 
-    // K9's epilogue in passes of kFvPP planes: c0, c1 are column xa + g,
-    // j = jw + 8 n + 2t, + 1; c2, c3 column xa + g + 8; plane i = x - j -
-    // d0, its row in `st` shifted by the global row's misalignment
-    float* st = work;
-    for (int p0 = 0; p0 < kFvTW; p0 += kFvPP) {
-      if (busy) {
+    // K9's epilogue: c0, c1 are column xa + g, j = jw + 8 n + 2t, + 1; c2,
+    // c3 column xa + g + 8; plane i = x - j - d0, its row in the tile
+    // shifted by the global row's misalignment
+    if (busy) {
 #pragma unroll
-        for (int n = 0; n < BN; ++n) {
+      for (int n = 0; n < BN; ++n) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int xl = 16 * mb + g + 8 * (e >> 1);
-            const int j = jw + 8 * (nb0 + n) + 2 * t + (e & 1);
-            const int i = x0 + xl - j - d0;
-            if (i >= p0 && i < p0 + kFvPP) {
-              const unsigned sh =
-                  (((unsigned)(d0 + i) * (unsigned)H + y) * (unsigned)W) &
-                  3u;
-              st[(i - p0) * kVolPO + xl + sh] =
-                  j < 0 ? kInvalid : scale * (1.f - band[n][e]) * 0.5f;
-            }
+        for (int e = 0; e < 4; ++e) {
+          const int xl = 16 * mb + g + 8 * (e >> 1);
+          const int j = jw + 8 * (nb0 + n) + 2 * t + (e & 1);
+          const int i = x0 + xl - j - d0;
+          if (i >= 0 && i < kFvTW) {
+            const unsigned sh =
+                (((unsigned)(d0 + i) * (unsigned)H + y) * (unsigned)W) & 3u;
+            st[i * kVolPO + xl + sh] =
+                j < 0 ? kInvalid : scale * (1.f - band[n][e]) * 0.5f;
           }
         }
       }
-      __syncthreads();
-      for (int i = warp; i < kFvPP && !(ABL & kFvAblStore); i += WARPS) {
-        const size_t row = ((size_t)(d0 + p0 + i) * H + y) * W + x0;
+    }
+    fence_proxy_async();                    // the tile, for bulk stores
+    __syncthreads();
+    if (ABL & kFvAblStore) {
+    } else if (BULK) {
+      // plane row i by thread i: its 16-B aligned middle by one bulk
+      // store, the ends (at most 3 cells each) by the thread
+      if (tid < kFvTW) {
+        const size_t row = ((size_t)(d0 + tid) * H + y) * W + x0;
+        const float* src = st + tid * kVolPO + (int)(row & 3);  // column 0
+        const size_t a = (row + 3) & ~(size_t)3;
+        const size_t e = (row + ncols) & ~(size_t)3;
+        size_t head = row + ncols, tail = head;
+        if (e > a) {
+          bulk_store(out + a, src + (a - row), (unsigned)(e - a) * 4u);
+          head = a;
+          tail = e;
+        }
+        for (size_t q = row; q < head; ++q) out[q] = src[q - row];
+        for (size_t q = tail; q < row + ncols; ++q) out[q] = src[q - row];
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    } else {
+      for (int i = warp; i < kFvTW; i += kFvWarps) {
+        const size_t row = ((size_t)(d0 + i) * H + y) * W + x0;
         const int sh = (int)(row & 3);
         float* dst = out + (row - sh);      // 16-B aligned
         const float* src = st + i * kVolPO;
@@ -1791,61 +2175,101 @@ mccnn_fused_volume_kernel(const void* __restrict__ x,
           }
         }
       }
-      __syncthreads();                      // st is free again
     }
   }
+  if (BULK && tid < kFvTW)
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-template <int NT, int NS, bool BF16, int WARPS, int ST, int MINB, int ROWS,
-          int ABL>
+// cuTensorMapEncodeTiled, looked up at run time through
+// cudaGetDriverEntryPoint (no -lcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// The tensor map of K11's input, channels-last (2, H, W, C): boxes of KC
+// channels by 130 pixels of one row of one view; bfloat16 with TMA's 32-B
+// swizzle (16-B half h of staged pixel p at h ^ (bit 2 of p)).
+int fused_input_map(CUtensorMap* map, const void* x, bool bf16, int C, int H,
+                    int W) {
+  static EncodeTiledFn encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || !fn)
+      return (int)cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  const cuuint64_t es = bf16 ? 2 : 4;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              2};
+  const cuuint64_t strides[3] = {C * es, W * C * es, H * W * C * es};
+  const cuuint32_t box[4] = {bf16 ? 16u : 8u, (cuuint32_t)kFvHalo, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      4, const_cast<void*>(x), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      bf16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int NT, bool BF16, int ST, int ABL, bool BULK, bool WG, bool SP>
 int launch_fused(const void* x, const void* layout, const float* bias,
                  float* out, int C_in, int F, int H, int W, int D,
                  float scale, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)FusedShape<NT, BF16, ST, ROWS>::kFloats * sizeof(float);
+  CUtensorMap map;
+  const int code = fused_input_map(&map, x, BF16, C_in, H, W);
+  if (code) return code;
+  const size_t smem = FvShape<NT, BF16, ST, SP ? 2 : 1>::kBytes;
   auto kernel =
-      mccnn_fused_volume_kernel<NT, NS, BF16, WARPS, ST, MINB, ROWS, ABL>;
+      mccnn_fused_volume_kernel<NT, BF16, ST, ABL, BULK, WG, SP>;
   // The attribute belongs to the current device: set it at every launch.
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int KC = BF16 ? kBfKC : kTcCC;
-  const int CK = (C_in + KC - 1) / KC * KC;
+  const int KC = BF16 ? 16 : 8;
+  const int nst = 3 * ((C_in + KC - 1) / KC);
   dim3 grid(D / kFvTW, H);
-  kernel<<<grid, 32 * WARPS, smem, stream>>>(x, layout, bias, out, C_in, CK,
-                                             F, H, W, scale);
+  kernel<<<grid, kFvThreads, smem, stream>>>(map, layout, bias, out, nst, F,
+                                             H, W, scale);
   return (int)cudaGetLastError();
 }
 
+bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
 // One K8 layer in float32: the body chosen by C_in, the tile of output
-// channels by F.
+// channels by F; out_cl: y float32 channels-last (V, H, W, F).
 int conv3x3(const float* x, const float* layout, const float* bias, float* y,
             int V, int C_in, int F, int H, int W, int relu, int normalize,
-            cudaStream_t st) {
+            int out_cl, cudaStream_t st) {
+#define SMT_TF32X3(NT, NS)                                                 \
+  return launch_tf32x3<NT, NS>(x, layout, bias, y, V, C_in, F, H, W, relu, \
+                               normalize, out_cl, st);
   if (C_in > 1) {
-    if (F <= 32)
-      return launch_tf32x3<4, 1>(x, layout, bias, y, V, C_in, F, H, W, relu,
-                                 normalize, st);
-    if (F <= 64)
-      return launch_tf32x3<8, 1>(x, layout, bias, y, V, C_in, F, H, W, relu,
-                                 normalize, st);
-    if (F <= 112)
-      return launch_tf32x3<14, 2>(x, layout, bias, y, V, C_in, F, H, W, relu,
-                                  normalize, st);
-    return launch_tf32x3<16, 2>(x, layout, bias, y, V, C_in, F, H, W, relu,
-                                normalize, st);
+    if (F <= 32) SMT_TF32X3(4, 1)
+    if (F <= 64) SMT_TF32X3(8, 1)
+    if (F <= 112) SMT_TF32X3(14, 2)
+    SMT_TF32X3(16, 2)
   }
-  if (F <= 32)
-    return launch_conv3x3<32, false, false>(x, layout, bias, y, V, F, H, W,
-                                            relu, normalize, 0, st);
-  if (F <= 64)
-    return launch_conv3x3<64, false, false>(x, layout, bias, y, V, F, H, W,
-                                            relu, normalize, 0, st);
-  if (F <= 112)
-    return launch_conv3x3<112, false, false>(x, layout, bias, y, V, F, H, W,
-                                             relu, normalize, 0, st);
-  return launch_conv3x3<128, false, false>(x, layout, bias, y, V, F, H, W,
-                                           relu, normalize, 0, st);
+#undef SMT_TF32X3
+  const int vec = out_cl && F % 4 == 0 && aligned16(y);
+#define SMT_CONV(FP)                                                       \
+  return launch_conv3x3<FP, false, false>(x, layout, bias, y, V, F, H, W, \
+                                          relu, normalize, vec, out_cl, st);
+  if (F <= 32) SMT_CONV(32)
+  if (F <= 64) SMT_CONV(64)
+  if (F <= 112) SMT_CONV(112)
+  SMT_CONV(128)
+#undef SMT_CONV
 }
 
 // One K8 layer in the bfloat16 mode, the output bfloat16 channels-last
@@ -1872,19 +2296,17 @@ int conv3x3_bf16(const void* x, const void* layout, const float* bias,
   const float* taps = static_cast<const float*>(layout);
   if (F <= 32)
     return launch_conv3x3<32, true, OUT_BF16>(xf, taps, bias, y, V, F, H, W,
-                                              relu, normalize, vec_out, st);
+                                              relu, normalize, vec_out, 0, st);
   if (F <= 64)
     return launch_conv3x3<64, true, OUT_BF16>(xf, taps, bias, y, V, F, H, W,
-                                              relu, normalize, vec_out, st);
+                                              relu, normalize, vec_out, 0, st);
   if (F <= 112)
     return launch_conv3x3<112, true, OUT_BF16>(xf, taps, bias, y, V, F, H,
                                                W, relu, normalize, vec_out,
-                                               st);
+                                               0, st);
   return launch_conv3x3<128, true, OUT_BF16>(xf, taps, bias, y, V, F, H, W,
-                                             relu, normalize, vec_out, st);
+                                             relu, normalize, vec_out, 0, st);
 }
-
-bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 }  // namespace
 
@@ -1892,15 +2314,17 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 // chosen by C_in: for C_in = 1 the (3, 3, 1, F) taps (the flax kernel
 // layout), for C_in > 1 the (2, 3, 3, C8, F8) TF32 hi and lo parts of the
 // taps, C_in padded to C8 (a multiple of 8) and F to F8 (32, 64, 112 or 128)
-// by zeros; bias: (F,); y: (V, F, H, W). F <= 128. bf16 must be 0: the
-// bfloat16 mode has its own entry, smt_mccnn_conv3x3_bf16.
+// by zeros; bias: (F,); y: (V, F, H, W), or for out_cl (a layer before K11)
+// float32 channels-last (V, H, W, F). F <= 128. The bfloat16 mode has its
+// own entry, smt_mccnn_conv3x3_bf16.
 extern "C" int smt_mccnn_conv3x3(const float* x, const float* layout,
                                  const float* bias, float* y, int V, int C_in,
                                  int F, int H, int W, int relu, int normalize,
-                                 int bf16, void* stream) {
+                                 int out_cl, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (F < 1 || F > 128 || C_in < 1 || bf16) return (int)cudaErrorInvalidValue;
-  return conv3x3(x, layout, bias, y, V, C_in, F, H, W, relu, normalize, st);
+  if (F < 1 || F > 128 || C_in < 1) return (int)cudaErrorInvalidValue;
+  return conv3x3(x, layout, bias, y, V, C_in, F, H, W, relu, normalize,
+                 out_cl, st);
 }
 
 // The bfloat16 mode. x: for C_in = 1 the float32 (V, 1, H, W) images, for
@@ -2001,45 +2425,51 @@ extern "C" int smt_mccnn_volume(const float* fl, const float* fr, float* out,
                            (D + chunks - 1) / chunks, scale, st);
 }
 
-// K11. x: the last layer's input, both views: in the float32 mode (bf16 =
-// 0) float32 (2, C_in, H, W), in the bfloat16 mode bfloat16 channels-last
-// (2, H, W, C_in) with C_in a multiple of 8 and x 16-B aligned; layout:
-// K8's copy of the last layer's weights for that mode ((2, 3, 3, C8, F8)
-// TF32 hi and lo, or the bfloat16 (9, F8, C16)); bias: (F,); out: (D, H,
-// W) float32. F <= 128 and a multiple of 8, C_in >= 2, D a multiple of 128.
-// One block of 16 warps an SM. In bfloat16 as many staging buffers of one
-// kernel row's taps as fit beside the ring (three at F8 = 128, else four);
-// in float32 fewer, larger stages of all three kernel rows (two buffers up
-// to F8 = 64, one at 112; at 128 two of one row, all that fit)
-// (tools/k11_probe.py: the faster layouts measured).
+// K11. x: the last layer's input of both views, channels-last (2, H, W,
+// C_in): float32 (bf16 = 0) with C_in a multiple of 4, or bfloat16 with
+// C_in a multiple of 8, 16-B aligned; layout: K11's copy of the last
+// layer's weights (cuda_kernels.mccnn_fused_weight_layout: float32 (C8 / 8,
+// 9, 2, 2, F8, 4) TF32 hi and lo core matrices, or bfloat16 (C16 / 16, 9,
+// F8, 16)); bias: (F,); out: (D, H, W) float32. F <= 128 and a multiple of
+// 8, C_in >= 2, D a multiple of 128. One block of 16 warps an SM, the
+// layer on wgmma; ST staging buffers by mode and F8, as many as fit beside
+// the ring, the tail and, but for float32 at F8 = 128, the next step's
+// first stage; the volume by bulk stores (tools/k11_probe.py, PERF.md).
 extern "C" int smt_mccnn_fused_volume(const void* x, const void* layout,
                                       const float* bias, float* out,
                                       int C_in, int F, int H, int W, int D,
                                       float scale, int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (F < 8 || F > 128 || F % 8 || C_in < 2 || H < 1 || W < 1 ||
-      D < kFvTW || D % kFvTW || (bf16 && (C_in % 8 || !aligned16(x))))
+      D < kFvTW || D % kFvTW || C_in % (bf16 ? 8 : 4) || !aligned16(x) ||
+      !aligned16(layout))
     return (int)cudaErrorInvalidValue;
-  // (NT, NS) as K8's; the bfloat16 buffers; the float32 buffers and rows
-#define SMT_FUSED(NT, NS, ST16, ST32, ROWS32)                              \
-  return bf16 ? launch_fused<NT, NS, true, 16, ST16, 1, 1, 0>(              \
+  // (NT, the bfloat16 buffers, the float32 buffers)
+#define SMT_FUSED(NT, ST16, ST32)                                          \
+  return bf16 ? launch_fused<NT, true, ST16, 0, true, true, (NT <= 8)>(     \
                     x, layout, bias, out, C_in, F, H, W, D, scale, st)     \
-              : launch_fused<NT, NS, false, 16, ST32, 1, ROWS32, 0>(        \
+              : launch_fused<NT, false, ST32, 0, true, true, (NT <= 8)>(    \
                     x, layout, bias, out, C_in, F, H, W, D, scale, st);
-  if (F <= 32) SMT_FUSED(4, 1, 4, 2, 3)
-  if (F <= 64) SMT_FUSED(8, 1, 4, 2, 3)
-  if (F <= 112) SMT_FUSED(14, 2, 4, 1, 3)
-  SMT_FUSED(16, 2, 3, 2, 1)
+  if (F <= 32) SMT_FUSED(4, 4, 4)
+  if (F <= 64) SMT_FUSED(8, 6, 4)
+  if (F <= 112) SMT_FUSED(14, 4, 3)
+  SMT_FUSED(16, 4, 2)
 #undef SMT_FUSED
 }
 
 // The probe of tools/k11_probe.py at F = 64 or 112, arguments as
 // smt_mccnn_fused_volume's: variant 0 the launch that entry makes, with
 // the parts in ablate (kFvAblStage | kFvAblConv | kFvAblBand |
-// kFvAblStore, one at a time, or 0 for none) taken out; variant 1 (no
-// ablations) another layout: in bfloat16 two blocks of 8 warps an SM with
-// two buffers at F = 64, three buffers at F = 112; in float32 four
-// buffers of one kernel row at F = 64, two at F = 112.
+// kFvAblStore, one at a time, or 0 for none) taken out; variants (no
+// ablations) 1, its volume stored by every warp's float4 stores, as the
+// first form of K11 stored it, in place of bulk stores; 2, two staging
+// buffers; 3, the layer on mma.sync in place of wgmma (bfloat16: K8's body,
+// two warps a pixel's channels, B by ldmatrix from the same rows; float32:
+// 3xTF32 m16n8k8, its weights in that body's copy, tools/k11_probe.py: for
+// (chunk, tap, n) the hi and lo words of channels 2t, 2t + 1, t = 0 ... 3,
+// so that a lane's B is one 16-B read); 4 (F = 64), the features in shared
+// memory as they are, split into TF32 hi and lo as the band reads them, in
+// place of the hi and lo planes the epilogue writes.
 extern "C" int smt_mccnn_fused_volume_probe(const void* x,
                                             const void* layout,
                                             const float* bias, float* out,
@@ -2049,33 +2479,37 @@ extern "C" int smt_mccnn_fused_volume_probe(const void* x,
                                             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if ((F != 64 && F != 112) || C_in < 2 || D % kFvTW ||
-      (bf16 && (C_in % 8 || !aligned16(x))) || (variant && ablate))
+      C_in % (bf16 ? 8 : 4) || !aligned16(x) || !aligned16(layout) ||
+      (variant && ablate))
     return (int)cudaErrorInvalidValue;
-#define SMT_FPROBE(BF, NT, NS, WARPS, ST, MINB, ROWS, ABL)                 \
-  return launch_fused<NT, NS, BF, WARPS, ST, MINB, ROWS, ABL>(             \
-      x, layout, bias, out, C_in, F, H, W, D, scale, st);
-#define SMT_FPROBE_ABL(BF, NT, NS, ST, ROWS)                               \
-  if (ablate == 0) SMT_FPROBE(BF, NT, NS, 16, ST, 1, ROWS, 0)              \
+#define SMT_FPROBE(BF, NT, ST, ABL, BULK, WG, SP)                          \
+  return launch_fused<NT, BF, ST, ABL, BULK, WG, SP>(x, layout, bias, out, \
+                                                     C_in, F, H, W, D,     \
+                                                     scale, st);
+#define SMT_FPROBE_ALL(BF, NT, ST)                                         \
+  constexpr bool SP = NT <= 8;                                             \
+  if (variant == 0 && ablate == 0)                                         \
+    SMT_FPROBE(BF, NT, ST, 0, true, true, SP)                              \
   if (ablate == kFvAblStage)                                               \
-    SMT_FPROBE(BF, NT, NS, 16, ST, 1, ROWS, kFvAblStage)                   \
+    SMT_FPROBE(BF, NT, ST, kFvAblStage, true, true, SP)                    \
   if (ablate == kFvAblConv)                                                \
-    SMT_FPROBE(BF, NT, NS, 16, ST, 1, ROWS, kFvAblConv)                    \
+    SMT_FPROBE(BF, NT, ST, kFvAblConv, true, true, SP)                     \
   if (ablate == kFvAblBand)                                                \
-    SMT_FPROBE(BF, NT, NS, 16, ST, 1, ROWS, kFvAblBand)                    \
+    SMT_FPROBE(BF, NT, ST, kFvAblBand, true, true, SP)                     \
   if (ablate == kFvAblStore)                                               \
-    SMT_FPROBE(BF, NT, NS, 16, ST, 1, ROWS, kFvAblStore)
+    SMT_FPROBE(BF, NT, ST, kFvAblStore, true, true, SP)                    \
+  if (variant == 1) SMT_FPROBE(BF, NT, ST, 0, false, true, SP)             \
+  if (variant == 2) SMT_FPROBE(BF, NT, 2, 0, true, true, SP)               \
+  if (variant == 3) SMT_FPROBE(BF, NT, ST, 0, true, false, SP)             \
+  if (variant == 4 && SP) SMT_FPROBE(BF, NT, ST, 0, true, true, false)
   if (F == 64) {
-    if (variant == 0 && bf16) { SMT_FPROBE_ABL(true, 8, 1, 4, 1) }
-    if (variant == 0 && !bf16) { SMT_FPROBE_ABL(false, 8, 1, 2, 3) }
-    if (variant == 1 && bf16) SMT_FPROBE(true, 8, 1, 8, 2, 2, 1, 0)
-    if (variant == 1 && !bf16) SMT_FPROBE(false, 8, 1, 16, 4, 1, 1, 0)
+    if (bf16) { SMT_FPROBE_ALL(true, 8, 6) }
+    { SMT_FPROBE_ALL(false, 8, 4) }
   } else {
-    if (variant == 0 && bf16) { SMT_FPROBE_ABL(true, 14, 2, 4, 1) }
-    if (variant == 0 && !bf16) { SMT_FPROBE_ABL(false, 14, 2, 1, 3) }
-    if (variant == 1 && bf16) SMT_FPROBE(true, 14, 2, 16, 3, 1, 1, 0)
-    if (variant == 1 && !bf16) SMT_FPROBE(false, 14, 2, 16, 2, 1, 1, 0)
+    if (bf16) { SMT_FPROBE_ALL(true, 14, 4) }
+    { SMT_FPROBE_ALL(false, 14, 3) }
   }
-#undef SMT_FPROBE_ABL
+#undef SMT_FPROBE_ALL
 #undef SMT_FPROBE
   return (int)cudaErrorInvalidValue;
 }

@@ -46,8 +46,9 @@ from stereo_match_tpu_torch.models.optim import (Adam, LearningRate,
                                                  float32_scope, make_step)
 from stereo_match_tpu_torch.ops.cost_volume import check_min_disparity
 from stereo_match_tpu_torch.ops.cuda_kernels import (
-    MCCNN_FUSED_TW, MCCNN_MAX_FEATURES, mccnn_conv3x3, mccnn_conv3x3_plain,
-    mccnn_fused_volume, mccnn_volume, mccnn_weight_layout)
+    MCCNN_FUSED_TW, MCCNN_MAX_FEATURES, fused_from_k8_layout, mccnn_conv3x3,
+    mccnn_conv3x3_plain, mccnn_fused_volume, mccnn_volume,
+    mccnn_weight_layout)
 from stereo_match_tpu_torch.utils.backend import entry_device
 
 if TYPE_CHECKING:   # parallel/ imports the pipeline, which imports this
@@ -82,8 +83,9 @@ class MCCNNFeatures(nn.Module):
     copy of layer i's weights that K8 reads (``mccnn_weight_layout`` for
     ``compute_dtype``: the (3, 3, 1, F) taps of the first layer, the packed
     taps of the others), made when the weights are set (construction,
-    ``load_state_dict``) and moved with the module (K11 reads the last
-    layer's). Whoever changes a
+    ``load_state_dict``) and moved with the module; ``layout_fused`` is
+    K11's copy of the last layer's (``mccnn_fused_weight_layout``; None
+    for a tower of one layer). Whoever changes a
     weight in place (an optimizer step, ``copy_``) must call
     :meth:`relayout` after it, or K8 on the card goes on reading the old
     weights while the CPU's plain path reads the new ones; :func:`train`
@@ -117,6 +119,8 @@ class MCCNNFeatures(nn.Module):
         for i in range(num_layers):
             self.register_buffer(f"layout{i}", torch.empty(0),
                                  persistent=False)
+        self.register_buffer("layout_fused", torch.empty(0),
+                             persistent=False)
         self.relayout()
         self.register_load_state_dict_post_hook(
             lambda module, _: module.relayout())
@@ -130,6 +134,9 @@ class MCCNNFeatures(nn.Module):
             setattr(self, f"layout{i}",
                     mccnn_weight_layout(w.detach(), bf16)
                     if self.features <= MCCNN_MAX_FEATURES else None)
+        last = getattr(self, f"layout{self.num_layers - 1}")
+        self.layout_fused = None if last is None or self.num_layers < 2 \
+            else fused_from_k8_layout(last, bf16)
         self.__dict__.pop("_twins", None)
 
     def twin(self, compute_dtype: torch.dtype) -> MCCNNFeatures:
@@ -157,19 +164,24 @@ class MCCNNFeatures(nn.Module):
         ``use_bf16=True`` (:meth:`twin`)."""
         return self.twin(torch.bfloat16)
 
-    def hidden(self, x: torch.Tensor) -> torch.Tensor:
+    def hidden(self, x: torch.Tensor,
+               channels_last: bool = False) -> torch.Tensor:
         """(V, H, W) normalized images -> the last layer's input: every
         layer but the last on K8, (V, F, H, W) float32, or in bfloat16 a
         bfloat16 tensor in ``torch.channels_last`` (flax's NHWC; exact,
         the values are bfloat16), which K8 reads and writes as it is; the
-        (V, 1, H, W) images for a tower of one layer."""
+        (V, 1, H, W) images for a tower of one layer. ``channels_last``:
+        in float32 too in ``torch.channels_last`` (the same values), as K11
+        reads it; K8's launch before the last writes it so."""
         h = x[:, None].contiguous()
         bf16 = self.compute_dtype == torch.bfloat16
         for i in range(self.num_layers - 1):
             h = mccnn_conv3x3(h, self.weights[i], self.biases[i], relu=True,
                               normalize=False,
                               layout=getattr(self, f"layout{i}"),
-                              bf16=bf16, bf16_out=bf16)
+                              bf16=bf16, bf16_out=bf16,
+                              channels_last=channels_last and not bf16 and
+                              i == self.num_layers - 2)
         return h
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -271,14 +283,17 @@ def mccnn_cost_volume_fused(model: MCCNNFeatures, left: torch.Tensor,
     JAX's ``mccnn_cost_volume_fused`` with the port's model carrying its
     weights (no ``params``). ``compute_dtype`` picks the tower's mode:
     ``model`` where it computes in it, else its twin (``model.twin``).
-    ``single_kernel`` (the default): the layers but the last on K8, then
-    K11 (``mccnn_fused_volume``): the last layer, its norm and the Gram
-    band in one launch. ``single_kernel=False`` is the two-kernel
-    semantics reference, K8 for every layer then K9; on the card K11 is
-    held bit-equal to it, and on the CPU both run the same plain layers and
-    volume. ValueError, as JAX raises, for num_disparities not a multiple
-    of 128, a kernel that is not 3x3 and F not a multiple of 16 (its
-    Pallas kernel's sublane tile), and for a tower of one layer.
+    ``single_kernel`` (the default): the layers but the last on K8, the
+    last of them writing channels-last (``hidden(channels_last=True)``),
+    then K11 (``mccnn_fused_volume``, on the tower's ``layout_fused``): the
+    last layer, its norm and the Gram band in one launch.
+    ``single_kernel=False`` is the two-kernel semantics reference, K8 for
+    every layer then K9; on the card K11 is held to it within K9's
+    tolerance a cell (and in bfloat16 what K8's rounding moves), and on
+    the CPU both run the same plain layers and volume. ValueError, as JAX
+    raises, for num_disparities not a multiple of 128, a kernel that is not
+    3x3 and F not a multiple of 16 (its Pallas kernel's sublane tile), and
+    for a tower of one layer.
     """
     if num_disparities % MCCNN_FUSED_TW or num_disparities < 1:
         raise ValueError(f"the fused MC-CNN volume needs num_disparities % "
@@ -293,13 +308,14 @@ def mccnn_cost_volume_fused(model: MCCNNFeatures, left: torch.Tensor,
     tower = model.twin(compute_dtype)
     imgs = torch.stack([normalize_image(left), normalize_image(right)])
     i = tower.num_layers - 1
-    args = (tower.hidden(imgs), tower.weights[i], tower.biases[i])
-    layout = getattr(tower, f"layout{i}")
+    w, b = tower.weights[i], tower.biases[i]
     bf16 = compute_dtype == torch.bfloat16
     if single_kernel:
-        return mccnn_fused_volume(*args, num_disparities, scale,
-                                  layout=layout, bf16=bf16)
-    feats = mccnn_conv3x3(*args, relu=False, normalize=True, layout=layout,
+        return mccnn_fused_volume(tower.hidden(imgs, channels_last=True), w,
+                                  b, num_disparities, scale,
+                                  layout=tower.layout_fused, bf16=bf16)
+    feats = mccnn_conv3x3(tower.hidden(imgs), w, b, relu=False,
+                          normalize=True, layout=getattr(tower, f"layout{i}"),
                           bf16=bf16)
     return mccnn_volume(feats[0], feats[1], num_disparities, 0, scale)
 

@@ -84,6 +84,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -1330,18 +1331,23 @@ def _mccnn_layout_spec(C_in: int, F: int,
     return (2, 3, 3, C8, F8), torch.float32
 
 
-def _check_bf16_out(normalize: bool, bf16: bool, bf16_out: bool) -> None:
+def _check_bf16_out(normalize: bool, bf16: bool, bf16_out: bool,
+                    channels_last: bool = False) -> None:
     if bf16_out and (not bf16 or normalize):
         raise ValueError("bf16_out: a bfloat16 channels-last output is for "
                          "the bfloat16 mode's layers without the norm")
+    if channels_last and (bf16 or normalize):
+        raise ValueError("channels_last: a float32 channels-last output is "
+                         "for the float32 mode's layers without the norm")
 
 
 def _check_mccnn_io(x: torch.Tensor, normalize: bool, bf16: bool,
-                    bf16_out: bool) -> None:
+                    bf16_out: bool, channels_last: bool = False) -> None:
     """x: a float32 (V, C, H, W) tensor, contiguous, or in the bfloat16
     mode also a bfloat16 one in ``torch.channels_last``; ``bf16_out`` only
-    in the bfloat16 mode and without the norm."""
-    _check_bf16_out(normalize, bf16, bf16_out)
+    in the bfloat16 mode and ``channels_last`` only in float32, both
+    without the norm."""
+    _check_bf16_out(normalize, bf16, bf16_out, channels_last)
     if x.dim() != 4 or x.dtype not in ((torch.float32, torch.bfloat16)
                                        if bf16 else (torch.float32,)):
         raise ValueError(f"x: expected a 4-d float32 tensor"
@@ -1357,8 +1363,8 @@ def _check_mccnn_io(x: torch.Tensor, normalize: bool, bf16: bool,
 
 def mccnn_conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
                         bias: torch.Tensor, relu: bool, normalize: bool,
-                        bf16: bool = False,
-                        bf16_out: bool = False) -> torch.Tensor:
+                        bf16: bool = False, bf16_out: bool = False,
+                        channels_last: bool = False) -> torch.Tensor:
     """One MC-CNN tower layer: (V, C_in, H, W) -> (V, F, H, W).
 
     ``F.conv2d`` with one pixel of zero padding (flax ``padding="SAME"``,
@@ -1376,9 +1382,10 @@ def mccnn_conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
     output is
     float32 (V, F, H, W), holding bfloat16 values but for the norm, or
     with ``bf16_out`` (no norm) those values as a bfloat16 channels-last
-    tensor.
+    tensor; in float32 with ``channels_last`` (no norm) a float32 tensor
+    in ``torch.channels_last`` (the same values).
     """
-    _check_bf16_out(normalize, bf16, bf16_out)
+    _check_bf16_out(normalize, bf16, bf16_out, channels_last)
     if x.dtype == torch.bfloat16:            # to float32 (V, C, H, W) strides
         x = torch.empty(x.shape, device=x.device).copy_(x)
     if bf16:
@@ -1393,13 +1400,16 @@ def mccnn_conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
         y = y / torch.sqrt(torch.sum(y * y, dim=1, keepdim=True) + 1e-12)
     if bf16_out:
         y = y.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    if channels_last:
+        y = y.contiguous(memory_format=torch.channels_last)
     return y
 
 
 def mccnn_conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   relu: bool, normalize: bool,
                   layout: torch.Tensor | None = None,
-                  bf16: bool = False, bf16_out: bool = False) -> torch.Tensor:
+                  bf16: bool = False, bf16_out: bool = False,
+                  channels_last: bool = False) -> torch.Tensor:
     """One MC-CNN tower layer: (V, C_in, H, W) -> (V, F, H, W) (K8).
 
     ``weight`` (F, C_in, 3, 3) and ``bias`` (F,) float32. The kernel reads
@@ -1414,12 +1424,15 @@ def mccnn_conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     which the bfloat16 body reads (a float32 input is rounded to it by one
     ``.to`` first). The output: float32 (V, F, H, W), or with ``bf16_out``
     (``bf16`` and no norm) bfloat16 channels-last, which the next layer
-    reads as it is. Any other dtype or memory format raises ValueError.
+    reads as it is, or with ``channels_last`` (float32, no norm) float32
+    in ``torch.channels_last``, which K11 reads as it is (the layer before
+    the last, when K11 follows). Any other dtype or memory format raises
+    ValueError.
     On the card F is at most ``MCCNN_MAX_FEATURES`` (128; a wider layer
     raises ValueError); the plain layer on the CPU takes any F and needs
     no layout.
     """
-    _check_mccnn_io(x, normalize, bf16, bf16_out)
+    _check_mccnn_io(x, normalize, bf16, bf16_out, channels_last)
     _check(weight, "weight", torch.float32, 4)
     _check(bias, "bias", torch.float32, 1)
     V, C_in, H, W = x.shape
@@ -1435,14 +1448,17 @@ def mccnn_conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             raise ValueError(f"layout {tuple(layout.shape)}: expected {want}")
     if _on_cpu(x, weight, bias, *(() if layout is None else (layout,))):
         return mccnn_conv3x3_plain(x, weight, bias, relu, normalize, bf16,
-                                   bf16_out)
+                                   bf16_out, channels_last)
     _check_mccnn_features(F)
     if layout is None:
         layout = mccnn_weight_layout(weight, bf16)
     if not bf16:
-        y = torch.empty((V, F, H, W), dtype=torch.float32, device=x.device)
+        y = torch.empty((V, F, H, W), dtype=torch.float32, device=x.device,
+                        memory_format=torch.channels_last
+                        if channels_last else torch.contiguous_format)
         _launch("mccnn_conv3x3", x.device, _ptr(x), _ptr(layout), _ptr(bias),
-                _ptr(y), V, C_in, F, H, W, int(relu), int(normalize), 0)
+                _ptr(y), V, C_in, F, H, W, int(relu), int(normalize),
+                int(channels_last))
         return y
     if C_in == 1:
         x = x.to(torch.float32)              # the C_in = 1 body reads float32
@@ -1692,23 +1708,117 @@ def mccnn_volume(fl: torch.Tensor, fr: torch.Tensor, num_disparities: int,
 
 MCCNN_FUSED_TW = 128      # K11: a step's columns a view; planes a block
 MCCNN_FUSED_BAND_NT = 18  # K11: n8 tiles of an m16 tile's band, 144 j
-
-
 MCCNN_FUSED_WARPS = 16    # K11: warps of a block, one block an SM
+MCCNN_FUSED_SMEM = 232448  # K11: dynamic shared memory a block may take
+# K11's staging buffers by (F8, bf16): as many as fit beside the ring and
+# the tail (csrc/mccnn.cu, smt_mccnn_fused_volume)
+MCCNN_FUSED_BUFFERS = {(32, True): 4, (64, True): 6, (112, True): 4,
+                       (128, True): 4, (32, False): 4, (64, False): 4,
+                       (112, False): 3, (128, False): 2}
+_BOX = 136                # K11: pixel slots of a staged view's row (130 used)
+_VOL_PO = 132             # K9's and K11's plane row pitch in a tile, floats
 
 
-def mccnn_fused_layout(F: int, bf16: bool) -> tuple[int, int, int, int]:
-    """(F8, NS, WARPS, ROWS) of the K11 launch: K8's F8 and NS (so that each
-    pixel's sum of squares is split as K8 splits it), the warps of a block
-    and the kernel rows whose taps a stage holds (3 in float32 up to
-    F8 = 112, else 1)."""
-    F8, NS = mccnn_bf16_warps(F)
-    return F8, NS, MCCNN_FUSED_WARPS, 1 if bf16 or F8 > 112 else 3
+class FusedLayout(NamedTuple):
+    """K11's launch and its shared memory (``csrc/mccnn.cu``, ``FvBytes``),
+    offsets in bytes from the block's 1024-B aligned base."""
+    F8: int         # output channels, padded: 32, 64, 112 or 128
+    NS: int         # warps sharing a pixel's channels (1: all F8 in one)
+    WARPS: int      # warps of a block
+    ST: int         # staging buffers
+    KC: int         # input channels a stage (32 B a pixel)
+    prefetch: bool  # the next step's first stage lands during the band
+    split: bool     # features as TF32 hi and lo planes (F8 <= 64)
+    ring: int       # the right ring, [planes][F8][256] float32
+    red: int        # partial sums of squares, [NS][256] float32
+    region: int     # buffer b at region + b * stage
+    stage: int      # bytes a buffer: the two views' boxes, then weights
+    weights: int    # the weight rows' offset in a buffer
+    tail: int       # the left tile [planes][F8][128], then the volume's
+    bars: int       # one mbarrier a buffer
+    smem: int       # bytes the launch asks for (with 1024 of alignment)
+
+
+def mccnn_fused_layout(F: int, bf16: bool) -> FusedLayout:
+    """K11's layout for F features in the bfloat16 or float32 mode: K8's
+    F8, 16 warps on wgmma (warpgroup w / 4 the 64 pixels of its four m16
+    tiles, all F8, so one warp holds a pixel's channels); ST buffers of one
+    kernel
+    row's stage (both views' 130 staged pixels of 32 B, each view's box 136
+    slots, then the three taps' weight rows, 32 B in bfloat16, 64 B in
+    float32), 1024-B aligned; the tail from buffer 1 on where that fits in
+    ``MCCNN_FUSED_SMEM`` (``prefetch``), else from buffer 0. Up to
+    F8 = 64 the features are kept as the band reads them, TF32 hi and lo
+    in two planes (``split``), so the band splits nothing."""
+    F8 = _mccnn_padded(1, F)[1]
+    ST = MCCNN_FUSED_BUFFERS[F8, bf16]
+
+    def up(n: int) -> int:
+        return -(-n // 1024) * 1024
+    act = 2 * _BOX * 32
+    stage = up(act + 3 * F8 * (32 if bf16 else 64))
+    planes = 2 if F8 <= 64 else 1
+    ring = planes * F8 * 2 * MCCNN_FUSED_TW * 4
+    red = 2 * 2 * MCCNN_FUSED_TW * 4
+    tail = max(planes * F8 * MCCNN_FUSED_TW * 4,
+               MCCNN_FUSED_TW * _VOL_PO * 4)
+    region = up(ring + red)
+
+    def smem(tail_at: int) -> int:
+        return region + max(ST * stage, tail_at + tail) + 8 * ST + 1024
+    pre = smem(stage) <= MCCNN_FUSED_SMEM
+    tail_at = stage if pre else 0
+    return FusedLayout(F8, 1, MCCNN_FUSED_WARPS, ST, 16 if bf16 else 8, pre,
+                       planes == 2, 0, ring, region, stage, act,
+                       region + tail_at,
+                       region + max(ST * stage, tail_at + tail),
+                       smem(tail_at))
+
+
+def mccnn_fused_weight_layout(weight: torch.Tensor,
+                              bf16: bool = False) -> torch.Tensor:
+    """(F, C_in, 3, 3) OIHW -> K11's copy of the last layer's weights
+    (``fused_from_k8_layout`` of K8's): each stage's rows contiguous, so one
+    bulk copy stages them."""
+    return fused_from_k8_layout(mccnn_weight_layout(weight, bf16), bf16)
+
+
+def fused_from_k8_layout(layout: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """K8's copy of a C_in > 1 layer's weights -> K11's, by stage (KC input
+    channels, kernel row ky) and tap kx, each stage contiguous. Float32,
+    from K8's (2, 3, 3, C8, F8): (C8 / 8, 9, 2, 2, F8, 4), for (chunk,
+    tap), part (hi, lo), group q and output n the words of channels
+    8 chunk + 2t + q, t = 0 ... 3: the wgmma B operand, K-major core
+    matrices of 8 outputs by 16 B, the k8 step's logical k = t, t + 4
+    being channel 2t, 2t + 1 (so that A's pair is one 8-B read). Bfloat16,
+    from K8's (9, F8, C16): (C16 / 16, 9, F8, 16), the two 8-channel
+    halves of row n swapped where bit 2 of n is set (the 32-B swizzle of
+    the staged input, which keeps ldmatrix rows in distinct banks)."""
+    if bf16:
+        _, F8, C16 = layout.shape
+        w = layout.view(9, F8, C16 // 16, 2, 8).permute(2, 0, 1, 3, 4)
+        swap = ((torch.arange(F8, device=layout.device) >> 2) & 1).bool()
+        w = torch.where(swap[None, None, :, None, None], w.flip(3), w)
+        return w.reshape(C16 // 16, 9, F8, 16).contiguous()
+    C8, F8 = layout.shape[3:]
+    return layout.view(2, 9, C8 // 8, 4, 2, F8).permute(
+        2, 1, 0, 4, 5, 3).contiguous()
+
+
+def _fused_layout_spec(C_in: int, F: int,
+                       bf16: bool) -> tuple[tuple[int, ...], torch.dtype]:
+    """The shape and dtype of ``mccnn_fused_weight_layout``'s copy."""
+    C8, F8 = _mccnn_padded(C_in, F)
+    if bf16:
+        return (_mccnn_c16(C_in) // 16, 9, F8, 16), torch.bfloat16
+    return (C8 // 8, 9, 2, 2, F8, 4), torch.float32
 
 
 def _check_fused(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                  num_disparities: int, bf16: bool) -> None:
-    _check_mccnn_io(x, True, bf16, False)
+    if not (x.dim() == 4 and x.dtype == torch.float32 and
+            x.is_contiguous(memory_format=torch.channels_last)):
+        _check_mccnn_io(x, True, bf16, False)  # or float32 channels-last
     _check(weight, "weight", torch.float32, 4)
     _check(bias, "bias", torch.float32, 1)
     V, C_in = x.shape[:2]
@@ -1734,6 +1844,8 @@ def mccnn_fused_volume_plain(x: torch.Tensor, weight: torch.Tensor,
     """K11's function: the last tower layer with its norm
     (``mccnn_conv3x3_plain``), then the volume at min_disparity 0
     (``mccnn_volume_plain``). x as ``mccnn_fused_volume`` takes it."""
+    if x.dtype == torch.float32:
+        x = x.contiguous()                   # the layer's NCHW order
     f = mccnn_conv3x3_plain(x, weight, bias, False, True, bf16)
     return mccnn_volume_plain(f[0], f[1], num_disparities, 0, scale)
 
@@ -1749,10 +1861,15 @@ def mccnn_fused_volume(x: torch.Tensor, weight: torch.Tensor,
     What ``mccnn_conv3x3(x, weight, bias, False, True, layout, bf16)``
     then ``mccnn_volume(f[0], f[1], D, 0, scale)`` compute (K8's last
     launch and K9), without the features in device memory: x is the last
-    layer's input of both views (float32, contiguous; for ``bf16`` also
-    bfloat16 in ``torch.channels_last``, as K8's bfloat16 mode passes it),
-    ``layout`` K8's copy of the last layer's weights (made here when None).
-    num_disparities a
+    layer's input of both views (float32, contiguous or in
+    ``torch.channels_last``; for ``bf16`` also bfloat16 in
+    ``torch.channels_last``, as K8's bfloat16 mode passes it). The kernel
+    reads it channels-last (K8 writes it so on the one-kernel path:
+    ``MCCNNFeatures.hidden(channels_last=True)``); another x is copied to
+    that first, float32 with C_in padded to a multiple of 4. ``layout``:
+    K11's copy of the weights (``mccnn_fused_weight_layout``, which
+    ``MCCNNFeatures`` keeps as ``layout_fused``), or K8's copy of the last
+    layer's (made into K11's here), or None (made here). num_disparities a
     multiple of 128 (ValueError otherwise). On the card F is at most
     ``MCCNN_MAX_FEATURES`` and a multiple of 8, C_in at least 2 (each
     ValueError otherwise); the plain version on the CPU takes any.
@@ -1761,10 +1878,15 @@ def mccnn_fused_volume(x: torch.Tensor, weight: torch.Tensor,
     _, C_in, H, W = x.shape
     F = weight.shape[0]
     if layout is not None:
-        want, dtype = _mccnn_layout_spec(C_in, F, bf16)
-        _check(layout, "layout", dtype, len(want))
-        if tuple(layout.shape) != want:
-            raise ValueError(f"layout {tuple(layout.shape)}: expected {want}")
+        specs = [_mccnn_layout_spec(C_in, F, bf16)]
+        if C_in > 1 and F <= MCCNN_MAX_FEATURES:
+            specs.append(_fused_layout_spec(C_in, F, bf16))
+        if not any(layout.dtype == dtype and tuple(layout.shape) == want
+                   for want, dtype in specs):
+            raise ValueError(f"layout {tuple(layout.shape)} {layout.dtype}: "
+                             f"expected K8's or K11's copy, one of "
+                             f"{[(w, str(d)) for w, d in specs]}")
+        _check(layout, "layout", layout.dtype, layout.dim())
     if _on_cpu(x, weight, bias, *(() if layout is None else (layout,))):
         return mccnn_fused_volume_plain(x, weight, bias, num_disparities,
                                         scale, bf16)
@@ -1774,13 +1896,21 @@ def mccnn_fused_volume(x: torch.Tensor, weight: torch.Tensor,
                          f"last layer of a tower of two or more), got F = "
                          f"{F}, C_in = {C_in}")
     if layout is None:
-        layout = mccnn_weight_layout(weight, bf16)
+        layout = mccnn_fused_weight_layout(weight, bf16)
+    elif tuple(layout.shape) == _mccnn_layout_spec(C_in, F, bf16)[0]:
+        layout = fused_from_k8_layout(layout, bf16)   # K8's copy
     if bf16:
         x = x.to(torch.bfloat16, memory_format=torch.channels_last)
         if C_in % 8 or x.data_ptr() % 16:
             raise ValueError("K11's bfloat16 mode reads a pixel's channels "
                              "16 B at a time: C_in a multiple of 8, x "
                              "16-B aligned")
+    elif C_in % 4 or x.data_ptr() % 16 or not x.is_contiguous(
+            memory_format=torch.channels_last):
+        C4 = -(-C_in // 4) * 4               # TMA's 16-B pixel stride
+        xc = torch.zeros((2, H, W, C4), device=x.device).permute(0, 3, 1, 2)
+        xc[:, :C_in] = x                     # (2, C4, H, W), channels-last
+        x, C_in = xc, C4
     out = torch.empty((num_disparities, H, W), dtype=torch.float32,
                       device=x.device)
     _launch("mccnn_fused_volume", x.device, _ptr(x), _ptr(layout),
@@ -1816,22 +1946,30 @@ def mccnn_fused_volume_tiled_plain(x: np.ndarray, weight: np.ndarray,
     (numpy) -> the (D, H, W) float32 volume.
 
     A model of ``csrc/mccnn.cu``'s ``mccnn_fused_volume_kernel`` as the
-    wrapper launches it (``mccnn_fused_layout``): a block per row (the row
-    band is one row) and 128 planes, walking 128-column steps; each stage
-    (16 channels in bfloat16, 8 in float32, of one or three kernel rows)
-    staged in the kernel's layout, each warp's A and B read at the
-    kernel's addresses (``ldmatrix`` rows, or the TF32 fragment reads of
-    the hi and lo weight rows) and multiplied by the fragment layout of
-    ``mma``; the epilogue's bias and roundings, each pixel's sum of
-    squares split over lanes and warps as the kernel splits it, the norm;
-    the features stored at the kernel's swizzled addresses, the right ones
-    in the ring slot of their columns; the band's A and B read back from
-    those addresses for each lane, its cells placed by the accumulator map
-    and written through the epilogue's shifted rows and stores. The sums of
-    the layer are float64 (exact on inputs whose products and sums are
-    exact, as the tests choose); the band's dot products are taken, from
-    the operands the fragments read, as ``mccnn_volume_plain`` takes them
-    (one ``torch.sum`` over channels a plane), so an index error in any of
+    wrapper launches it (``mccnn_fused_layout``): a block per row and 128
+    planes, walking 128-column steps; each stage (one kernel row of KC
+    channels: 16 in bfloat16, 8 in float32) as the TMA boxes of the
+    channels-last input (zeros outside the frame and past C_in; bfloat16
+    with the 32-B swizzle) and the bulk copy of K11's weight rows
+    (``mccnn_fused_weight_layout``) place it in a buffer; each warp's A and
+    B read at the kernel's addresses (``ldmatrix`` rows, or the float32
+    8-B A pairs, k = t, t + 4 being channels 2t, 2t + 1, and the hi and lo
+    B words at the wgmma descriptors' core-matrix addresses; a warp's 16
+    rows of its warpgroup's m64 as an m16 tile) and multiplied by the
+    fragment layout of ``mma``; the
+    epilogue's bias and roundings, each pixel's sum of squares split over
+    lanes and warps as the kernel splits it, the norm; the features
+    stored at the kernel's swizzled addresses (up to F8 = 64 the TF32 hi
+    in one plane and the rest in another, where the kernel keeps the rest's
+    TF32 rounding), the right ones in the ring slot of their columns; the
+    band's A and B read back from those addresses for each lane, its cells placed by the accumulator map into
+    the 128-plane tile at rows shifted by the global row's misalignment,
+    and each plane row stored as the kernel stores it (its 16-B aligned
+    middle by one bulk copy, the ends cell by cell). The sums of the layer
+    are float64 (exact on inputs whose products and sums are exact, as the
+    tests choose); the band's dot products are taken, from the operands
+    the fragments read, as ``mccnn_volume_plain`` takes them (one
+    ``torch.sum`` over channels a plane), so an index error in any of
     those maps shows as a volume that differs from
     ``mccnn_fused_volume_plain``'s. The kernel's own order of the float32
     sums is its alone.
@@ -1841,116 +1979,117 @@ def mccnn_fused_volume_tiled_plain(x: np.ndarray, weight: np.ndarray,
     bias = torch.from_numpy(np.asarray(bias, np.float32))
     _, C, H, W = x.shape
     F, D, TW = w.shape[0], num_disparities, MCCNN_FUSED_TW
-    F8, NS, WARPS, ROWS = mccnn_fused_layout(F, bf16)
+    lay = mccnn_fused_layout(F, bf16)
+    F8, NS, WARPS, KC = lay.F8, lay.NS, lay.WARPS, lay.KC
     NT = F8 // 8
     NW, RWARPS = NT // NS, WARPS // NS
     MT = 16 // RWARPS
-    KC = MCCNN_BF16_K if bf16 else 8
+    P, RP, LP = 2 if lay.split else 1, F8 * 2 * TW, F8 * TW   # planes
+    es = 2 if bf16 else 4                    # bytes an element
+    px_e = 32 // es                          # elements a staged pixel
+    act_e = lay.weights // es                # the weight rows' offset
+    row_e = 16                               # elements a weight row
+    if bf16:
+        x = bf16_round(torch.from_numpy(x)).numpy()
+    wt = mccnn_fused_weight_layout(torch.from_numpy(w.astype(np.float32)),
+                                   bf16).float().double().numpy().reshape(-1)
     CK = -(-C // KC) * KC
+    nst = 3 * (CK // KC)
+    xl_ = np.transpose(x, (0, 2, 3, 1))      # channels-last (2, H, W, C)
     lane = np.arange(32)
     g, t = np.divmod(lane, 4)
     r4 = np.arange(4)
     eight = np.arange(8)
-    if bf16:
-        x = bf16_round(torch.from_numpy(x)).numpy()
-        w = bf16_round(torch.from_numpy(w)).numpy()
-        wflat = np.zeros((9, F8, CK))
-        wflat[:, :F, :C] = np.transpose(w, (2, 3, 0, 1)).reshape(9, F, C)
-        stage_len = (2 * (TW + 2) + 3 * F8) * ROWS * 24
-    else:
-        wflat = mccnn_pack_weights(torch.from_numpy(w.astype(np.float32)))
-        wflat = wflat.double().numpy()
-        FP, XP = F8 + 8, 2 * (TW + 4) * ROWS     # XP: a staged channel
-        stage_len = 8 * XP + 2 * 3 * ROWS * 8 * FP
-    wflat = wflat.reshape(-1)
     rows = np.arange(H)
     FL = torch.zeros((F, H, W))
     FR = torch.zeros((D, F, H, W))
     steps = []     # (d0, x0, {busy warp: its first j}) of each step
     for c in range(D // TW):
         d0 = TW * c
-        rf = np.zeros((H, F8 * 2 * TW), np.float32)     # the ring
+        rf = np.zeros((H, P * RP), np.float32)          # the ring
         for tl in range(-(-W // TW)):
             x0, xr0 = TW * tl, TW * tl - d0
             acc = np.zeros((WARPS, H, MT, NW, 32, 4))
-            for s in range(CK // KC * (3 // ROWS)):
-                ky0, c0 = s % (3 // ROWS) * ROWS, s // (3 // ROWS) * KC
-                buf = np.zeros((H, stage_len))
+            for s in range(nst):
+                ky, c0 = s % 3, s // 3 * KC
+                buf = np.zeros((H, lay.stage // es))
                 hx = np.arange(TW + 2)
-                for r, v in np.ndindex(ROWS, 2):
-                    gy = rows - 1 + ky0 + r
+                gy = rows - 1 + ky
+                for v in range(2):
                     gx = (x0, xr0)[v] + hx - 1
                     ok = ((gy >= 0) & (gy < H))[:, None] & \
                         ((gx >= 0) & (gx < W))[None, :]
                     for ci in range(KC):
                         if c0 + ci >= C:
                             continue
-                        val = np.where(ok, x[v, c0 + ci][np.clip(gy, 0, H - 1)]
-                                       [:, np.clip(gx, 0, W - 1)], 0.0)
-                        if bf16:
-                            buf[:, ((2 * r + v) * (TW + 2) + hx) * 24 +
-                                ci] = val
+                        val = np.where(ok, xl_[v][np.clip(gy, 0, H - 1)][
+                            :, np.clip(gx, 0, W - 1), c0 + ci], 0.0)
+                        p = v * _BOX + hx
+                        if bf16:    # TMA's 32-B swizzle: half ^ bit 2 of p
+                            off = p * px_e + (((ci >> 3) ^ (hx >> 2)) & 1) \
+                                * 8 + (ci & 7)
                         else:
-                            buf[:, ci * XP + (2 * r + v) * (TW + 4) + hx] = \
-                                val
-                if bf16:
-                    r = np.arange(3 * ROWS * F8)
-                    for e in range(16):
-                        buf[:, (2 * (TW + 2) * ROWS + r) * 24 + e] = wflat[
-                            (3 * ky0 * F8 + r) * CK + c0 + e]
-                else:
-                    r = np.arange(2 * 3 * ROWS * 8)
-                    part, tap = r // (3 * ROWS * 8), r % (3 * ROWS * 8) // 8
-                    src = ((part * 9 + 3 * ky0 + tap) * CK + c0 + r % 8) * F8
-                    for col in range(F8):
-                        buf[:, 8 * XP + r * FP + col] = wflat[src + col]
+                            off = p * px_e + ci
+                        buf[:, off] = val
+                # the bulk copy: stage s's 3 F8 weight rows as they lie
+                src = wt[s * 3 * F8 * row_e:(s + 1) * 3 * F8 * row_e]
+                buf[:, act_e:act_e + src.size] = src
                 for warp in range(WARPS):
                     nh, mw = divmod(warp, RWARPS)
                     view = mw * MT >> 3
-                    for tap in range(3 * ROWS):
-                        r, kx = divmod(tap, 3)
+                    for kx in range(3):
                         for m in range(MT):
-                            px = 16 * ((mw * MT + m) & 7) + kx
                             if bf16:
-                                off = ((2 * r + view) * (TW + 2) + px +
-                                       (lane & 15)) * 24 + 8 * (lane >> 4)
+                                # A by ldmatrix (this warp's 16 rows of its
+                                # warpgroup's m64), B (k, n) where the
+                                # descriptor's 32-B swizzle puts it: row
+                                # kx F8 + n, half k >> 3 ^ bit 2 of the row
+                                p = 16 * ((mw * MT + m) & 7) + kx + \
+                                    (lane & 15)
+                                off = (view * _BOX + p) * px_e + \
+                                    (((lane >> 4) ^ (p >> 2)) & 1) * 8
                                 a = _ldmatrix(buf[:, off[:, None] + eight], 4)
-                                for n in range(0, NW, 2):
-                                    mm = 4 if n + 1 < NW else 2
-                                    boff = (2 * (TW + 2) * ROWS + tap * F8 +
-                                            nh * NW * 8 + 8 * n +
-                                            8 * (lane >> 4) + (lane & 7)) * \
-                                        24 + 8 * ((lane >> 3) & 1)
-                                    brows = buf[:, np.clip(
-                                        boff[:, None] + eight, 0,
-                                        stage_len - 1)]
-                                    b = _ldmatrix(brows[:, :8 * mm], mm)
-                                    for h in range(mm // 2):
-                                        acc[warp, :, m, n + h] += \
-                                            _mma_m16n8k16(
-                                                a, b[:, :, 2 * h:2 * h + 2])
-                            else:
-                                base = t * XP + (2 * r + view) * (TW + 4) + \
-                                    px + g
-                                a = np.stack([buf[:, base + o] for o in (
-                                    0, 8, 4 * XP, 4 * XP + 8)], -1)
-                                ah, al = (p.numpy() for p in tf32_split(
-                                    torch.from_numpy(a.astype(np.float32))))
-                                whi = 8 * XP + (tap * 8 + t) * FP + \
-                                    nh * NW * 8 + g
+                                k = 2 * t[:, None, None] + \
+                                    np.arange(2)[None, None, :] + \
+                                    8 * np.arange(2)[None, :, None]
                                 for n in range(NW):
-                                    bh, bl = (np.stack([
-                                        buf[:, wb + 8 * n],
-                                        buf[:, wb + 4 * FP + 8 * n]], -1)
-                                        for wb in (whi, whi + 3 * ROWS * 8 *
-                                                   FP))
+                                    row = (kx * F8 + (nh * NW + n) * 8 +
+                                           g)[:, None, None]
+                                    boff = act_e + row * row_e + (
+                                        ((k >> 3) ^ (row >> 2)) & 1) * 8 + \
+                                        (k & 7)
+                                    acc[warp, :, m, n] += _mma_m16n8k16(
+                                        a, buf[:, boff])
+                            else:
+                                # wgmma: this warp's 16 rows of its
+                                # warpgroup's m64, B from the descriptors'
+                                # K-major core matrices (group q: k = 4q +
+                                # t is channel 2t + q)
+                                p = view * _BOX + 16 * ((mw * MT + m) & 7) + \
+                                    kx + g
+                                u = p * px_e + 2 * t
+                                v8 = (p + 8) * px_e + 2 * t
+                                a = np.stack([buf[:, u], buf[:, v8],
+                                              buf[:, u + 1], buf[:, v8 + 1]],
+                                             -1)
+                                ah, al = (q.numpy() for q in tf32_split(
+                                    torch.from_numpy(a.astype(np.float32))))
+                                for n in range(NW):
+                                    row = (nh * NW + n) * 8 + g
+
+                                    def b(part, row=row):
+                                        return np.stack([buf[:, act_e + (
+                                            ((kx * 2 + part) * 2 + q) * F8 +
+                                            row) * 4 + t] for q in (0, 1)],
+                                            -1)
+                                    bh, bl = b(0), b(1)
                                     acc[warp, :, m, n] += (
                                         _mma_m16n8k8(al, bh) +
                                         _mma_m16n8k8(ah, bl) +
                                         _mma_m16n8k8(ah, bh))
             # the epilogue: bias and roundings, each pixel's sum of squares
             # a lane's channels n by n, the quad (s0 + s1) + (s2 + s3), the
-            # warps (0 + r0) + r1, the norm; the features into shared memory
+            # NS warps r0 + r1, the norm; the features into shared memory
             vals, quads = {}, {}
             for warp in range(WARPS):
                 nh = warp // RWARPS
@@ -1971,12 +2110,12 @@ def mccnn_fused_volume_tiled_plain(x: np.ndarray, weight: np.ndarray,
                 quad = ss.reshape(H, MT, 8, 4, 2)
                 quads[warp] = (quad[..., 0, :] + quad[..., 1, :]) + \
                     (quad[..., 2, :] + quad[..., 3, :])   # (H, MT, 8, 2)
-            lf = np.zeros((H, F8 * TW), np.float32)
+            lf = np.zeros((H, P * LP), np.float32)
             for warp in range(WARPS):
                 nh, mw = divmod(warp, RWARPS)
                 view = mw * MT >> 3
-                total = np.zeros_like(quads[warp])
-                for h in range(NS):
+                total = quads[mw]
+                for h in range(1, NS):
                     total = total + quads[h * RWARPS + mw]
                 # torch's sqrt and division, as the plain layer takes them
                 # (its float32 sqrt on the CPU is not always the nearest)
@@ -1991,14 +2130,19 @@ def mccnn_fused_volume_tiled_plain(x: np.ndarray, weight: np.ndarray,
                                    / norm[:, m, :, r >> 1]).numpy()
                             swz = (f & 3) << 3
                             if view == 0:
-                                lf[:, (f * TW + (col ^ swz))[keep]] = \
-                                    val[:, keep]
+                                dst, at, pl = lf, f * TW + (col ^ swz), LP
                             else:
-                                rf[:, (f * 2 * TW + (((xr0 + col) & 255) ^
-                                                      swz))[keep]] = \
-                                    val[:, keep]
-            # the band, an m16 tile at a time (WARPS / 8 warps share its
-            # n8 tiles): each lane's A and B reads, the cells of its
+                                dst, pl = rf, RP
+                                at = f * 2 * TW + (((xr0 + col) & 255) ^ swz)
+                            val = val[:, keep]
+                            if lay.split:   # hi, and the rest of the value
+                                hi = tf32_round(torch.from_numpy(val)).numpy()
+                                dst[:, at[keep]] = hi
+                                dst[:, pl + at[keep]] = val - hi
+                            else:
+                                dst[:, at[keep]] = val
+            # the band, an m16 tile at a time (two warps share its n8
+            # tiles): each lane's A and B reads, the cells of its
             # accumulators
             jws = {}
             for warp in range(8):
@@ -2011,14 +2155,15 @@ def mccnn_fused_volume_tiled_plain(x: np.ndarray, weight: np.ndarray,
                 B = np.zeros((H, F, 8 * MCCNN_FUSED_BAND_NT), np.float32)
                 for k in range(0, F, 8):
                     for dr, dk in ((0, 0), (8, 0), (0, 4), (8, 4)):
-                        A[:, g + dr, k + t + dk] = lf[
-                            :, (k + t + dk) * TW + ((16 * warp + g + dr) ^
-                                                    swz)]
+                        at = (k + t + dk) * TW + ((16 * warp + g + dr) ^ swz)
+                        A[:, g + dr, k + t + dk] = lf[:, at] + (
+                            lf[:, LP + at] if lay.split else 0)
                     for n in range(MCCNN_FUSED_BAND_NT):
                         cb = ((jw + 8 * n + g) & 255) ^ swz
                         for dk in (0, 4):
-                            B[:, k + t + dk, 8 * n + g] = rf[
-                                :, (k + t + dk) * 2 * TW + cb]
+                            at = (k + t + dk) * 2 * TW + cb
+                            B[:, k + t + dk, 8 * n + g] = rf[:, at] + (
+                                rf[:, RP + at] if lay.split else 0)
                 for n in range(MCCNN_FUSED_BAND_NT):
                     for e in range(4):
                         row = g + 8 * (e >> 1)
@@ -2038,38 +2183,38 @@ def mccnn_fused_volume_tiled_plain(x: np.ndarray, weight: np.ndarray,
         sim = torch.sum(FL * FR[p], dim=0)
         cost[p] = scale * (1.0 - sim) * 0.5
     cost = cost.numpy()
-    # the band's epilogue: passes of 64 planes into a tile whose rows are
-    # shifted by the global row's misalignment, then every plane row of the
-    # tile stored from there
+    # the band's epilogue: all 128 planes into one tile whose rows are
+    # shifted by the global row's misalignment; then plane row i by thread
+    # i, its 16-B aligned middle by one bulk copy and its ends cell by cell
     out = np.full((D * H * W), np.nan, np.float32)
     for d0, x0, jws in steps:
         ncols = min(TW, W - x0)
-        for p0 in range(0, TW, 64):
-            st = np.full((H, 64 * 132), np.nan, np.float32)
-            for warp, jw in jws.items():
-                for n in range(MCCNN_FUSED_BAND_NT):
-                    for e in range(4):
-                        xl = 16 * warp + g + 8 * (e >> 1)
-                        j = jw + 8 * n + 2 * t + (e & 1)
-                        i = x0 + xl - j - d0
-                        ok = (i >= p0) & (i < p0 + 64)
-                        xl, j, i = xl[ok], j[ok], i[ok]
-                        sh = ((d0 + i)[None, :] * H + rows[:, None]) * W % 4
-                        val = np.where(
-                            j < 0, np.float32(1e4),
-                            cost[d0 + i, :, np.minimum(x0 + xl, W - 1)].T)
-                        np.put_along_axis(st, (i - p0) * 132 + xl + sh, val,
-                                          axis=1)
-            for i in range(64):
-                row = ((d0 + p0 + i) * H + rows) * W + x0
-                sh = row % 4
-                for v in range(33):
-                    for k in range(4):
-                        xl = 4 * v - sh + k
-                        ok = (xl >= 0) & (xl < ncols) & \
-                            (4 * v < ncols + sh)
-                        out[(row - sh + 4 * v + k)[ok]] = \
-                            st[rows[ok], i * 132 + 4 * v + k]
+        st = np.full((H, TW * _VOL_PO), np.nan, np.float32)
+        for warp, jw in jws.items():
+            for n in range(MCCNN_FUSED_BAND_NT):
+                for e in range(4):
+                    xl = 16 * warp + g + 8 * (e >> 1)
+                    j = jw + 8 * n + 2 * t + (e & 1)
+                    i = x0 + xl - j - d0
+                    ok = (i >= 0) & (i < TW)
+                    xl, j, i = xl[ok], j[ok], i[ok]
+                    sh = ((d0 + i)[None, :] * H + rows[:, None]) * W % 4
+                    val = np.where(
+                        j < 0, np.float32(1e4),
+                        cost[d0 + i, :, np.minimum(x0 + xl, W - 1)].T)
+                    np.put_along_axis(st, i * _VOL_PO + xl + sh, val,
+                                      axis=1)
+        for i in range(TW):
+            for y in range(H):
+                row = ((d0 + i) * H + y) * W + x0
+                src = i * _VOL_PO + row % 4            # column 0
+                a, e = -(-row // 4) * 4, (row + ncols) // 4 * 4
+                head = tail = row + ncols
+                if e > a:
+                    out[a:e] = st[y, src + a - row:src + e - row]
+                    head, tail = a, e
+                for q in (*range(row, head), *range(tail, row + ncols)):
+                    out[q] = st[y, src + q - row]
     return torch.from_numpy(out.reshape(D, H, W))
 
 

@@ -29,7 +29,8 @@ as ELAS launches it) and K4's ``wta_lr``, ``wta_stats`` and ``right_wta``
 features of the scenes (KITTI D=128 at F=64 and F=112, 720p D=160 at
 F=64), and, in a tree that has it, K11 ``mccnn_fused_volume`` on each
 shipped tower's last-layer input at KITTI D=128 in float32 and
-bfloat16, each the mean of 64 calls captured in one CUDA graph, so no host
+bfloat16 (as the tree's one-kernel path hands it), each the mean of 64
+calls captured in one CUDA graph, so no host
 time lies between the launches. The whole speckle
 filter (T=100, range 2), the mean of 20 calls by CUDA events (the filter
 of a tree that reads a flag on the host every sweep cannot be captured),
@@ -227,8 +228,15 @@ def _probe() -> dict:
         for arch in towers:
             for kind, m in (("", towers[arch]), (" bf16", towers16[arch])):
                 i = m.num_layers - 1
-                args = (m.hidden(norm_k), m.weights[i], m.biases[i], 128,
-                        24.0, getattr(m, f"layout{i}"), bool(kind))
+                # K11's input and weights as the tree's one-kernel path
+                # hands them (channels-last and K11's copy where it has
+                # them)
+                fused = getattr(m, "layout_fused", None)
+                args = (m.hidden(norm_k, channels_last=True)
+                        if fused is not None else m.hidden(norm_k),
+                        m.weights[i], m.biases[i], 128, 24.0,
+                        getattr(m, f"layout{i}") if fused is None else fused,
+                        bool(kind))
                 kernels[f"mccnn_fused_volume{kind} {arch} KITTI D=128"] = \
                     lambda a=args: K.mccnn_fused_volume(*a)
     pairs = {"KITTI": torch.stack(kitti).contiguous(),

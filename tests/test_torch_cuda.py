@@ -898,10 +898,18 @@ def _k11_check(model, imgs, D, what, scale=24.0):
     i = model.num_layers - 1
     x, w, b = model.hidden(imgs), model.weights[i], model.biases[i]
     layout = getattr(model, f"layout{i}")
+    # K11's input as the one-kernel path hands it (K8's launch before the
+    # last writes it channels-last) and K11's copy of the weights
+    x_cl = model.hidden(imgs, channels_last=True)
+    assert torch.equal(x_cl, x)
+    assert x_cl.is_contiguous(memory_format=torch.channels_last)
     K.reset_launches()
-    got = K.mccnn_fused_volume(x, w, b, D, scale, layout, bf16)
+    got = K.mccnn_fused_volume(x_cl, w, b, D, scale, model.layout_fused, bf16)
     torch.cuda.synchronize()
     assert K.launches["mccnn_fused_volume"] == 1
+    # K8's copy of the weights and an NCHW input give the same volume
+    assert torch.equal(K.mccnn_fused_volume(x, w, b, D, scale, layout, bf16),
+                       got)
     f = K.mccnn_conv3x3(x, w, b, False, True, layout=layout, bf16=bf16)
     two = K.mccnn_volume(f[0], f[1], D, 0, scale)
     p = K.mccnn_conv3x3_plain(x, w, b, False, True, bf16)

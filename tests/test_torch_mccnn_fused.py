@@ -220,3 +220,94 @@ def test_dispatch_stays_off_the_fused_path_on_the_cpu(shipped):
     assert not any(K.launches.values())
     assert not tmccnn.fused_path_applies(models["fast"][2], 128, 3)
     assert tmccnn.fused_path_applies(models["accurate"][2], 256, 0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_fused_input_is_channels_last_and_jax_towers(shipped, arch):
+    """The one-kernel path hands K11 the last layer's input channels-last
+    (K8's launch before the last writes it so in float32): the same values
+    as the NCHW ``hidden`` and as JAX's tower up to the last layer (flax's
+    ``conv{L-2}`` output, captured, after ReLU) within 1e-4 of its
+    largest activation (float32 sums in another order); the volume K11's
+    path builds from it is held to JAX's fused kernel in interpret mode
+    by ``test_fused_matches_pallas_interpret``."""
+    models, left, right = shipped
+    jmodel, params, model, _ = models[arch]
+    imgs = torch.stack([tmccnn.normalize_image(torch.from_numpy(im))
+                        for im in (left, right)])
+    x = model.hidden(imgs)
+    x_cl = model.hidden(imgs, channels_last=True)
+    assert x.is_contiguous() and x_cl.is_contiguous(
+        memory_format=torch.channels_last)
+    assert torch.equal(x_cl, x)
+    jimgs = jnp.stack([jmccnn.normalize_image(jnp.asarray(im))
+                       for im in (left, right)])[..., None]
+    _, state = jmodel.apply(params, jimgs, capture_intermediates=True,
+                            mutable=["intermediates"])
+    L = model.num_layers
+    want = np.maximum(np.asarray(
+        state["intermediates"][f"conv{L - 2}"]["__call__"][0]), 0)
+    nhwc = x_cl.permute(0, 2, 3, 1)          # channels-last: NHWC in memory
+    assert nhwc.is_contiguous()
+    err = float(np.abs(nhwc.numpy() - want).max())
+    print(f"{arch}: max |port hidden - flax conv{L - 2} + ReLU| = {err} "
+          f"(largest activation {float(want.max())})")
+    assert err <= 1e-4 * float(want.max())
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("F,C", [(64, 64), (112, 112), (32, 24), (128, 8)])
+def test_fused_weight_layout_maps(F, C, bf16):
+    """K11's copy of the weights (``mccnn_fused_weight_layout``) holds each
+    of K8's entries where the kernel reads it: float32 word (chunk, tap,
+    part, q, n, t) is part (hi, lo) of channel 8 chunk + 2t + q of output
+    n (the wgmma B operand's core matrices); bfloat16 element 8 (h ^ bit 2
+    of n) + i of (chunk, tap, n) is channel 16 chunk + 8h + i. A model
+    keeps it (``layout_fused``), K8's copy of the last layer re-laid."""
+    w = torch.from_numpy(_exact_inputs(F, C, 1, 1, F + C)[1])
+    k8 = K.mccnn_weight_layout(w, bf16)
+    got = K.mccnn_fused_weight_layout(w, bf16)
+    want, dtype = K._fused_layout_spec(C, F, bf16)
+    assert tuple(got.shape) == want and got.dtype == dtype
+    if bf16:
+        chunk, tap, n = np.meshgrid(*(np.arange(s) for s in got.shape[:3]),
+                                    indexing="ij")
+        for word in range(16):
+            h, i = divmod(word, 8)
+            src = k8[tap, n, 16 * chunk + 8 * (h ^ ((n >> 2) & 1)) + i]
+            assert torch.equal(got[..., word], src)
+    else:
+        chunk, tap, part, q, n, t = np.meshgrid(
+            *(np.arange(s) for s in got.shape), indexing="ij")
+        assert torch.equal(got, k8[part, tap // 3, tap % 3,
+                                   8 * chunk + 2 * t + q, n])
+    model = tmccnn.make_model((F, 2), torch.bfloat16 if bf16 else
+                              torch.float32, seed=F)
+    assert torch.equal(model.layout_fused, K.mccnn_fused_weight_layout(
+        model.weights[1], bf16))
+    assert tmccnn.make_model((F, 1), seed=F).layout_fused is None
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("F", [32, 64, 112, 128])
+def test_fused_layout_fits_the_sm(F, bf16):
+    """K11's shared memory (``mccnn_fused_layout``) fits a block on the
+    H100: the ring (two planes, TF32 hi and lo, up to F8 = 64), the
+    partial sums, ST buffers of 1024-B aligned stages
+    (each view's box 256-B aligned, the weight rows after them) and the
+    tail (the left tile, then the 128-plane volume tile) from buffer 1 on
+    where the next step's first stage is prefetched into buffer 0, from
+    buffer 0 otherwise (float32 at F8 = 128 only)."""
+    lay = K.mccnn_fused_layout(F, bf16)
+    assert lay.smem <= K.MCCNN_FUSED_SMEM and lay.ST >= 2
+    assert lay.region % 1024 == 0 and lay.stage % 1024 == 0
+    assert lay.weights == 2 * 136 * 32 and (136 * 32) % 256 == 0
+    assert lay.stage >= lay.weights + 3 * lay.F8 * (32 if bf16 else 64)
+    planes = 2 if lay.split else 1
+    assert lay.split == (lay.F8 <= 64)
+    assert lay.ring == 0 and lay.red == planes * lay.F8 * 256 * 4
+    assert lay.region >= lay.red + 2 * 256 * 4
+    tail = max(planes * lay.F8 * 128, 128 * 132) * 4
+    assert lay.tail == lay.region + (lay.stage if lay.prefetch else 0)
+    assert lay.bars >= max(lay.region + lay.ST * lay.stage, lay.tail + tail)
+    assert lay.prefetch == (bf16 or lay.F8 < 128)
