@@ -221,6 +221,17 @@ Phases, each of which raises (exit code 1, no result lines) on failure:
    card synchronised), and K1, K2, K3 and K4 at the shard shapes beside
    the whole frame's (CUDA events). (The stream over the device list is
    4e's.)
+4j. the accuracy record's blocks (``stereo_match_tpu_torch/tools/
+   accuracy_eval.py``) at full size, cv2 on the host as the oracle, each
+   row printed with the card's name: the six census scenes at KITTI D=128
+   at settings.ini's settings (uniqueness 15, disp12 1), the two baseline
+   scenes also with speckle 100 range 2, each within 0.02 of cv2's bad-3px
+   and at most 0.10 under its density (``tests/test_accuracy.py``); the
+   ray-traced rows (seed 9): clean within 0.02 of cv2's bad-3px and under
+   0.05, with sensor noise and a right-view gain under 0.08; the 1280x720
+   D=160 row; the fast MC-CNN checkpoint against census on rough terrain
+   (clean within 0.03 of census, noise 25 below it); StereoBM against
+   cv2.StereoBM (block 21); the phase's seconds.
 5. timing with CUDA events after a warm-up: frames/s of the main path with
    the kernels and with the plain versions at KITTI shape, and with the
    kernels at 720p; each kernel's time beside its plain version's and its
@@ -1777,6 +1788,50 @@ def phase_4i(dev: torch.device, card: str) -> None:
     print(f"[4i] the phase took {time.perf_counter() - t_phase} s ({card})")
 
 
+ACCURACY_DENSITY = -0.10   # tests/test_accuracy.py: density at most 10
+#                            points under cv2's
+
+
+def phase_4j(dev: torch.device, card: str) -> None:
+    """4j. the accuracy record's blocks (``tools/accuracy_eval.py``) at full
+    size against cv2 on the host: the census rows at KITTI (speckle on the
+    baseline scenes too), the two ray-traced rows, the 720p D=160 row, the
+    fast MC-CNN checkpoint against census and StereoBM against
+    cv2.StereoBM, with ``tests/test_accuracy.py``'s bars."""
+    from stereo_match_tpu_torch.tools import accuracy_eval as A
+
+    t_phase = time.perf_counter()
+
+    def log(line: str) -> None:
+        print(f"[4j] {line} ({card})")
+
+    rows = A.census_rows(A.H, A.W, A.D, dev, log=log)
+    for rep in rows:
+        check(rep["bad3_delta"] <= A.TARGET
+              and rep["density_delta"] >= ACCURACY_DENSITY,
+              f"{rep['scene']} at {A.W}x{A.H} D={A.D}: bad-3px delta "
+              f"{rep['bad3_delta']} (bar {A.TARGET}), density delta "
+              f"{rep['density_delta']} (bar {ACCURACY_DENSITY})")
+    clean, noisy = A.raytraced_rows(A.H, A.W, A.D, dev, log=log)
+    b_ours, b_ref = clean["ours"]["bad3"], clean["opencv_sgbm"]["bad3"]
+    check(b_ours <= b_ref + A.TARGET and b_ours < 0.05,
+          f"ray-traced clean: bad-3px {b_ours}, cv2 {b_ref} (bars: cv2 + "
+          f"{A.TARGET}, 0.05)")
+    check(noisy["ours"]["bad3"] < 0.08, f"ray-traced with noise and gain: "
+          f"bad-3px {noisy['ours']['bad3']} (bar 0.08)")
+    prod = A.prod_720p_row(*A.PROD, dev, log=log)
+    mc = A.mccnn_vs_census(A.H, A.W, A.D, dev, log=log)
+    check(mc["pass"], f"MC-CNN fast against census: {mc} (clean within "
+          f"0.03 of census, noise 25 below it)")
+    _, bm_worst = A.bm_vs_cv2_stereobm(A.H, A.W, A.D, dev, log=log)
+    worst = max([rep["bad3_delta"] for rep in rows + [clean, noisy, prod]]
+                + [bm_worst])
+    print(f"[4j] {len(rows)} census rows at {A.W}x{A.H} D={A.D} within "
+          f"bad-3px {A.TARGET} and density {ACCURACY_DENSITY} of cv2; "
+          f"worst bad-3px delta of the phase's rows {worst}; the phase took "
+          f"{time.perf_counter() - t_phase} s ({card})")
+
+
 def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from stereo_match_tpu_torch import native
@@ -3011,6 +3066,8 @@ def main() -> int:
     phase_4h(dev, card)
     # 4i. multi-device: D-sharding, multihost, the MC-CNN mesh trainer
     phase_4i(dev, card)
+    # 4j. the accuracy record's blocks at full size against cv2
+    phase_4j(dev, card)
 
     # 5. timing (CUDA events, after a warm-up)
     # K1 takes less time than the host's call: its `ms` is the events' mean
