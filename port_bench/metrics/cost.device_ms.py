@@ -1,0 +1,9 @@
+"""The cost layer's kernel time a frame on the card (device trace; the
+layer's kernels are named by ``layers/cost*.json``)."""
+
+
+def read(r):
+    s = r.layer_s.get("cost")
+    if not s or not r.frames:
+        return None
+    return 1e3 * s / r.frames

@@ -1,0 +1,11 @@
+"""The cost layer's share of its roofline: its least time a frame (the work
+of ``layers/cost*.json`` at the peaks) over its kernel time a frame."""
+
+from port_bench.roofline import least_seconds
+
+
+def read(r):
+    s, work = r.layer_s.get("cost"), r.work.get("cost")
+    if not s or not work or not r.frames:
+        return None
+    return 100.0 * least_seconds(work, r.peaks) / (s / r.frames)
