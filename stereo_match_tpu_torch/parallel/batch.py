@@ -12,6 +12,7 @@ import torch
 from stereo_match_tpu_torch.config import DisparityConfig
 from stereo_match_tpu_torch.parallel.mesh import DeviceMesh, batch_sharding
 from stereo_match_tpu_torch.pipeline.stereo import _match_core, check_slice
+from stereo_match_tpu_torch.utils.profiling import count, span
 
 
 def batched_matcher(config: DisparityConfig, mesh: DeviceMesh):
@@ -27,14 +28,19 @@ def batched_matcher(config: DisparityConfig, mesh: DeviceMesh):
     n = mesh.shape["batch"]
 
     def fn(lefts, rights):
-        lefts = torch.as_tensor(lefts, dtype=torch.float32)
-        rights = torch.as_tensor(rights, dtype=torch.float32)
-        if lefts.shape[0] % n:
-            raise ValueError(f"batch of {lefts.shape[0]} frames is not "
+        if len(lefts) % n:
+            raise ValueError(f"batch of {len(lefts)} frames is not "
                              f"divisible by the {n} devices of the batch "
                              "axis")
+        from_host = not (torch.is_tensor(lefts) and lefts.is_cuda)
+        with span("smt.upload"):
+            lshards, rshards = (
+                split.shards(torch.as_tensor(a, dtype=torch.float32))
+                for a in (lefts, rights))
+        count("upload_bytes", sum(t.nbytes for t in lshards + rshards
+                                  if from_host and t.is_cuda))
         raws, filtered = [], []
-        for ls, rs in zip(split.shards(lefts), split.shards(rights)):
+        for ls, rs in zip(lshards, rshards):
             outs = [_match_core(l, r, config) for l, r in zip(ls, rs)]
             raws.append(torch.stack([raw for raw, _ in outs]))
             filtered.append(torch.stack([filt for _, filt in outs]))

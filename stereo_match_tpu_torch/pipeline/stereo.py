@@ -20,7 +20,10 @@ the total (K3, ``num_paths`` launches), WTA with subpixel, uniqueness and
 the disp12 check (K4); then, when configured, the speckle filter's label
 sweeps (K5) and component sizes (K6), and the WLS smoother's tridiagonal
 solves (K7, two per WLS iteration). CPU tensors run the kernels' plain
-versions; CUDA tensors run the kernels. The entry points run on the card
+versions; CUDA tensors run the kernels. Each ``_match_core`` call counts a
+frame and issues its cost, SGM and WTA under the spans ``smt.cost``,
+``smt.sgm`` and ``smt.wta``; a matcher's upload runs under ``smt.upload``
+(``utils/profiling.py``). The entry points run on the card
 (``device="cuda"``) unless the caller passes ``device="cpu"``; without a
 card they raise.
 
@@ -58,6 +61,7 @@ from stereo_match_tpu_torch.ops.wls import (wls_confidence_cv2,
                                             wls_filter_disparity)
 from stereo_match_tpu_torch.ops.wta import to_fixed_point
 from stereo_match_tpu_torch.utils.backend import entry_device
+from stereo_match_tpu_torch.utils.profiling import count, span
 
 
 @dataclass
@@ -125,19 +129,24 @@ def _match_core(left_gray: torch.Tensor, right_gray: torch.Tensor,
     refinement (dense) when ``cfg.wls``, else ``raw``.
     """
     check_slice(cfg, cost_fn)
+    count("frames", 1)
     left = left_gray.to(torch.float32)
     right = right_gray.to(torch.float32)
-    if cost_fn is not None:
-        vol = cost_fn(left, right)
-        _check_volume(vol, cfg, left)
-    elif cfg.cost == "census":
-        vol = census_cost(left, right, cfg, cfg.dtype)
-    else:
-        vol = ClassicCost(cfg)(left, right)
-    total = aggregate_paths(vol, cfg.P1, cfg.P2, cfg.num_paths)
+    with span("smt.cost"):
+        if cost_fn is not None:
+            vol = cost_fn(left, right)
+            _check_volume(vol, cfg, left)
+        elif cfg.cost == "census":
+            vol = census_cost(left, right, cfg, cfg.dtype)
+        else:
+            vol = ClassicCost(cfg)(left, right)
+    with span("smt.sgm"):
+        total = aggregate_paths(vol, cfg.P1, cfg.P2, cfg.num_paths)
     del vol                   # free the volumes before the post stack runs
-    disp, disp_right = wta_lr(total, cfg.min_disparity, cfg.uniqueness_ratio,
-                              cfg.disp12_max_diff, cfg.subpixel)
+    with span("smt.wta"):
+        disp, disp_right = wta_lr(total, cfg.min_disparity,
+                                  cfg.uniqueness_ratio, cfg.disp12_max_diff,
+                                  cfg.subpixel)
     del total
     disp = speckle_filter(disp, cfg.speckle_window_size, cfg.speckle_range)
     if not cfg.wls:
@@ -169,16 +178,25 @@ class StereoMatcher:
         self.cost_fn = cost_fn
         self.device = entry_device(device)
 
-    def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+    def _upload(self, left, right) -> list[torch.Tensor]:
+        """Both views as float32 tensors on the matcher's device, under one
+        ``smt.upload`` span; counts the bytes copied from host memory onto
+        a card."""
+        with span("smt.upload"):
+            out = [torch.as_tensor(a, dtype=torch.float32, device=self.device)
+                   for a in (left, right)]
+        count("upload_bytes", sum(
+            t.nbytes for a, t in zip((left, right), out)
+            if t.is_cuda and not (torch.is_tensor(a) and a.is_cuda)))
+        return out
 
     def __call__(self, left_gray, right_gray):
-        return _match_core(self._tensor(left_gray), self._tensor(right_gray),
+        return _match_core(*self._upload(left_gray, right_gray),
                            self.config, self.cost_fn)
 
     def batched(self, lefts, rights):
         """Match a leading batch axis of frames (a capture sequence)."""
-        lefts, rights = self._tensor(lefts), self._tensor(rights)
+        lefts, rights = self._upload(lefts, rights)
         outs = [_match_core(l, r, self.config, self.cost_fn)
                 for l, r in zip(lefts, rights)]
         return (torch.stack([raw for raw, _ in outs]),

@@ -1,78 +1,74 @@
-"""Per-stage wall-clock timing and profiler annotations (PyTorch).
+"""Spans and counters of the port's matching path.
 
-Counterpart of ``stereo_match_tpu/utils/profiling.py``. ``StageTimer``
-collects wall-clock timings that wait for the device: where a stage names
-tensors, it synchronises each CUDA device they live on before the clock is
-read (CPU tensors need no wait). ``trace_stage`` wraps a stage in
-``torch.profiler.record_function``, so stages show up in profiler traces.
+``span(name)`` marks a stage. While a torch profiler is recording it opens
+``torch.profiler.record_function(name)``, so the stage lands in the
+profiler's trace on the clock of the device's kernel, copy and runtime
+events, and adds its host time (``time.perf_counter_ns``, inside the
+annotation) and one call to ``spans[name]``. With no profiler recording it
+costs one flag check: no annotation, no clock read. So ``spans`` holds the
+stages of the traced windows alone.
+
+``count(name, n)`` adds ``n`` to ``counters[name]`` whether or not a
+profiler runs: the entry counts ``frames`` (one a ``_match_core`` call) and
+``upload_bytes`` (the bytes it copies from host memory onto a card).
+Kernel launches are counted apart, in ``ops/cuda_kernels.launches``.
+
+An operator tracing their own process reads ``snapshot()`` and clears
+both with ``reset()``. The registry is the process's: the port drives the
+card from one thread.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from collections import defaultdict
 
 import torch
 
+# name -> {"calls": spans closed, "ns": host nanoseconds inside them}
+spans: dict[str, dict[str, int]] = {}
+counters: dict[str, int] = {}
 
-def _synchronize(value) -> None:
-    """Wait for the CUDA devices holding the tensors in ``value`` (a
-    tensor, or a list, tuple or dict of them, nested)."""
-    devices, todo = set(), [value]
-    while todo:
-        v = todo.pop()
-        if torch.is_tensor(v):
-            if v.is_cuda:
-                devices.add(v.device)
-        elif isinstance(v, dict):
-            todo.extend(v.values())
-        elif isinstance(v, (list, tuple)):
-            todo.extend(v)
-    for dev in devices:
-        torch.cuda.synchronize(dev)
+_recording = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
 
 
-class StageTimer:
-    """Accumulates wall-clock per named stage; reports mean/total seconds."""
+class _Span:
+    __slots__ = ("name", "annotation", "t0")
 
-    def __init__(self) -> None:
-        self.times: dict[str, list[float]] = defaultdict(list)
+    def __init__(self, name: str):
+        self.name = name
+        self.annotation = torch.profiler.record_function(name)
 
-    @contextlib.contextmanager
-    def stage(self, name: str, block_on=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if block_on is not None:
-                _synchronize(block_on)
-            self.times[name].append(time.perf_counter() - t0)
+    def __enter__(self):
+        self.annotation.__enter__()
+        self.t0 = time.perf_counter_ns()
 
-    def block(self, name: str, value):
-        """Time the device completion of ``value`` under ``name``."""
-        t0 = time.perf_counter()
-        _synchronize(value)
-        self.times[name].append(time.perf_counter() - t0)
-        return value
-
-    def summary(self) -> dict[str, dict[str, float]]:
-        out = {}
-        for name, ts in self.times.items():
-            out[name] = {"mean_s": sum(ts) / len(ts), "total_s": sum(ts),
-                         "count": len(ts), "min_s": min(ts)}
-        return out
-
-    def report(self) -> str:
-        lines = []
-        for name, s in self.summary().items():
-            lines.append(f"{name:30s} mean {s['mean_s']*1e3:9.3f} ms  "
-                         f"min {s['min_s']*1e3:9.3f} ms  x{s['count']}")
-        return "\n".join(lines)
+    def __exit__(self, *exc):
+        ns = time.perf_counter_ns() - self.t0
+        self.annotation.__exit__(*exc)
+        s = spans.get(self.name)
+        if s is None:
+            s = spans[self.name] = {"calls": 0, "ns": 0}
+        s["calls"] += 1
+        s["ns"] += ns
 
 
-@contextlib.contextmanager
-def trace_stage(name: str):
-    """Annotate a stage for the torch profiler's timeline."""
-    with torch.profiler.record_function(name):
-        yield
+def span(name: str):
+    """A context manager around a stage; see the module doc."""
+    return _Span(name) if _recording() else _OFF
+
+
+def count(name: str, n: int) -> None:
+    counters[name] = counters.get(name, 0) + n
+
+
+def snapshot() -> dict:
+    """Copies of ``spans`` and ``counters``."""
+    return {"spans": {k: dict(v) for k, v in spans.items()},
+            "counters": dict(counters)}
+
+
+def reset() -> None:
+    spans.clear()
+    counters.clear()

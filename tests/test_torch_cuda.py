@@ -292,6 +292,54 @@ def test_main_path_on_card_matches_cpu(dev):
     _assert_same_disparity(raw.cpu(), want)
 
 
+def test_entry_spans_hold_their_launches_and_count_uploads(dev, tmp_path):
+    """On the card the entry counts the float32 bytes it copies from host
+    memory (none for tensors already there), and each kernel's launch (the
+    runtime call of its correlation id) lies in its layer's span alone:
+    the spans share the device trace's clock."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+
+    from stereo_match_tpu_torch.utils import profiling
+    rng = np.random.default_rng(8)
+    left, right = rng.integers(0, 256, (2, 48, 160)).astype(np.uint8)
+    cfg = DisparityConfig(num_disparities=64, wls=False,
+                          speckle_window_size=0)
+    matcher = StereoMatcher(cfg, device=dev)
+    matcher(left, right)
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        matcher(left, right)
+        torch.cuda.synchronize()
+    nbytes = 2 * 48 * 160 * 4       # both views, cast to float32 on the host
+    assert profiling.counters == {"frames": 1, "upload_bytes": nbytes}
+    matcher(torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev))
+    assert profiling.counters["upload_bytes"] == nbytes
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"].startswith("smt.")]
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") == "cuda_runtime"
+             and "correlation" in e.get("args", {})}
+    layer_of = {"census_words": "smt.cost", "census_volume": "smt.cost",
+                "sgm_path_scan": "smt.sgm", "wta_walk": "smt.wta"}
+    seen = {}
+    for k in (e for e in events if e.get("cat") == "kernel"):
+        want = [v for n, v in layer_of.items() if n in k["name"]]
+        if not want:
+            continue
+        c = calls[k["args"]["correlation"]]
+        inside = [s["name"] for s in spans if s["ts"] <= c["ts"]
+                  and c["ts"] + c["dur"] <= s["ts"] + s["dur"]]
+        assert inside == want, (k["name"], inside)
+        seen[want[0]] = seen.get(want[0], 0) + 1
+    assert seen == {"smt.cost": 2, "smt.sgm": 8, "smt.wta": 1}
+    profiling.reset()
+
+
 def test_card_limits_raise_and_name_the_limit(dev):
     """D > 1024 in K3 and K10 and F > 128 in K8 raise ValueError on the
     card (the CPU takes both, tests/test_torch_limits.py)."""

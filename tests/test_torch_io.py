@@ -42,7 +42,6 @@ from stereo_match_tpu_torch.data import synthetic as tsynthetic
 from stereo_match_tpu_torch.eval import parity as tparity
 from stereo_match_tpu_torch.pipeline import artifacts as tartifacts
 from stereo_match_tpu_torch.utils import handy as thandy
-from stereo_match_tpu_torch.utils import profiling as tprofiling
 from stereo_match_tpu_torch.viz import plots as tplots
 
 PACKAGES = {
@@ -428,20 +427,6 @@ def test_figures_render():
                 tplots.show_disparity(pair.astype(float), pair * 0.5),
                 tplots.plot_transforms([np.eye(4), np.eye(4)], ["a", "b"])):
         assert fig.axes
-
-
-def test_stage_timer_on_cpu_tensors():
-    timer = tprofiling.StageTimer()
-    x = torch.arange(6.0)
-    with timer.stage("add", block_on={"a": [x, (x + 1,)], "b": 3}):
-        y = x + 1
-    assert timer.block("read", y) is y
-    with tprofiling.trace_stage("noop"):
-        timer.block("again", [y, {"k": y}])
-    s = timer.summary()
-    assert set(s) == {"add", "read", "again"}
-    assert all(v["count"] == 1 and v["total_s"] >= 0 for v in s.values())
-    assert "add" in timer.report()
 
 
 # -------------------- tests/test_io.py and test_artifacts.py, on both ----
